@@ -7,8 +7,9 @@ Needs one CUDA card and ``nvcc``; exits non-zero without them, and on
 any failed phase.  Phases:
 
 1. the device: name, count, and ``nvidia-smi`` name and power limit;
-2. build the frontier kernels from ``csrc/`` (nvcc, sm_90a) and print the
-   build seconds and the ``ptxas`` register/shared-memory lines;
+2. build the frontier and stop-check kernels from their ``csrc/`` sources
+   (one nvcc each, started together; sm_90a) and print the build seconds
+   and the ``ptxas`` register/shared-memory lines;
 3. hold each kernel against its plain PyTorch version at main-path
    shapes (one mid-BFS level of R-MAT 2^20 x 30, B=64): the flat kernel
    on the COO edges, the node-blocked kernel on a CSC layout at the
@@ -19,9 +20,14 @@ any failed phase.  Phases:
    here);
 4. the main path: ``run_kadabra`` on R-MAT 2^20 x 30, B=64, eps=0.01,
    delta=0.1 (``repro.configs.betweenness``), no CSC layout, so every
-   level goes through the flat kernel;
+   level goes through the flat kernel and every epoch's stop check
+   through the stop-check kernel;
    then four of its sampling rounds under ``torch.profiler`` (device
    time by kernel, device idle share);
+   then the stop-check kernel against its plain version at V = 2^20
+   with the budgets of this graph's own calibration (bitwise, a NaN case
+   and V = 1, 5000, 40000 included), timed beside the plain version and
+   the byte bound;
 5. a second path through the node-blocked kernel: a 256 x 256 grid with
    a CSC layout.  The kernel is first held against its plain version and
    timed at the grid's own shapes (one mid-BFS level, B=8: these are the
@@ -29,7 +35,18 @@ any failed phase.  Phases:
    ``run_kadabra`` runs at eps=0.05, then two of its rounds under the
    profiler;
 6. accuracy: ``run_kadabra`` on a 1000-vertex hyperbolic graph within
-   eps=0.05 of the exact ``brandes_numpy``.
+   eps=0.05 of the exact ``brandes_numpy``;
+7. the forward path: ``run_adaptive`` with betweenness, closeness and
+   harmonic on one forward stream over the same R-MAT graph, B=64,
+   eps=0.01, no CSC layout: every level through the flat kernel, three
+   stop checks per epoch through the stop-check kernel; then two of its
+   rounds under the profiler;
+8. accuracy of closeness and harmonic on a connected Erdos-Renyi graph
+   against scipy's exact distances, with the bounds of
+   ``tests/test_estimators.py``.
+
+Every run resets the launch counts just before it and reads them just
+after: each kernel of the run must have carried all of its work.
 
 Then it prints the ``{"kernels": [...]}`` line, the card's name and
 power limit, and as the last line
@@ -41,6 +58,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
@@ -56,6 +74,12 @@ MAIN_MAX_EPOCHS = 100
 GRID_SIDE, GRID_EPS = 256, 0.05
 GRID_BATCH = 8        # what resolve_sample_batch_size picks for the grid
 HYPER_N, HYPER_EPS = 1000, 0.05
+# the forward path: ~85 epochs to closeness's Hoeffding omega at eps 0.01
+FWD_METRICS = ("betweenness", "closeness", "harmonic")
+FWD_EPS, FWD_MAX_EPOCHS = 0.01, 200
+ER_N, ER_DEGREE, ER_EPS = 1500, 8.0, 0.05
+STOPCHECK_SHAPES = (1, 5000, 40000)   # besides the full V
+STOPCHECK_OPS = 20                    # float operations per vertex
 DEVICE = "cuda"
 
 
@@ -116,16 +140,23 @@ def phase_device():
 
 
 def phase_build():
+    """Every kernel source, one nvcc each, all started together."""
     from repro_torch.kernels import _build
-    from repro_torch.kernels.frontier import kernel
+    from repro_torch.kernels.frontier import kernel as frontier
+    from repro_torch.kernels.stopcheck import kernel as stopcheck
     t0 = time.perf_counter()
-    kernel.library()
-    report = _build.build_report("frontier")
-    log(f"[2] built frontier.cu in {report['seconds']:.2f} s "
-        f"(phase {time.perf_counter() - t0:.2f} s)")
-    for line in report["ptxas"].splitlines():
-        if "registers" in line or "Compiling entry" in line:
-            log(f"  ptxas: {line.strip()}")
+    libs = {"frontier": frontier.library, "stopcheck": stopcheck.library}
+    with ThreadPoolExecutor(len(libs)) as pool:
+        for fut in [pool.submit(build) for build in libs.values()]:
+            fut.result()
+    log(f"[2] built {len(libs)} sources in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for name in libs:
+        report = _build.build_report(name)
+        log(f"  {name}.cu: nvcc {report['seconds']:.2f} s")
+        for line in report["ptxas"].splitlines():
+            if "registers" in line or "Compiling entry" in line:
+                log(f"  ptxas: {line.strip()}")
 
 
 def mid_bfs_state(graph, batch: int):
@@ -269,7 +300,9 @@ def phase_grid_kernel(grid) -> dict:
                            f" block_v={csc.block_v} block_e={csc.block_e}"}
 
 
-def phase_profile(label: str, graph, rounds: int, batch: int):
+def phase_profile(label: str, graph, rounds: int, batch: int,
+                  metrics=("betweenness",), stream="bidir",
+                  vertex_diameter: int = 0):
     """``rounds`` sampling rounds of ``batch`` under ``torch.profiler``:
     device time by kernel (the profiler's device-side entries only, so no
     kernel is counted twice), and the device's idle share of the wall
@@ -279,14 +312,14 @@ def phase_profile(label: str, graph, rounds: int, batch: int):
     from repro_torch.core.engine import draw_fold, resolve_estimators
     from repro_torch.core.estimators.base import RunContext
     gen = torch.Generator(device=graph.device).manual_seed(SEED + 1)
-    ests = resolve_estimators("betweenness")
-    ctx = RunContext(graph.n_nodes, 0)
+    ests = resolve_estimators(metrics)
+    ctx = RunContext(graph.n_nodes, vertex_diameter)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fold = draw_fold(graph, gen, rounds * batch, estimators=ests,
-                         ctx=ctx, batch_size=batch)
+                         ctx=ctx, stream=stream, batch_size=batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = [(evt.self_device_time_total / 1e3, evt.count, evt.key)
@@ -301,19 +334,43 @@ def phase_profile(label: str, graph, rounds: int, batch: int):
             f"{key[:80]}")
 
 
+def reset_counts() -> None:
+    from repro_torch.kernels import frontier, stopcheck
+    frontier.reset_launch_counts()
+    stopcheck.reset_launch_counts()
+
+
+def read_counts(label: str, kernel_name: str, bfs_levels: int,
+                stop_checks: int) -> dict:
+    """The launch counts of the run just made: the named frontier kernel
+    carried every level and the stop-check kernel every stop check."""
+    from repro_torch.kernels import frontier, stopcheck
+    counts = {**frontier.launch_counts, **stopcheck.launch_counts}
+    fr = dict(frontier.launch_counts)
+    if fr[kernel_name] == 0 or fr[kernel_name] != bfs_levels \
+            or sum(fr.values()) != fr[kernel_name]:
+        raise AssertionError(f"{label}: expected all {bfs_levels} levels "
+                             f"through {kernel_name}, got {counts}")
+    got = counts[stopcheck.STOPCHECK]
+    if got == 0 or got != stop_checks:
+        raise AssertionError(f"{label}: expected {stop_checks} stop checks "
+                             f"through the stop-check kernel, got {counts}")
+    return counts
+
+
 def drive(label: str, graph, kernel_name: str, eps: float, delta: float,
           **cfg):
     """Run ``run_kadabra`` with the launch counts set to 0 just before
-    and read just after; the named kernel must carry every level."""
+    and read just after; the named kernel must carry every level and the
+    stop-check kernel the one stop check of every epoch."""
     import numpy as np
     from repro_torch.core import AdaptiveConfig, run_kadabra
-    from repro_torch.kernels.frontier import launch_counts, reset_launch_counts
     config = AdaptiveConfig(eps=eps, delta=delta, **cfg)
-    reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     res = run_kadabra(graph, config=config, seed=SEED, device=DEVICE)
     seconds = time.perf_counter() - t0
-    counts = dict(launch_counts)
+    counts = read_counts(label, kernel_name, res.bfs_levels, res.n_epochs)
     b = res.btilde
     log(f"  {label}: {seconds:.1f} s, phases "
         + ", ".join(f"{k} {v:.2f} s" for k, v in res.phase_seconds.items())
@@ -324,11 +381,174 @@ def drive(label: str, graph, kernel_name: str, eps: float, delta: float,
             or (b < 0).any() or (b > 1).any():
         raise AssertionError(f"{label}: scores not finite in [0, 1] of "
                              f"shape ({graph.n_nodes},)")
-    if counts[kernel_name] == 0 or counts[kernel_name] != res.bfs_levels \
-            or sum(counts.values()) != counts[kernel_name]:
-        raise AssertionError(f"{label}: expected all {res.bfs_levels} "
-                             f"levels through {kernel_name}, got {counts}")
-    return res, counts[kernel_name]
+    return res, counts
+
+
+def same_bits(name: str, got, want) -> float:
+    """Bitwise equality, with NaN exactly where the plain version has it;
+    on a mismatch the error names the largest gap in float32 ulps."""
+    import torch
+    nan = torch.isnan(want)
+    ok = torch.equal(torch.isnan(got), nan) and torch.equal(got[~nan],
+                                                            want[~nan])
+    if not ok:
+        ulps = int((got.view(torch.int32).long()
+                    - want.view(torch.int32).long()).abs().max())
+        raise AssertionError(f"{name}: {got.tolist()} is not its plain "
+                             f"version {want.tolist()} ({ulps} ulps)")
+    log(f"  {name}: bitwise equal to its plain version {got.tolist()}")
+    return float((got[~nan] - want[~nan]).abs().max()) if bool(
+        (~nan).any()) else 0.0
+
+
+def phase_stopcheck(rmat, vertex_diameter: int, tau: int) -> dict:
+    """The stop-check kernel at V = 2^20 with the budgets of the R-MAT
+    run's own calibration (a fresh 32-sample frame through the
+    betweenness estimator's make_params at the run's vertex diameter)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.engine import draw_fold, resolve_estimators
+    from repro_torch.core.estimators.base import RunContext
+    from repro_torch.kernels.stopcheck import stopcheck_fused, stopcheck_ref
+    v = rmat.n_nodes
+    est = resolve_estimators("betweenness")
+    ctx = RunContext(v, vertex_diameter)
+    gen = torch.Generator(device=rmat.device).manual_seed(SEED + 2)
+    cal = draw_fold(rmat, gen, 32, estimators=est, ctx=ctx,
+                    batch_size=BATCH)
+    p = est[0].make_params(rmat, ctx, MAIN_EPS, MAIN_DELTA, cal.counts,
+                           cal.tau)
+    lil, liu, omega = p.log_inv_delta_l, p.log_inv_delta_u, p.omega
+    counts = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, 400, v).astype(np.float32)).to(rmat.device)
+    log(f"  stop check at V={v}: omega {float(omega):.1f}, tau {tau}")
+    nan_lil = lil.clone()
+    nan_lil[v // 3] = float("nan")
+    cases = [("calibration frame", cal.counts[0][:v], cal.tau, lil, liu),
+             ("seeded counts", counts, tau, lil, liu),
+             ("NaN in ln(1/delta_L)", counts, tau, nan_lil, liu)]
+    cases += [(f"V={n}", counts[:n], tau, lil[:n], liu[:n])
+              for n in STOPCHECK_SHAPES]
+    err = 0.0
+    for name, c, t, lo, up in cases:
+        args = (c.contiguous(), t, lo.contiguous(), up.contiguous(), omega)
+        got, want = stopcheck_fused(*args), stopcheck_ref(*args)
+        torch.cuda.synchronize()
+        err = max(err, same_bits(f"stopcheck {name}", got, want))
+    args = (counts, tau, lil, liu, omega)
+    ms = cuda_time_ms(lambda: stopcheck_fused(*args), 200)
+    plain = cuda_time_ms(lambda: stopcheck_ref(*args), 50)
+    b_ms, b_by = bound(3 * 4 * v + 2 * 4, STOPCHECK_OPS * v)
+    # the two kernels' own device time, without the host's enqueue
+    from torch.profiler import ProfilerActivity, profile
+    calls = 50
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            stopcheck_fused(*args)
+        torch.cuda.synchronize()
+    device_ms = sum(
+        evt.self_device_time_total for evt in prof.key_averages()
+        if evt.device_type == torch.autograd.DeviceType.CUDA
+        and "stopcheck" in evt.key) / 1e3 / calls
+    log(f"  stopcheck: {ms * 1e3:.2f} us per call ({device_ms * 1e3:.2f} us "
+        f"of it in its two kernels), plain {plain * 1e3:.2f} us, bound "
+        f"{b_ms * 1e3:.2f} us ({b_by}); no single PyTorch call computes "
+        "[max f, max g]")
+    return {"max_abs_err": err, "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "shape": f"V={v} float32 x 3 (R-MAT 2^{RMAT_SCALE} budgets)"}
+
+
+def phase_forward(rmat) -> tuple:
+    """Betweenness, closeness and harmonic on one forward stream over the
+    R-MAT graph; returns the result and the run's launch counts."""
+    import numpy as np
+    from repro_torch.core import AdaptiveConfig, run_adaptive
+    from repro_torch.kernels.frontier import FLAT
+    config = AdaptiveConfig(eps=FWD_EPS, delta=MAIN_DELTA,
+                            sample_batch_size=BATCH,
+                            max_epochs=FWD_MAX_EPOCHS)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = run_adaptive(rmat, FWD_METRICS, config=config, seed=SEED,
+                       stream="forward", device=DEVICE)
+    seconds = time.perf_counter() - t0
+    counts = read_counts("forward", FLAT, res.bfs_levels,
+                         len(FWD_METRICS) * res.n_epochs)
+    t_samp = res.phase_seconds["sampling"]
+    log(f"  forward: {seconds:.1f} s, phases "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in res.phase_seconds.items())
+        + f"; epochs {res.n_epochs}, samples {res.tau} "
+        f"({res.tau / t_samp:.1f}/s), vertex diameter "
+        f"{res.vertex_diameter}, BFS levels {res.bfs_levels}, launches "
+        f"{counts}")
+    for rep in res.reports:
+        log(f"  {rep.name}: tau {rep.tau}, omega {rep.omega:.1f}, converged "
+            f"{rep.converged}, stop_epoch {rep.stop_epoch}")
+        if rep.scores.shape != (rmat.n_nodes,) \
+                or not np.isfinite(rep.scores).all():
+            raise AssertionError(f"forward {rep.name}: scores not finite of "
+                                 f"shape ({rmat.n_nodes},)")
+        if not (rep.converged or rep.tau >= rep.omega):
+            raise AssertionError(f"forward {rep.name}: neither converged "
+                                 f"nor at omega (max_epochs {FWD_MAX_EPOCHS})")
+    bet = res.reports[0].scores
+    if (bet < 0).any() or (bet > 1).any():
+        raise AssertionError("forward betweenness: scores outside [0, 1]")
+    return res, counts
+
+
+def dense_distances(graph):
+    """All-pairs hop distances on the host (scipy), inf when unreached."""
+    import numpy as np
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import shortest_path
+    n = graph.n_nodes
+    indptr = graph.indptr.cpu().numpy()
+    indices = graph.indices.cpu().numpy()[: indptr[-1]]
+    adj = csr_matrix((np.ones(indices.size, np.int8), indices, indptr),
+                     shape=(n, n))
+    return shortest_path(adj, method="D", unweighted=True)
+
+
+def phase_distance_accuracy() -> dict:
+    """Closeness and harmonic on a connected Erdos-Renyi graph against
+    scipy's exact distances (the bounds of tests/test_estimators.py)."""
+    import numpy as np
+    from repro_torch.core import erdos_renyi_graph, run_adaptive
+    from repro_torch.kernels.frontier import FLAT
+    for seed in range(SEED, SEED + 20):
+        graph = erdos_renyi_graph(ER_N, ER_DEGREE, seed=seed, device=DEVICE)
+        d = dense_distances(graph)
+        if np.isfinite(d).all():
+            break
+    else:
+        raise AssertionError("no connected Erdos-Renyi instance in 20 seeds")
+    n = graph.n_nodes
+    reset_counts()
+    res = run_adaptive(graph, ("closeness", "harmonic"), eps=ER_EPS,
+                       delta=0.1, seed=SEED, device=DEVICE)
+    counts = read_counts("er", FLAT, res.bfs_levels, 2 * res.n_epochs)
+    clo, har = res.reports
+    exact_clo = (n - 1) / d.sum(axis=0)
+    rel = float((np.abs(clo.scores - exact_clo) / exact_clo).max())
+    corr_clo = float(np.corrcoef(clo.scores, exact_clo)[0, 1])
+    dh = d.copy()
+    np.fill_diagonal(dh, np.inf)
+    exact_har = (1.0 / dh).sum(axis=0) / (n - 1)
+    err_har = float(np.abs(har.scores - exact_har).max())
+    corr_har = float(np.corrcoef(har.scores, exact_har)[0, 1])
+    log(f"  ER({n}, seed {seed}): tau {clo.tau}/{har.tau}, epochs "
+        f"{res.n_epochs}; closeness max rel err {rel:.4f} corr "
+        f"{corr_clo:.5f}; harmonic max err {err_har:.5f} corr "
+        f"{corr_har:.5f}; launches {counts}")
+    if not (clo.converged and har.converged and rel < 0.15
+            and corr_clo > 0.99 and err_har < 2 * ER_EPS
+            and corr_har > 0.99):
+        raise AssertionError("closeness/harmonic outside the oracle bounds")
+    return counts
 
 
 def main() -> int:
@@ -343,6 +563,7 @@ def main() -> int:
                                   hyperbolic_graph, rmat_graph,
                                   with_csc_layout)
     from repro_torch.kernels.frontier import FLAT, NODE_BLOCKED
+    from repro_torch.kernels.stopcheck import STOPCHECK
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -357,38 +578,63 @@ def main() -> int:
         f"E={rmat.n_edges} max degree {rmat.max_degree}")
     rows = phase_kernels(rmat)
     torch.cuda.empty_cache()
+    paths = {}   # path -> its run's launch counts
 
     log(f"[4] main path: run_kadabra R-MAT 2^{RMAT_SCALE} x {EDGE_FACTOR}, "
         f"B={BATCH}, eps={MAIN_EPS}, delta={MAIN_DELTA}, max_epochs "
         f"{MAIN_MAX_EPOCHS}")
-    res, rows[0]["launches"] = drive(
+    res, paths["rmat_bidir"] = drive(
         "rmat", rmat, FLAT, MAIN_EPS, MAIN_DELTA, sample_batch_size=BATCH,
         max_epochs=MAIN_MAX_EPOCHS)
     if not res.converged:
         log(f"  the epoch cap {MAIN_MAX_EPOCHS} was hit: converged=False")
     phase_profile("rmat", rmat, 4, BATCH)
-    del rmat
+    rows.append({"name": STOPCHECK, "route": "cuda",
+                 "source": "src/repro_torch/kernels/stopcheck/csrc/"
+                           "stopcheck.cu",
+                 "replaces": "src/repro/kernels/stopcheck/kernel.py:45",
+                 "launches": 0,
+                 **phase_stopcheck(rmat, res.vertex_diameter, res.tau)})
     torch.cuda.empty_cache()
 
     log(f"[5] node-blocked path: run_kadabra on a {GRID_SIDE} x {GRID_SIDE} "
         f"grid with a CSC layout, eps={GRID_EPS}")
     grid = with_csc_layout(grid_graph(GRID_SIDE, GRID_SIDE, device=DEVICE))
     rows[1].update(phase_grid_kernel(grid))
-    _res, rows[1]["launches"] = drive("grid", grid, NODE_BLOCKED, GRID_EPS,
-                                      0.1)
+    _res, paths["grid"] = drive("grid", grid, NODE_BLOCKED, GRID_EPS, 0.1)
     phase_profile("grid", grid, 2, GRID_BATCH)
+    del grid
 
     log(f"[6] accuracy: run_kadabra on hyperbolic({HYPER_N}) vs exact "
         f"Brandes, eps={HYPER_EPS}")
     hyper = hyperbolic_graph(HYPER_N, seed=SEED, device=DEVICE)
-    res, _ = drive("hyperbolic", hyper, FLAT, HYPER_EPS, 0.1)
+    res, paths["hyperbolic"] = drive("hyperbolic", hyper, FLAT, HYPER_EPS,
+                                     0.1)
     exact = brandes_numpy(hyper)
     err = float(np.abs(res.btilde - exact).max())
     log(f"  max |b~ - b| = {err:.5f} (eps {HYPER_EPS})")
     if not err < HYPER_EPS:
         raise AssertionError(f"hyperbolic: max error {err} >= {HYPER_EPS}")
 
-    log(f"[7] total {time.perf_counter() - t_start:.1f} s")
+    log(f"[7] forward path: run_adaptive {FWD_METRICS} on R-MAT "
+        f"2^{RMAT_SCALE} x {EDGE_FACTOR}, stream='forward', B={BATCH}, "
+        f"eps={FWD_EPS}, delta={MAIN_DELTA}, max_epochs {FWD_MAX_EPOCHS}")
+    res, paths["forward"] = phase_forward(rmat)
+    phase_profile("forward", rmat, 2, BATCH, metrics=FWD_METRICS,
+                  stream="forward", vertex_diameter=res.vertex_diameter)
+    del rmat
+    torch.cuda.empty_cache()
+
+    log(f"[8] accuracy: closeness and harmonic on a connected ER({ER_N}) "
+        f"vs scipy's exact distances, eps={ER_EPS}")
+    paths["er"] = phase_distance_accuracy()
+
+    # each row's launches: the run of the path that row's kernel carries
+    for row, main_path in zip(rows, ("rmat_bidir", "grid", "forward")):
+        row["launches"] = paths[main_path][row["name"]]
+        row["launches_by_path"] = {k: c[row["name"]]
+                                   for k, c in paths.items()}
+    log(f"[9] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

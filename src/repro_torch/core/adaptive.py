@@ -1,6 +1,7 @@
 """``run_kadabra``: the paper's KADABRA on one device
 (``repro.core.adaptive``), a thin mapping of the engine's result onto
-:class:`BetweennessResult`."""
+:class:`BetweennessResult`; and ``run_fixed_sampling``, its fixed-count
+baseline."""
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
@@ -8,9 +9,11 @@ from typing import NamedTuple, Optional
 import numpy as np
 
 from ..device import DEFAULT_DEVICE
-from .engine import AdaptiveConfig, AdaptiveRunResult, run_adaptive
+from .engine import (AdaptiveConfig, AdaptiveRunResult, run_adaptive,
+                     run_fixed)
 
-__all__ = ["BetweennessResult", "EpochStats", "run_kadabra"]
+__all__ = ["BetweennessResult", "EpochStats", "run_fixed_sampling",
+           "run_kadabra"]
 
 
 class EpochStats(NamedTuple):
@@ -53,3 +56,14 @@ def run_kadabra(graph, *, eps: Optional[float] = None,
     return BetweennessResult(rep.scores, rep.tau, res.n_epochs,
                              rep.converged, rep.omega, res.vertex_diameter,
                              stats, res.phase_seconds, res.bfs_levels)
+
+
+def run_fixed_sampling(graph, n_samples: int, *, seed: int = 0,
+                       batch_size: Optional[int] = None,
+                       device=DEFAULT_DEVICE) -> np.ndarray:
+    """Non-adaptive baseline (a fixed sample count, no stop rule): the
+    betweenness estimates of :func:`run_fixed` on the bidirectional
+    stream."""
+    reports = run_fixed(graph, n_samples, metrics=("betweenness",),
+                        seed=seed, batch_size=batch_size, device=device)
+    return reports[0].scores

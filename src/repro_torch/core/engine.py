@@ -17,12 +17,17 @@ Phases, as in the JAX package:
 State frames are channel-stacked (C, V+1) float32 tensors, one row per
 estimator channel, with host-side int sample counts.  Randomness comes
 from one ``torch.Generator`` on the run's device, seeded from ``seed``;
-the JAX ``lax.scan`` over rounds is a Python loop here.
+the JAX ``lax.scan`` over rounds is a Python loop here.  One draw stream
+feeds every estimator: the bidirectional one, or the forward one when
+an estimator reads distance columns (closeness, harmonic).  Every
+epoch evaluates every estimator's stop rule, stopped or not, as the JAX
+engine does; on the card each evaluation is one launch of the stop-check
+kernel.
 
 Not in this slice (each raises ``NotImplementedError`` naming the
-ROADMAP §1 item that adds it): the forward and weighted streams with
-closeness and harmonic (items 9 and 13), checkpointing (10), meshes
-(11, 12), and the supervision hook and telemetry (14).
+ROADMAP §1 item that adds it): the weighted stream (item 13),
+checkpointing (10), meshes (11, 12), and the supervision hook and
+telemetry (14).
 """
 from __future__ import annotations
 
@@ -40,12 +45,12 @@ from .epoch import epoch_length
 from .estimators import get_estimator
 from .estimators.base import DrawBatch, Estimator, MetricReport, RunContext
 from .graph import Graph
-from .sampler import sample_path_batched
+from .sampler import sample_path_batched, sample_path_forward_batched
 
 __all__ = ["DEFAULT_SAMPLE_BATCH_SIZE", "AdaptiveConfig",
            "AdaptiveRunResult", "EngineEpochStats", "FoldResult",
            "draw_fold", "resolve_estimators", "resolve_sample_batch_size",
-           "resolve_stream", "run_adaptive"]
+           "resolve_stream", "run_adaptive", "run_fixed"]
 
 DEFAULT_SAMPLE_BATCH_SIZE = 16
 
@@ -101,23 +106,12 @@ class AdaptiveRunResult(NamedTuple):
     bfs_levels: int       # frontier expansions of the whole run
 
 
-_FORWARD_METRICS = {"closeness": 9, "harmonic": 9}
-
-
 def resolve_estimators(metrics) -> tuple:
     """Metric names (or Estimator instances) -> tuple of plugins."""
     if isinstance(metrics, (str, Estimator)):
         metrics = (metrics,)
-    ests = []
-    for m in metrics:
-        if isinstance(m, Estimator):
-            ests.append(m)
-        elif m in _FORWARD_METRICS:
-            raise NotImplementedError(
-                f"metric {m!r} needs the forward stream, not ported yet "
-                f"(ROADMAP §1 item {_FORWARD_METRICS[m]})")
-        else:
-            ests.append(get_estimator(m))
+    ests = [m if isinstance(m, Estimator) else get_estimator(m)
+            for m in metrics]
     if not ests:
         raise ValueError("metrics must name at least one estimator")
     names = [e.name for e in ests]
@@ -127,20 +121,23 @@ def resolve_estimators(metrics) -> tuple:
 
 
 def resolve_stream(estimators, stream: Optional[str] = None) -> str:
-    """Only the bidirectional stream is ported in this slice."""
-    if stream in (None, "bidir"):
-        need_fwd = [e.name for e in estimators if e.needs_forward]
-        if need_fwd:
-            raise NotImplementedError(
-                f"estimators {need_fwd} need the forward stream "
-                "(ROADMAP §1 item 9)")
-        return "bidir"
-    if stream == "forward":
-        raise NotImplementedError("stream='forward' is ROADMAP §1 item 9")
+    """The draw stream: ``"bidir"`` (KADABRA's bidirectional search)
+    unless an estimator needs the forward stream's distance columns.  A
+    forward estimator on an explicit ``"bidir"`` raises ``ValueError``;
+    ``"weighted"`` is not ported yet."""
+    need_fwd = [e.name for e in estimators if e.needs_forward]
+    if stream is None:
+        return "forward" if need_fwd else "bidir"
     if stream == "weighted":
         raise NotImplementedError("stream='weighted' is ROADMAP §1 item 13")
-    raise ValueError(f"unknown stream {stream!r} (expected 'bidir', "
-                     "'forward' or 'weighted')")
+    if stream not in ("bidir", "forward"):
+        raise ValueError(f"unknown stream {stream!r} (expected 'bidir', "
+                         "'forward' or 'weighted')")
+    if stream == "bidir" and need_fwd:
+        raise ValueError(
+            f"estimators {need_fwd} need the forward stream; the "
+            "bidirectional stream carries no per-source distances")
+    return stream
 
 
 def _channel_offsets(estimators) -> tuple:
@@ -166,16 +163,22 @@ class FoldResult(NamedTuple):
 
 
 def draw_fold(graph: Graph, gen: torch.Generator, n_samples: int, *,
-              estimators, ctx: RunContext, batch_size: int = 1,
-              carry=None) -> FoldResult:
+              estimators, ctx: RunContext, stream: str = "bidir",
+              batch_size: int = 1, carry=None) -> FoldResult:
     """Take exactly ``n_samples`` new samples in rounds of ``batch_size``
-    and fold them through every estimator's ``accumulate``.
+    from ``stream`` (``"bidir"`` or ``"forward"``) and fold them through
+    every estimator's ``accumulate``.
 
     When ``batch_size`` does not divide ``n_samples``, the surplus
     samples of the last round (valid i.i.d. draws) are folded into a
     separate frame, which the engine carries into the next epoch.
     ``carry`` ((C, V+1) counts, tau) is added to the returned frame.
     """
+    draw = {"bidir": sample_path_batched,
+            "forward": sample_path_forward_batched}.get(stream)
+    if draw is None:
+        raise ValueError(f"unknown stream {stream!r} (expected 'bidir' or "
+                         "'forward')")
     batch_size = max(1, min(int(batch_size), int(n_samples)))
     rounds = -(-n_samples // batch_size)
     dev = graph.device
@@ -189,9 +192,11 @@ def draw_fold(graph: Graph, gen: torch.Generator, n_samples: int, *,
         tau = int(carry[1])
     n_levels = 0
     for r in range(rounds):
-        ps = sample_path_batched(graph, gen, batch_size)
+        ps = draw(graph, gen, batch_size)
         n_levels += ps.n_levels
-        batch = DrawBatch(ps.internal, ps.valid, ps.length)
+        batch = DrawBatch(ps.internal, ps.valid, ps.length,
+                          getattr(ps, "dist", None),
+                          getattr(ps, "sources", None))
         n_keep = min(batch_size, n_samples - r * batch_size)
         keep = torch.arange(batch_size, device=dev) < n_keep
         counts = counts + torch.cat(
@@ -224,8 +229,8 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _single_lane(graph: Graph, cfg: AdaptiveConfig, estimators, gen,
-                 offsets):
+def _single_lane(graph: Graph, cfg: AdaptiveConfig, estimators, stream,
+                 gen, offsets):
     """Phase 1 and the per-epoch pieces of the single-device lane."""
     ns = SimpleNamespace()
     dev = graph.device
@@ -237,7 +242,8 @@ def _single_lane(graph: Graph, cfg: AdaptiveConfig, estimators, gen,
 
     def calibrate(bsz, ctx):
         return draw_fold(graph, gen, cfg.calib_samples_per_device,
-                         estimators=estimators, ctx=ctx, batch_size=bsz)
+                         estimators=estimators, ctx=ctx, stream=stream,
+                         batch_size=bsz)
 
     def make_epoch(params, ctx, n0, bsz):
         def epoch_step(state):
@@ -245,7 +251,8 @@ def _single_lane(graph: Graph, cfg: AdaptiveConfig, estimators, gen,
             agg_c = agg_c + fr_c
             agg_t = agg_t + fr_t
             fold = draw_fold(graph, gen, n0, estimators=estimators,
-                             ctx=ctx, batch_size=bsz, carry=(sur_c, sur_t))
+                             ctx=ctx, stream=stream, batch_size=bsz,
+                             carry=(sur_c, sur_t))
             checks = _check_all(estimators, offsets, agg_c, agg_t, params,
                                 ctx)
             return ((agg_c, agg_t, fold.counts, fold.tau, fold.sur_counts,
@@ -282,6 +289,7 @@ def run_adaptive(graph: Graph, metrics=("betweenness",), *,
     ``graph`` is moved to ``device`` (default ``"cuda"``; raises without
     a card unless ``device="cpu"``).  Explicit ``eps``/``delta`` override
     ``config``'s.  ``seed`` seeds the run's one ``torch.Generator``.
+    ``stream`` is resolved by :func:`resolve_stream`.
     """
     for value, item in ((mesh, "items 11-12 (SPMD and sharded lanes)"),
                         (checkpoint_dir, "item 10 (checkpointing)"),
@@ -300,12 +308,12 @@ def run_adaptive(graph: Graph, metrics=("betweenness",), *,
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
     estimators = resolve_estimators(metrics)
-    resolve_stream(estimators, stream)
+    stream = resolve_stream(estimators, stream)
     offsets = _channel_offsets(estimators)
     n_est = len(estimators)
 
     # ---- phase 1: diameter ---------------------------------------------
-    lane = _single_lane(graph, cfg, estimators, gen, offsets)
+    lane = _single_lane(graph, cfg, estimators, stream, gen, offsets)
     ctx = RunContext(graph.n_nodes, lane.vd)
     bsz = resolve_sample_batch_size(cfg.sample_batch_size, ctx.n_nodes,
                                     ctx.vertex_diameter)
@@ -378,3 +386,45 @@ def run_adaptive(graph: Graph, metrics=("betweenness",), *,
         ctx.vertex_diameter, stats,
         {"diameter": lane.t_diam, "calibration": t_cal,
          "sampling": t_samp}, bfs_levels)
+
+
+def run_fixed(graph: Graph, n_samples: int, *, metrics=("betweenness",),
+              seed: int = 0, batch_size: Optional[int] = None,
+              stream: Optional[str] = None, device=DEFAULT_DEVICE,
+              mesh=None) -> tuple:
+    """Non-adaptive baseline: exactly ``n_samples`` samples of one shared
+    draw stream, folded through every requested metric, with no stop
+    rule.  Returns a :class:`MetricReport` per metric in ``metrics``
+    order, with ``converged=False`` (no guarantee attaches to a fixed
+    run), ``omega`` NaN and ``stop_epoch`` 0.
+
+    ``batch_size=None`` takes ``DEFAULT_SAMPLE_BATCH_SIZE``.  The
+    diameter is swept only when a metric normalizes by it (closeness).
+    Single lane only: ``mesh=`` raises ``NotImplementedError``.
+    """
+    if mesh is not None:
+        raise NotImplementedError("this argument is not ported yet: "
+                                  "ROADMAP §1 items 11-12 (SPMD and sharded "
+                                  "lanes)")
+    estimators = resolve_estimators(metrics)
+    stream = resolve_stream(estimators, stream)
+    dev = resolve_device(device)
+    graph = graph.to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    vd = 0
+    if stream == "forward" and any(e.needs_diameter for e in estimators):
+        vd = int(estimate_diameter(graph, gen, n_sweeps=2).vertex_diameter)
+    ctx = RunContext(graph.n_nodes, vd)
+    fold = draw_fold(graph, gen, n_samples, estimators=estimators, ctx=ctx,
+                     stream=stream,
+                     batch_size=(DEFAULT_SAMPLE_BATCH_SIZE if batch_size is None
+                                 else batch_size))
+    reports = []
+    for est, off in zip(estimators, _channel_offsets(estimators)):
+        sl = fold.counts[off: off + est.n_channels]
+        reports.append(MetricReport(
+            name=est.name, scores=est.finalize(sl, fold.tau, None, ctx),
+            tau=fold.tau, converged=False, omega=float("nan"), stop_epoch=0,
+            extras=est.extras(None, ctx)))
+    return tuple(reports)

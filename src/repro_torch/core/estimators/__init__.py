@@ -1,15 +1,20 @@
 """Estimator plugins of the adaptive engine and their registry
-(``repro.core.estimators``).  This slice holds betweenness; closeness
-and harmonic come with the forward stream."""
+(``repro.core.estimators``): betweenness on either stream, closeness
+and harmonic on the forward stream."""
 from __future__ import annotations
 
 from .base import DrawBatch, Estimator, MetricReport, RunContext
+from .closeness import ClosenessEstimator
+from .harmonic import HarmonicEstimator
 from .kadabra import BetweennessEstimator
 
-__all__ = ["BetweennessEstimator", "DrawBatch", "Estimator", "MetricReport",
-           "RunContext", "available_metrics", "get_estimator"]
+__all__ = ["BetweennessEstimator", "ClosenessEstimator", "DrawBatch",
+           "Estimator", "HarmonicEstimator", "MetricReport", "RunContext",
+           "available_metrics", "get_estimator"]
 
-_REGISTRY = {"betweenness": BetweennessEstimator}
+_REGISTRY = {"betweenness": BetweennessEstimator,
+             "closeness": ClosenessEstimator,
+             "harmonic": HarmonicEstimator}
 # historical name of the betweenness algorithm
 _ALIASES = {"kadabra": "betweenness"}
 

@@ -9,7 +9,7 @@ frame channels and the four hooks.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -18,9 +18,13 @@ __all__ = ["DrawBatch", "Estimator", "MetricReport", "RunContext"]
 
 
 class RunContext(NamedTuple):
-    """Per-run facts every hook may read."""
+    """Per-run facts every hook may read.  ``distance_cap`` is nonzero
+    only on the weighted stream (ROADMAP §1 item 13): a bound on the
+    weighted distances, which closeness then normalizes by in place of
+    the vertex diameter."""
     n_nodes: int
     vertex_diameter: int
+    distance_cap: float = 0.0
 
 
 class DrawBatch(NamedTuple):
@@ -28,12 +32,19 @@ class DrawBatch(NamedTuple):
 
     The port carries the drawn paths as vertex lists (``internal``, -1
     padded) where the JAX package carries a dense (B, V+1) indicator
-    matrix; a fold over one equals a fold over the other.  The forward
-    stream (ROADMAP §1 item 9) adds its distance columns and sources.
+    matrix; a fold over one equals a fold over the other.
+
+    The bidirectional stream carries no ``dist``: each side's search
+    stops at the meeting level, so it has no unbiased per-source
+    distances.  The forward stream runs each source's search to
+    exhaustion and carries its distance columns and sources, which
+    closeness and harmonic read.
     """
     internal: torch.Tensor  # (B, L) int64 internal path vertices
     valid: torch.Tensor     # (B,) bool
     length: torch.Tensor    # (B,) int32, -1 if invalid
+    dist: Optional[torch.Tensor] = None     # (rows >= V+1, B) int32
+    sources: Optional[torch.Tensor] = None  # (B,) int32
 
 
 class MetricReport(NamedTuple):
@@ -53,6 +64,7 @@ class Estimator:
     name: str = "?"
     channels: tuple = ()
     needs_forward: bool = False   # requires the forward (full-SSSP) stream
+    needs_diameter: bool = False  # accumulate reads ctx.vertex_diameter
     stop_rule: str = "bernstein"  # registered in kernels.stopcheck.ops
 
     @property

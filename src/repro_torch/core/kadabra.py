@@ -15,6 +15,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..kernels.stopcheck.ops import stopcheck
+
 __all__ = ["KadabraParams", "calibrate_deltas", "check_stop",
            "compute_omega", "f_term", "g_term"]
 
@@ -57,11 +59,12 @@ def g_term(btilde, log_inv_delta_u, omega, tau):
 
 def check_stop(counts, tau, params: KadabraParams):
     """(done, max_f, max_g) on a consistent snapshot; ``counts`` is the
-    (V,) count vector with the sink row stripped."""
+    (V,) count vector with the sink row stripped.  The maxima come from
+    :func:`~repro_torch.kernels.stopcheck.ops.stopcheck`: the CUDA kernel
+    on the card, the plain version on the CPU."""
     tauf = torch.clamp(_f32(tau, counts.device), min=1.0)
-    btilde = counts / tauf
-    max_f = f_term(btilde, params.log_inv_delta_l, params.omega, tauf).max()
-    max_g = g_term(btilde, params.log_inv_delta_u, params.omega, tauf).max()
+    max_f, max_g = stopcheck(counts, tau, params.log_inv_delta_l,
+                             params.log_inv_delta_u, params.omega).unbind()
     done = (max_f < params.eps) & (max_g < params.eps)
     # the static cap: never more than omega samples in total
     done = done | (tauf >= params.omega)

@@ -1,11 +1,18 @@
-"""Uniform shortest-path sampling on the bidirectional stream
-(``repro.core.sampler``).
+"""Uniform shortest-path sampling (``repro.core.sampler``).
 
-One sample: draw a uniform pair (s, t), s != t; run a balanced
-bidirectional BFS; draw one uniform shortest s-t path; mark its internal
-vertices.  B samples share one batched search per round.
+One sample: draw a uniform pair (s, t), s != t; search; draw one uniform
+shortest s-t path; mark its internal vertices.  B samples share one
+batched search per round.  Two streams:
 
-The path draw is factorized through the search DAG:
+* bidirectional (:func:`sample_path_batched`): a balanced bidirectional
+  BFS, then a meeting-vertex draw and two backward walks;
+* forward (:func:`sample_path_forward_batched`): one BFS from each s run
+  to exhaustion, then one backward walk from t.  Its distance columns are
+  unbiased per-source distance vectors, which closeness and harmonic
+  read; the bidirectional search stops at the meeting level and has none.
+
+On the bidirectional stream the path draw is factorized through the
+search DAG:
 
 * the meeting vertex w on the split level is drawn with probability
   proportional to sigma_s(w) * sigma_t(w) (a Gumbel-max per sample
@@ -30,10 +37,12 @@ from typing import NamedTuple
 
 import torch
 
-from .bfs import BidirResult, bidirectional_bfs_batched
+from .bfs import BidirResult, bfs_sssp_batched, bidirectional_bfs_batched
 from .graph import Graph
 
-__all__ = ["PathSample", "sample_pairs", "sample_path_batched"]
+__all__ = ["ForwardSample", "PathSample", "sample_batch", "sample_pairs",
+           "sample_path", "sample_path_batched",
+           "sample_path_forward_batched"]
 
 _NEG_INF = -1e30
 
@@ -46,6 +55,19 @@ class PathSample(NamedTuple):
     valid: torch.Tensor     # (B,) bool, False when s, t are disconnected
     length: torch.Tensor    # (B,) int32 path length, -1 if invalid
     n_levels: int           # BFS levels the round's search expanded
+
+
+class ForwardSample(NamedTuple):
+    """B samples of one forward-stream round: a :class:`PathSample` plus
+    the exhausted distance columns of the sources' searches (at the BFS
+    state's row count, csc.v_pad with a CSC layout, else V+1; consumers
+    cut them to V+1) and the sources themselves."""
+    internal: torch.Tensor  # (B, L) int64
+    valid: torch.Tensor     # (B,) bool
+    length: torch.Tensor    # (B,) int32, -1 if invalid
+    dist: torch.Tensor      # (rows, B) int32 distance from s, -1 unreached
+    sources: torch.Tensor   # (B,) int32
+    n_levels: int
 
 
 def sample_pairs(gen: torch.Generator, n_nodes: int, batch: int):
@@ -148,3 +170,65 @@ def sample_path_batched(graph: Graph, gen: torch.Generator,
     s, t = sample_pairs(gen, graph.n_nodes, batch)
     res = bidirectional_bfs_batched(graph, s, t)
     return _finish_paths(graph, gen, res)
+
+
+def _finish_forward_paths(graph: Graph, gen, s, t, res) -> ForwardSample:
+    """The backward walk from t over a finished forward search.
+
+    With the whole (dist_s, sigma_s) at hand there is no meeting-vertex
+    draw: walking back from t, drawing at each level-l vertex a
+    predecessor u with probability sigma_s(u) over the sum of its
+    predecessors', picks each shortest s-t path with probability
+    1 / sigma_s(t), the law of the bidirectional stream.  The walk from
+    t at level d marks levels d-1 .. 1: the path's internal vertices.
+    """
+    batch = s.shape[0]
+    d = res.dist[t.long(), torch.arange(batch, device=t.device)]
+    valid = d > 0                   # s == t is never drawn, so d >= 1
+    internal = _walk_paths(graph, gen, t, torch.where(valid, d, 0),
+                           res.dist, res.sigma)
+    return ForwardSample(internal, valid, torch.where(valid, d, -1),
+                         res.dist, s, res.n_iters)
+
+
+def sample_path_forward_batched(graph: Graph, gen: torch.Generator,
+                                batch: int) -> ForwardSample:
+    """Take ``batch`` samples through the forward stream: one batched BFS
+    from the sources, to exhaustion, then one backward walk per sample.
+    The drawn paths follow the bidirectional stream's law; the draws
+    themselves differ."""
+    s, t = sample_pairs(gen, graph.n_nodes, batch)
+    res = bfs_sssp_batched(graph, s)
+    return _finish_forward_paths(graph, gen, s, t, res)
+
+
+def sample_path(graph: Graph, gen: torch.Generator) -> PathSample:
+    """One KADABRA sample: the B=1 case of :func:`sample_path_batched`,
+    with the batch row squeezed (``internal`` is (L,), -1 padded)."""
+    ps = sample_path_batched(graph, gen, 1)
+    return PathSample(ps.internal[0], ps.valid[0], ps.length[0],
+                      ps.n_levels)
+
+
+def sample_batch(graph: Graph, gen: torch.Generator, n_samples: int, *,
+                 batch_size: int = 1, carry=None, return_carry: bool = False):
+    """Exactly ``n_samples`` new bidirectional samples in rounds of
+    ``batch_size``, folded into path counts.
+
+    Returns ``(counts (V+1,) float32, tau)``; with ``return_carry=True``
+    also the surplus frame ``(counts, tau)`` of the last round's samples
+    past ``n_samples``, which a later call folds in through ``carry``.
+    The betweenness fold of the engine's :func:`draw_fold`.
+    """
+    # the engine imports this module: import it at call time
+    from .engine import draw_fold
+    from .estimators import RunContext, get_estimator
+    fold = draw_fold(graph, gen, n_samples,
+                     estimators=(get_estimator("betweenness"),),
+                     ctx=RunContext(graph.n_nodes, 0), batch_size=batch_size,
+                     carry=None if carry is None else (carry[0][None],
+                                                       carry[1]))
+    out = (fold.counts[0], fold.tau)
+    if return_carry:
+        return out, (fold.sur_counts[0], fold.sur_tau)
+    return out

@@ -165,9 +165,9 @@ def test_explicit_eps_delta_override_config():
     ({"checkpoint_dir": "ckpt"}, "item 10"),
     ({"on_epoch": print}, "item 14"),
     ({"telemetry": "trace.jsonl"}, "item 14"),
-    ({"stream": "forward"}, "item 9"),
+    ({"metrics": ("closeness",), "mesh": object()}, "items 11-12"),
     ({"stream": "weighted"}, "item 13"),
-    ({"metrics": ("closeness",)}, "item 9"),
+    ({"metrics": ("harmonic",), "stream": "weighted"}, "item 13"),
 ])
 def test_unported_options_raise(kwargs, item):
     graph = tc.grid_graph(3, 3, device="cpu")

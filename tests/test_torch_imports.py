@@ -38,7 +38,17 @@ def test_import_pulls_in_no_jax_and_no_repro():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    assert int(out.stdout.strip()) >= 26
+
+
+def test_guard_walks_the_forward_slice_modules():
+    """The import guard above reaches every module of the forward stream
+    and the stop-check kernel."""
+    assert {"repro_torch.core.estimators.closeness",
+            "repro_torch.core.estimators.harmonic",
+            "repro_torch.kernels.stopcheck.kernel",
+            "repro_torch.kernels.stopcheck.ops",
+            "repro_torch.kernels.stopcheck.ref"} <= set(_submodules())
 
 
 def test_sources_name_no_jax_and_no_repro():
@@ -65,8 +75,11 @@ def test_sources_name_no_jax_and_no_repro():
     lambda: tc.run_kadabra(tc.grid_graph(3, 3, device="cpu")),
     lambda: tc.run_adaptive(tc.grid_graph(3, 3, device="cpu")),
     lambda: tc.grid_graph(3, 3, device="cpu").to("cuda"),
+    lambda: tc.run_fixed(tc.grid_graph(3, 3, device="cpu"), 8,
+                         metrics=("closeness",)),
+    lambda: tc.run_fixed_sampling(tc.grid_graph(3, 3, device="cpu"), 8),
 ], ids=["generator", "from_edge_list", "run_kadabra", "run_adaptive",
-        "graph_to"])
+        "graph_to", "run_fixed", "run_fixed_sampling"])
 def test_entry_points_raise_without_a_card(call, monkeypatch):
     """The default device is CUDA; with no card the call raises instead
     of running on the CPU."""

@@ -129,5 +129,8 @@ def test_registries():
     assert isinstance(get_estimator("kadabra"), BetweennessEstimator)
     with pytest.raises(KeyError):
         get_estimator("pagerank")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        te.resolve_estimators(("betweenness", "closeness"))
+    assert get_estimator("closeness").channels == ("dist_sum", "reached")
+    assert [e.name for e in te.resolve_estimators(
+        ("betweenness", "closeness"))] == ["betweenness", "closeness"]
+    with pytest.raises(ValueError, match="forward stream"):
+        te.resolve_stream(te.resolve_estimators("closeness"), "bidir")

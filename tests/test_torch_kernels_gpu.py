@@ -13,6 +13,7 @@ import torch
 
 import repro_torch.core as tc
 from repro_torch.kernels import frontier as tf
+from repro_torch.kernels import stopcheck as ts
 
 pytestmark = pytest.mark.gpu
 
@@ -84,7 +85,70 @@ def test_dispatcher_routes_cuda_state_to_kernels(cuda):
 def test_run_kadabra_on_the_card(cuda):
     graph = tc.hyperbolic_graph(300, 20.0, seed=1, device=cuda)
     tf.reset_launch_counts()
+    ts.reset_launch_counts()
     res = tc.run_kadabra(graph, eps=0.05, device=cuda)
     assert tf.launch_counts[tf.FLAT] == res.bfs_levels > 0
+    assert ts.launch_counts[ts.STOPCHECK] == res.n_epochs > 0
     import numpy as np
     assert np.abs(res.btilde - tc.brandes_numpy(graph)).max() < 0.05
+
+
+def _stop_inputs(v, device, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    counts = torch.randint(0, 200, (v,), generator=gen).float()
+    lil = torch.rand(v, generator=gen) * 20 + 1e-3
+    liu = torch.rand(v, generator=gen) * 20 + 1e-3
+    return counts.to(device), lil.to(device), liu.to(device)
+
+
+@pytest.mark.parametrize("v", [1, 1000, (1 << 20) + 3])
+def test_stopcheck_kernel_matches_plain(cuda, v):
+    counts, lil, liu = _stop_inputs(v, cuda, seed=v)
+    omega = torch.tensor(84_000.0, device=cuda)
+    before = ts.launch_counts[ts.STOPCHECK]
+    got = ts.stopcheck_fused(counts, 17_408, lil, liu, omega)
+    want = ts.stopcheck_ref(counts, 17_408, lil, liu, omega)
+    torch.cuda.synchronize()
+    assert ts.launch_counts[ts.STOPCHECK] == before + 1
+    # explicitly rounded arithmetic in the plain version's order: bitwise
+    assert torch.equal(got, want)
+
+
+def test_stopcheck_kernel_propagates_nan(cuda):
+    counts, lil, liu = _stop_inputs(5000, cuda)
+    omega = torch.tensor(3000.0, device=cuda)
+    lil[4321] = float("nan")
+    got = ts.stopcheck_fused(counts, 64, lil, liu, omega)
+    assert torch.isnan(got[0]) and torch.equal(
+        got[1], ts.stopcheck_ref(counts, 64, lil, liu, omega)[1])
+    counts[7] = float("nan")
+    assert torch.isnan(ts.stopcheck_fused(counts, 64, lil, liu, omega)).all()
+
+
+def test_stopcheck_dispatcher_routes_cuda_to_the_kernel(cuda):
+    counts, lil, liu = _stop_inputs(300, cuda)
+    omega = torch.tensor(3000.0, device=cuda)
+    ts.reset_launch_counts()
+    ts.stopcheck(counts, 64, lil, liu, omega)
+    assert ts.launch_counts[ts.STOPCHECK] == 1
+    with pytest.raises(ValueError, match="CPU tensors"):
+        ts.stopcheck(counts, 64, lil, liu, omega, use_kernel=False)
+    with pytest.raises(TypeError, match="host number"):
+        ts.stopcheck(counts, torch.tensor(64, device=cuda), lil, liu, omega)
+
+
+def test_forward_run_on_the_card(cuda):
+    """Three metrics on one forward stream: every level through the flat
+    kernel, every epoch's three stop checks through the stop-check
+    kernel."""
+    import numpy as np
+    graph = tc.hyperbolic_graph(300, 20.0, seed=1, device=cuda)
+    tf.reset_launch_counts()
+    ts.reset_launch_counts()
+    res = tc.run_adaptive(graph, ("betweenness", "closeness", "harmonic"),
+                          eps=0.05, device=cuda)
+    assert tf.launch_counts[tf.FLAT] == res.bfs_levels > 0
+    assert ts.launch_counts[ts.STOPCHECK] == 3 * res.n_epochs > 0
+    assert res.converged
+    assert np.abs(res.reports[0].scores
+                  - tc.brandes_numpy(graph)).max() < 0.05
