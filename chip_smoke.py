@@ -7,9 +7,10 @@ Needs one CUDA card and ``nvcc``; exits non-zero without them, and on
 any failed phase.  Phases:
 
 1. the device: name, count, and ``nvidia-smi`` name and power limit;
-2. build the frontier and stop-check kernels from their ``csrc/`` sources
-   (one nvcc each, started together; sm_90a) and print the build seconds
-   and the ``ptxas`` register/shared-memory lines;
+2. build the frontier, stop-check and gather-segment-sum kernels from
+   their ``csrc/`` sources (one nvcc each, started together; sm_90a) and
+   print the build seconds and the ``ptxas`` register/shared-memory
+   lines;
 3. hold each kernel against its plain PyTorch version at main-path
    shapes (one mid-BFS level of R-MAT 2^20 x 30, B=64): the flat kernel
    on the COO edges, the node-blocked kernel on a CSC layout at the
@@ -43,7 +44,21 @@ any failed phase.  Phases:
    rounds under the profiler;
 8. accuracy of closeness and harmonic on a connected Erdos-Renyi graph
    against scipy's exact distances, with the bounds of
-   ``tests/test_estimators.py``.
+   ``tests/test_estimators.py``;
+9. the gather-segment-sum kernel against its plain version at the
+   GraphSAGE path's shapes (R-MAT 2^21 x 15, ~6e7 edges, 128 columns):
+   the layer's forward call and its transposed (backward) call.  Bitwise
+   on integer-valued inputs; on N(0, 1) float32 and bfloat16 tables
+   within the summation-order bound stated in the output.  Timed beside
+   its plain version, the byte bound and ``torch.sparse.mm`` on the
+   plan's (S, V1) CSR matrix (the library yardstick, called only here);
+10. GraphSAGE (graphsage-reddit at full width, adapted to the
+   ogb_products cell: d_feat 100, 47 classes) on that graph: one
+   full-graph inference forward (after a warm-up one), then 3 AdamW
+   steps, every neighbour mean through the kernel (2 launches a
+   forward, 4 a step); then a step under the profiler (after a warm-up
+   step); then the same forward and first step on the dispatcher's
+   plain route held against the kernel route's.
 
 Every run resets the launch counts just before it and reads them just
 after: each kernel of the run must have carried all of its work.
@@ -65,6 +80,8 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 EXACT_LIMIT = float(1 << 24)  # float32 sums of integers are exact below
 RTOL = 1e-6
+U32 = 2.0 ** -24      # float32 unit roundoff
+U_BF16 = 2.0 ** -8    # bfloat16 unit roundoff
 SEED = 0
 RMAT_SCALE, EDGE_FACTOR, BATCH = 20, 30, 64
 MAIN_EPS, MAIN_DELTA = 0.01, 0.1
@@ -80,6 +97,18 @@ FWD_EPS, FWD_MAX_EPOCHS = 0.01, 200
 ER_N, ER_DEGREE, ER_EPS = 1500, 8.0, 0.05
 STOPCHECK_SHAPES = (1, 5000, 40000)   # besides the full V
 STOPCHECK_OPS = 20                    # float operations per vertex
+# GraphSAGE: R-MAT at the scale of ogbn-products (2,449,029 nodes,
+# 61,859,140 edges): 2^21 nodes, ~6e7 directed edges
+GNN_SCALE, GNN_EDGE_FACTOR, GNN_CELL, GNN_STEPS = 21, 15, "ogb_products", 3
+# kernel route against the plain route end to end: the neighbour sums
+# differ by summation order only (~1e-7 relative), carried through two
+# layers' matmuls and row normalisation.  The first step's gradients are
+# sums over 2M nodes that cancel, which amplifies a relative gap of their
+# small entries: each leaf is held at 1e-3 of its largest entry.  Adam's
+# first update g / (|g| + eps) moves by up to |dg| / eps where |g| is
+# near eps, so the parameters after it are held to that bound.
+GNN_LOGIT_RTOL, GNN_LOGIT_ATOL, GNN_LOSS_RTOL, GNN_GRAD_RTOL = \
+    1e-4, 1e-5, 1e-5, 1e-3
 DEVICE = "cuda"
 
 
@@ -143,9 +172,11 @@ def phase_build():
     """Every kernel source, one nvcc each, all started together."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.frontier import kernel as frontier
+    from repro_torch.kernels.segsum import kernel as segsum
     from repro_torch.kernels.stopcheck import kernel as stopcheck
     t0 = time.perf_counter()
-    libs = {"frontier": frontier.library, "stopcheck": stopcheck.library}
+    libs = {"frontier": frontier.library, "stopcheck": stopcheck.library,
+            "segsum": segsum.library}
     with ThreadPoolExecutor(len(libs)) as pool:
         for fut in [pool.submit(build) for build in libs.values()]:
             fut.result()
@@ -335,17 +366,28 @@ def phase_profile(label: str, graph, rounds: int, batch: int,
 
 
 def reset_counts() -> None:
-    from repro_torch.kernels import frontier, stopcheck
+    from repro_torch.kernels import frontier, segsum, stopcheck
     frontier.reset_launch_counts()
     stopcheck.reset_launch_counts()
+    segsum.reset_launch_counts()
+
+
+def all_counts() -> dict:
+    from repro_torch.kernels import frontier, segsum, stopcheck
+    return {**frontier.launch_counts, **stopcheck.launch_counts,
+            **segsum.launch_counts}
 
 
 def read_counts(label: str, kernel_name: str, bfs_levels: int,
                 stop_checks: int) -> dict:
     """The launch counts of the run just made: the named frontier kernel
-    carried every level and the stop-check kernel every stop check."""
-    from repro_torch.kernels import frontier, stopcheck
-    counts = {**frontier.launch_counts, **stopcheck.launch_counts}
+    carried every level and the stop-check kernel every stop check; the
+    gather-segment-sum kernel has no part in a centrality run."""
+    from repro_torch.kernels import frontier, segsum, stopcheck
+    counts = all_counts()
+    if counts[segsum.SEGSUM] != 0:
+        raise AssertionError(f"{label}: the gather-segment-sum kernel ran "
+                             f"in a centrality run: {counts}")
     fr = dict(frontier.launch_counts)
     if fr[kernel_name] == 0 or fr[kernel_name] != bfs_levels \
             or sum(fr.values()) != fr[kernel_name]:
@@ -551,6 +593,278 @@ def phase_distance_accuracy() -> dict:
     return counts
 
 
+def order_bound(ids, seg, w, table, n_segments: int):
+    """Per-element bound on the gap between two float32 sums of the same
+    terms in different orders: each lies within (n_s - 1) u sum|terms|
+    of the exact sum (recursive summation, any order or tree), so two lie
+    within 2 n_s u sum|terms| of each other, n_s the segment's entries."""
+    import torch
+    from repro_torch.kernels.segsum import gather_segment_sum_ref
+    deg = torch.bincount(seg.long(), minlength=n_segments).float()[:, None]
+    return 2.0 * deg * U32 * gather_segment_sum_ref(
+        ids, seg, w.abs(), table.float().abs(), n_segments)
+
+
+def check_segsum_call(label: str, ids, seg, w, n_segments: int, n_rows: int,
+                      d: int, plan) -> float:
+    """One call shape of the gather-segment-sum kernel against its plain
+    version: integer-valued table and weights (bitwise), an N(0, 1)
+    float32 table and a bfloat16 one (within the order bound; for
+    bfloat16 plus one rounding of each side, 2^-8 relative).  Returns the
+    largest float32 gap."""
+    import torch
+    from repro_torch.kernels.segsum import (gather_segment_sum_cuda,
+                                            gather_segment_sum_ref)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    table = torch.randint(-8, 9, (n_rows, d), generator=gen, device=DEVICE,
+                          dtype=torch.float32)
+    w_int = torch.randint(0, 4, w.shape, generator=gen, device=DEVICE,
+                          dtype=torch.float32)
+    got = gather_segment_sum_cuda(ids, seg, w_int, table, n_segments, plan)
+    want = gather_segment_sum_ref(ids, seg, w_int, table, n_segments)
+    torch.cuda.synchronize()
+    if not bool(want.abs().max() < EXACT_LIMIT):
+        raise AssertionError(f"segsum {label}: integer sums not exact")
+    if not torch.equal(got, want):
+        raise AssertionError(f"segsum {label} integer-valued: not bitwise "
+                             f"(max |diff| {float((got - want).abs().max())})")
+    log(f"  segsum {label}, integer-valued float32: bitwise equal to its "
+        "plain version")
+    err32 = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        table = torch.randn((n_rows, d), generator=gen, device=DEVICE,
+                            dtype=torch.float32).to(dtype)
+        got = gather_segment_sum_cuda(ids, seg, w, table, n_segments,
+                                      plan).float()
+        want = gather_segment_sum_ref(ids, seg, w, table, n_segments).float()
+        tol = order_bound(ids, seg, w, table, n_segments)
+        if dtype == torch.bfloat16:
+            tol = tol + U_BF16 * (2.0 * want.abs() + tol)
+        gap = (got - want).abs()
+        ratio = float((gap / tol.clamp(min=1e-30)).max())
+        err = float(gap.max())
+        if not bool((gap <= tol).all()):
+            raise AssertionError(f"segsum {label} {dtype}: max |diff| {err} "
+                                 f"beyond its bound (ratio {ratio:.3g})")
+        log(f"  segsum {label}, N(0,1) {str(dtype)[6:]}: max |diff| {err:.3g}"
+            f", within the order bound (largest bound {float(tol.max()):.3g},"
+            f" largest gap/bound {ratio:.3g})")
+        if dtype == torch.float32:
+            err32 = err
+        del got, want, tol, gap, table
+    return err32
+
+
+def phase_segsum(batch, d: int) -> dict:
+    """The gather-segment-sum kernel at the GraphSAGE layer's shapes: the
+    forward call (ids=src, seg=dst, w=edge mask, an (N, d) table) and its
+    transposed backward call, each checked; the forward one timed."""
+    import torch
+    from repro_torch.kernels.segsum import (gather_segment_sum_cuda,
+                                            gather_segment_sum_ref)
+    n, v = batch.n_edges, batch.n_nodes
+    t0 = time.perf_counter()
+    plan = batch.segment_plan()
+    torch.cuda.synchronize()
+    log(f"  segment plans (src->dst and its transpose) built in "
+        f"{time.perf_counter() - t0:.2f} s: {plan.split_seg.shape[0]} of {v} "
+        f"segments above {plan.split} entries, cut into {plan.n_items} items;"
+        f" largest segment {int(torch.diff(plan.offsets).max())} entries")
+    err = max(
+        check_segsum_call("forward", batch.src, batch.dst, batch.edge_mask,
+                          v, v, d, plan),
+        check_segsum_call("backward", batch.dst, batch.src, batch.edge_mask,
+                          v, v, d, plan.transpose))
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    table = torch.randn((v, d), generator=gen, device=DEVICE)
+    args = (batch.src, batch.dst, batch.edge_mask, table, v)
+    ms = cuda_time_ms(lambda: gather_segment_sum_cuda(*args, plan), 20)
+    back_ms = cuda_time_ms(lambda: gather_segment_sum_cuda(
+        batch.dst, batch.src, batch.edge_mask, table, v, plan.transpose), 20)
+    plain = cuda_time_ms(lambda: gather_segment_sum_ref(*args), 3)
+    # the library yardstick: the plan's (S, V1) CSR matrix of weights
+    csr = torch.sparse_csr_tensor(plan.offsets, plan.ids_sorted.long(),
+                                  batch.edge_mask[plan.order], (v, v),
+                                  check_invariants=True)
+    lib = torch.sparse.mm(csr, table)
+    want = gather_segment_sum_ref(*args)
+    torch.cuda.synchronize()
+    lib_err = float((lib - want).abs().max())
+    del lib, want
+    lib_ms = cuda_time_ms(lambda: torch.sparse.mm(csr, table), 10)
+    b_ms, b_by = bound(12.0 * n + 2.0 * v * d * 4, 2.0 * n * d)
+    gather_ms = n * d * 4 / HBM_BYTES_PER_S * 1e3
+    log(f"  segsum: {ms:.3f} ms forward call ({back_ms:.3f} ms transposed), "
+        f"plain {plain:.3f} ms, torch.sparse.mm {lib_ms:.3f} ms (max |diff| "
+        f"vs plain {lib_err:.3g}), bound {b_ms:.3f} ms ({b_by}); one table "
+        f"row read per entry would take {gather_ms:.3f} ms at the HBM rate")
+    return {"max_abs_err": err, "ms": ms, "transposed_ms": back_ms,
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms,
+            "shape": f"R-MAT 2^{GNN_SCALE} x {GNN_EDGE_FACTOR}: N={n} "
+                     f"entries, V1=S={v}, D={d} float32"}
+
+
+def clone_tree(tree):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.detach().clone(), tree)
+
+
+def segsum_only(label: str, want: int) -> dict:
+    """The launch counts of a GraphSAGE run: ``want`` gather-segment-sum
+    launches and no other kernel."""
+    from repro_torch.kernels.segsum import SEGSUM
+    counts = all_counts()
+    others = sum(v for k, v in counts.items() if k != SEGSUM)
+    if counts[SEGSUM] != want or others:
+        raise AssertionError(f"{label}: expected {want} gather-segment-sum "
+                             f"launches and no other kernel, got {counts}")
+    return counts
+
+
+def check_first_step(logits, plain_logits, loss, plain_loss, params,
+                     plain_params, m, plain_m, opt) -> None:
+    """The kernel route's forward and first step against the plain
+    route's: logits, loss, each leaf's gradient (m = (1 - b1) g after one
+    step) at GNN_GRAD_RTOL of its largest entry, and each parameter within
+    lr |dg| / eps of the other (plus float32 rounding)."""
+    import torch
+    from repro_torch.tree import tree_leaves
+    logit_gap = float((logits - plain_logits).abs().max())
+    grad_ratio, param_excess, param_gap = 0.0, 0.0, 0.0
+    for p, pp, g, gp in zip(tree_leaves(params), tree_leaves(plain_params),
+                            tree_leaves(m), tree_leaves(plain_m)):
+        g, gp = g / (1.0 - opt.b1), gp / (1.0 - opt.b1)
+        grad_ratio = max(grad_ratio, float((g - gp).abs().max())
+                         / max(float(gp.abs().max()), 1e-30))
+        # plus the float32 rounding of both routes' update, ~6 u each
+        allowed = opt.lr * (g - gp).abs() / opt.eps \
+            + 16 * U32 * (pp.abs() + opt.lr)
+        gap = (p - pp).abs()
+        param_gap = max(param_gap, float(gap.max()))
+        param_excess = max(param_excess, float((gap / allowed).max()))
+    log(f"  kernel route vs plain route: logits max |diff| {logit_gap:.3g} "
+        f"(rtol {GNN_LOGIT_RTOL}, atol {GNN_LOGIT_ATOL}); first-step loss "
+        f"{loss:.7f} vs {plain_loss:.7f} (rtol {GNN_LOSS_RTOL}); gradients: "
+        f"largest gap {grad_ratio:.3g} of its leaf's largest entry (limit "
+        f"{GNN_GRAD_RTOL}); params after the step: max |diff| "
+        f"{param_gap:.3g}, at most {param_excess:.3g} of the lr |dg| / eps "
+        "bound")
+    if not (torch.allclose(logits, plain_logits, rtol=GNN_LOGIT_RTOL,
+                           atol=GNN_LOGIT_ATOL)
+            and abs(loss - plain_loss) <= GNN_LOSS_RTOL * abs(plain_loss)
+            and grad_ratio <= GNN_GRAD_RTOL and param_excess <= 1.0):
+        raise AssertionError("graphsage: kernel route and plain route "
+                             "disagree beyond the stated tolerances")
+
+
+def phase_graphsage(cfg, batch) -> dict:
+    """graphsage-reddit at full width on the R-MAT batch: inference
+    forward, then GNN_STEPS AdamW steps, counts read around each run; the
+    plain route's forward and first step held against the kernel's; one
+    step profiled.  Returns the path's launch counts."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from repro_torch.models.gnn import sage_forward, sage_init, sage_loss
+    from repro_torch.optim import AdamWConfig, init_state
+    from repro_torch.train import make_train_step
+    params0 = sage_init(torch.Generator().manual_seed(SEED), cfg,
+                        device=DEVICE)
+    opt = AdamWConfig()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # a first forward pays the process's one-time library set-up
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        sage_forward(params0, batch, cfg)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    reset_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits = sage_forward(params0, batch, cfg)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    fwd = segsum_only("graphsage forward", cfg.n_layers)
+    if logits.shape != (batch.n_nodes, cfg.n_classes) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError("graphsage: logits not finite of shape "
+                             f"({batch.n_nodes}, {cfg.n_classes})")
+    log(f"  inference forward: {fwd_s:.3f} s (the first one {first_s:.3f} s),"
+        f" logits {tuple(logits.shape)}, launches {fwd}")
+
+    step = make_train_step(lambda p, b: sage_loss(p, b, cfg), opt)
+    params, state = params0, init_state(params0)
+    reset_counts()
+    losses, step_s = [], []
+    for i in range(GNN_STEPS):
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, batch)
+        losses.append(float(metrics["loss"]))
+        step_s.append(time.perf_counter() - t0)
+        if i == 0:
+            params1, state1 = clone_tree(params), clone_tree(state)
+    # each step: one launch per layer forward and one per layer backward
+    train = segsum_only("graphsage train", 2 * cfg.n_layers * GNN_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"graphsage: loss not finite: {losses}")
+    log(f"  {GNN_STEPS} AdamW steps: "
+        + ", ".join(f"{s:.3f} s" for s in step_s) + "; loss "
+        + ", ".join(f"{x:.6f}" for x in losses)
+        + f"; launches {train}; peak memory {peak / 2**30:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated)")
+
+    # two more steps under the profiler, the first as its warm-up (the
+    # trace can miss kernels launched as it starts): device time by
+    # kernel and idle share of the second
+    torch.cuda.synchronize()
+    traced = []    # the active step's events, handed over as it ends
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: traced.append(p.key_averages())
+                 ) as prof:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            step(params, state, batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            prof.step()
+    # (the step marker's device-side range spans the others: left out)
+    rows = [(evt.self_device_time_total / 1e3, evt.count, evt.key)
+            for evt in traced[-1]
+            if evt.device_type == torch.autograd.DeviceType.CUDA
+            and not evt.key.startswith("ProfilerStep")]
+    busy = sum(r[0] for r in rows)
+    k4 = sum(r[0] for r in rows if "segsum" in r[2])
+    k4_calls = sum(r[1] for r in rows if "segsum_kernel<" in r[2])
+    log(f"  profile of one step: wall {wall_ms:.1f} ms, device busy "
+        f"{busy:.1f} ms, idle share {1 - busy / wall_ms:.3f}; the "
+        f"gather-segment-sum kernels {k4:.1f} ms, {k4 / max(busy, 1e-9):.1%} "
+        f"of device time ({k4_calls} segsum_kernel launches traced)")
+    for ms, calls, key in sorted(rows, reverse=True)[:8]:
+        log(f"  {ms:9.2f} ms {ms / max(busy, 1e-9):6.1%} x{calls:<6d} "
+            f"{key[:80]}")
+    del params, state
+
+    # the same forward and first step on the plain route, on the card
+    reset_counts()
+    with torch.no_grad():
+        plain_logits = sage_forward(params0, batch, cfg, use_kernel=False)
+    plain_step = make_train_step(
+        lambda p, b: sage_loss(p, b, cfg, use_kernel=False), opt)
+    plain_params1, plain_state1, plain_m = plain_step(
+        params0, init_state(params0), batch)
+    torch.cuda.synchronize()
+    segsum_only("graphsage plain route", 0)
+    check_first_step(logits, plain_logits, losses[0],
+                     float(plain_m["loss"]), params1, plain_params1,
+                     state1["m"], plain_state1["m"], opt)
+    return {k: fwd[k] + train[k] for k in fwd}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -562,7 +876,12 @@ def main() -> int:
     from repro_torch.core import (brandes_numpy, grid_graph,
                                   hyperbolic_graph, rmat_graph,
                                   with_csc_layout)
+    from repro_torch.configs._families import GNN_SHAPES
+    from repro_torch.configs.graphsage_reddit import (cfg_for_shape,
+                                                      make_config)
+    from repro_torch.data import graph_to_batch
     from repro_torch.kernels.frontier import FLAT, NODE_BLOCKED
+    from repro_torch.kernels.segsum import SEGSUM
     from repro_torch.kernels.stopcheck import STOPCHECK
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -629,12 +948,38 @@ def main() -> int:
         f"vs scipy's exact distances, eps={ER_EPS}")
     paths["er"] = phase_distance_accuracy()
 
+    t0 = time.perf_counter()
+    gnn = rmat_graph(GNN_SCALE, GNN_EDGE_FACTOR, seed=SEED, device=DEVICE)
+    cfg = cfg_for_shape(make_config(), GNN_SHAPES[GNN_CELL])
+    batch = graph_to_batch(gnn, d_feat=cfg.d_in, n_classes=cfg.n_classes,
+                           seed=SEED, device=DEVICE)
+    torch.cuda.synchronize()
+    log(f"[9] gather-segment-sum kernel at the GraphSAGE path's shapes: "
+        f"R-MAT 2^{GNN_SCALE} x {GNN_EDGE_FACTOR}, V={batch.n_nodes} "
+        f"E={batch.n_edges} (graph and batch built in "
+        f"{time.perf_counter() - t0:.1f} s), D={cfg.d_hidden}")
+    del gnn
+    rows.append({"name": SEGSUM, "route": "cuda",
+                 "source": "src/repro_torch/kernels/segsum/csrc/segsum.cu",
+                 "replaces": "src/repro/kernels/segsum/kernel.py:54",
+                 "launches": 0, **phase_segsum(batch, cfg.d_hidden)})
+    torch.cuda.empty_cache()
+
+    log(f"[10] GraphSAGE: graphsage-reddit (n_layers {cfg.n_layers}, "
+        f"d_hidden {cfg.d_hidden}, {cfg.aggregator}) on the {GNN_CELL} cell's "
+        f"d_feat {cfg.d_in} and {cfg.n_classes} classes: one inference "
+        f"forward, {GNN_STEPS} AdamW steps")
+    paths["graphsage"] = phase_graphsage(cfg, batch)
+    del batch
+    torch.cuda.empty_cache()
+
     # each row's launches: the run of the path that row's kernel carries
-    for row, main_path in zip(rows, ("rmat_bidir", "grid", "forward")):
+    for row, main_path in zip(rows, ("rmat_bidir", "grid", "forward",
+                                     "graphsage")):
         row["launches"] = paths[main_path][row["name"]]
         row["launches_by_path"] = {k: c[row["name"]]
                                    for k, c in paths.items()}
-    log(f"[9] total {time.perf_counter() - t_start:.1f} s")
+    log(f"[11] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

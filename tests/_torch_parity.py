@@ -1,8 +1,11 @@
 """Helpers of the parity tests between the JAX package and the PyTorch
-port: carry a JAX graph across as numpy arrays, and pull tensors back."""
+port: carry a JAX graph or GraphBatch across as numpy arrays, and pull
+tensors back."""
 import numpy as np
+import torch
 
 from repro_torch.core import graph_from_numpy
+from repro_torch.models.gnn import GraphBatch
 
 _GRAPH_ARRAYS = ("indptr", "indices", "src", "dst", "degree")
 _CSC_ARRAYS = ("src", "dst", "block_nb", "block_sb", "block_first")
@@ -26,3 +29,12 @@ def np_(x):
     if hasattr(x, "detach"):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def batch_to_port(jbatch, device="cpu"):
+    """The port's ``GraphBatch`` over exactly the JAX batch's leaves."""
+    names = ("x", "z", "pos", "src", "dst", "edge_mask", "node_mask",
+             "labels", "graph_id", "y")
+    return GraphBatch(
+        **{k: torch.from_numpy(np.array(getattr(jbatch, k))).to(device)
+           for k in names}, n_graphs=jbatch.n_graphs)

@@ -13,6 +13,7 @@ import torch
 
 import repro_torch.core as tc
 from repro_torch.kernels import frontier as tf
+from repro_torch.kernels import segsum as tk
 from repro_torch.kernels import stopcheck as ts
 
 pytestmark = pytest.mark.gpu
@@ -152,3 +153,102 @@ def test_forward_run_on_the_card(cuda):
     assert res.converged
     assert np.abs(res.reports[0].scores
                   - tc.brandes_numpy(graph)).max() < 0.05
+
+
+def _segsum_inputs(n, v, d, s, device, dtype=torch.float32, integer=True,
+                   skew=False, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    ids = torch.randint(0, v, (n,), generator=gen, dtype=torch.int32)
+    if skew:    # a few hub segments above the kernel's split
+        seg = torch.clamp((torch.rand(n, generator=gen) ** 6 * s).long(),
+                          max=s - 1).to(torch.int32)
+    else:
+        seg = torch.randint(0, s, (n,), generator=gen, dtype=torch.int32)
+    if integer:
+        w = torch.randint(0, 4, (n,), generator=gen).float()
+        table = torch.randint(-8, 9, (v, d), generator=gen).float()
+    else:
+        w = torch.rand(n, generator=gen)
+        table = torch.randn(v, d, generator=gen)
+    return (ids.to(device), seg.to(device), w.to(device),
+            table.to(device=device, dtype=dtype))
+
+
+@pytest.mark.parametrize("n,v,d,s,dtype,skew", [
+    (512, 100, 128, 32, torch.float32, False),
+    (4096, 1000, 384, 128, torch.float32, False),
+    (1024, 50, 128, 16, torch.bfloat16, False),
+    (20000, 300, 128, 40, torch.float32, True),     # split segments
+    (3000, 70, 37, 500, torch.float32, True),       # scalar lanes, D % 4
+    (3000, 70, 38, 500, torch.bfloat16, True),
+    (0, 10, 128, 6, torch.float32, False),          # no entries
+])
+def test_segsum_kernel_matches_plain(cuda, n, v, d, s, dtype, skew):
+    """Integer-valued inputs: every order gives the same bits."""
+    ids, seg, w, table = _segsum_inputs(n, v, d, s, cuda, dtype, skew=skew,
+                                        seed=n + d)
+    plan = tk.build_plan(ids, seg, s, v)
+    if skew:
+        assert plan.n_items > 0
+    before = tk.launch_counts[tk.SEGSUM]
+    got = tk.gather_segment_sum_cuda(ids, seg, w, table, s, plan)
+    want = tk.gather_segment_sum_ref(ids, seg, w, table, s)
+    torch.cuda.synchronize()
+    assert tk.launch_counts[tk.SEGSUM] == before + 1
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+def test_segsum_kernel_is_deterministic_and_close_on_gaussian(cuda):
+    """N(0, 1) table: two kernel calls give the same bits, and the kernel
+    and the plain version (atomics, any order) each lie within the
+    recursive-summation bound (n_s - 1) u sum|terms| of the exact sum, so
+    within twice that of each other."""
+    ids, seg, w, table = _segsum_inputs(50000, 2000, 128, 300, cuda,
+                                        integer=False, skew=True)
+    plan = tk.build_plan(ids, seg, 300, 2000)
+    a = tk.gather_segment_sum_cuda(ids, seg, w, table, 300, plan)
+    b = tk.gather_segment_sum_cuda(ids, seg, w, table, 300, plan)
+    want = tk.gather_segment_sum_ref(ids, seg, w, table, 300)
+    deg = torch.bincount(seg.long(), minlength=300).float()[:, None]
+    tol = 2.0 * deg * 2.0 ** -24 * tk.gather_segment_sum_ref(
+        ids, seg, w.abs(), table.abs(), 300)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert bool(((a - want).abs() <= tol).all())
+
+
+def test_segsum_dispatcher_gradient_through_the_kernel(cuda):
+    """Forward and backward both launch the kernel; the gradient equals
+    the plain route's, bitwise on integer-valued inputs."""
+    ids, seg, w, table = _segsum_inputs(6000, 200, 64, 50, cuda, skew=True)
+    cot = torch.randint(-3, 4, (50, 64), device=cuda).float()
+    grads = []
+    for use_kernel in (True, False):
+        t = table.clone().requires_grad_(True)
+        tk.reset_launch_counts()
+        out = tk.gather_segment_sum(ids, seg, w, t, 50, use_kernel=use_kernel)
+        (out * cot).sum().backward()
+        torch.cuda.synchronize()
+        assert tk.launch_counts[tk.SEGSUM] == (2 if use_kernel else 0)
+        grads.append(t.grad)
+    assert torch.equal(grads[0], grads[1])
+
+
+def test_graphsage_on_the_card_matches_the_cpu(cuda):
+    """A small GraphSAGE forward through the kernel (2 launches) against
+    the same forward on the CPU's plain route."""
+    from repro_torch.configs.graphsage_reddit import make_smoke_config
+    from repro_torch.data import graph_to_batch
+    from repro_torch.models.gnn import sage_forward, sage_init
+    from repro_torch.tree import tree_map
+    cfg = make_smoke_config()
+    graph = tc.rmat_graph(10, 8, seed=2, device="cpu")
+    batch = graph_to_batch(graph, d_feat=cfg.d_in, n_classes=3, device="cpu")
+    params = sage_init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    want = sage_forward(params, batch, cfg)
+    tk.reset_launch_counts()
+    got = sage_forward(tree_map(lambda x: x.to(cuda), params),
+                       batch.to(cuda), cfg)
+    torch.cuda.synchronize()
+    assert tk.launch_counts[tk.SEGSUM] == cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
