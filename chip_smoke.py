@@ -7,10 +7,10 @@ Needs one CUDA card and ``nvcc``; exits non-zero without them, and on
 any failed phase.  Phases:
 
 1. the device: name, count, and ``nvidia-smi`` name and power limit;
-2. build the frontier, stop-check and gather-segment-sum kernels from
-   their ``csrc/`` sources (one nvcc each, started together; sm_90a) and
-   print the build seconds and the ``ptxas`` register/shared-memory
-   lines;
+2. build the frontier, stop-check, gather-segment-sum and
+   flash-attention kernels from their ``csrc/`` sources (one nvcc each,
+   started together; sm_90a) and print the build seconds and the
+   ``ptxas`` register, spill and shared-memory lines;
 3. hold each kernel against its plain PyTorch version at main-path
    shapes (one mid-BFS level of R-MAT 2^20 x 30, B=64): the flat kernel
    on the COO edges, the node-blocked kernel on a CSC layout at the
@@ -58,7 +58,23 @@ any failed phase.  Phases:
    steps, every neighbour mean through the kernel (2 launches a
    forward, 4 a step); then a step under the profiler (after a warm-up
    step); then the same forward and first step on the dispatcher's
-   plain route held against the kernel route's.
+   plain route held against the kernel route's;
+11. the flash-attention kernel (K5) against its plain version at the
+   serving path's shape: q (2, 32768, 24, 128), k and v (2, 32768, 8,
+   128), bfloat16, causal, within 2e-2 (P is rounded to bfloat16 before
+   P V); then float32 at (1, 4096, 24/8, 128) within 3e-5 and a ragged
+   non-causal (1, 1000, 6/2, 64).  Each timed beside its plain version,
+   its bound and ``scaled_dot_product_attention`` (the library
+   yardstick, called only here, on KV heads repeated beforehand);
+12. llama3.2-3b serving at full width and depth in bfloat16 (3.61e9
+   parameters drawn on the card): a prefill of 2 prompts of 32768
+   tokens (the prefill_32k cell's length; its batch of 32 is cut to 2,
+   since 32 caches of 3.76 GB exceed the card), every layer's attention
+   through K5 (28 launches), cold and warm; the cache grown by 32 and
+   32 greedy decode steps (no K5); a decode step and a warm prefill
+   under the profiler;
+   then the kernel route against the plain route end to end in float32
+   on one 2048-token prompt.
 
 Every run resets the launch counts just before it and reads them just
 after: each kernel of the run must have carried all of its work.
@@ -78,6 +94,7 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 EXACT_LIMIT = float(1 << 24)  # float32 sums of integers are exact below
 RTOL = 1e-6
 U32 = 2.0 ** -24      # float32 unit roundoff
@@ -109,6 +126,46 @@ GNN_SCALE, GNN_EDGE_FACTOR, GNN_CELL, GNN_STEPS = 21, 15, "ogb_products", 3
 # near eps, so the parameters after it are held to that bound.
 GNN_LOGIT_RTOL, GNN_LOGIT_ATOL, GNN_LOSS_RTOL, GNN_GRAD_RTOL = \
     1e-4, 1e-5, 1e-5, 1e-3
+# flash attention: (B, S, H, KV, dh) of the serving path, a float32 case
+# and a ragged non-causal one; tolerances of the JAX sweep
+# (tests/test_flashattn_kernel.py): 2e-2 in bfloat16 (P rounded to
+# bfloat16 before P V, both outputs rounded), 3e-5 in float32
+FLASH_SHAPE = (2, 32768, 24, 8, 128)
+FLASH_F32_SHAPE = (1, 4096, 24, 8, 128)
+FLASH_RAGGED_SHAPE = (1, 1000, 6, 2, 64)
+FLASH_TOL = {"bfloat16": 2e-2, "float32": 3e-5}
+# bfloat16 is also held per output row: for every (b, s, h), ||got -
+# want|| / ||want|| over dh at most FLASH_ROW_REL.  A causal row over n
+# keys has |out| ~ 1/sqrt(n), so the absolute 2e-2 only binds the first
+# rows.  Sound, the gap is P's and the outputs' rounding to bfloat16 (u
+# = 2^-8): at most 4.1e-3 in a CPU emulation of the kernel's rounding
+# at S = 4096 and 32768 (tools/flash_bf16_emulation.py).  A stale KV tile (keys 64-127 read as keys
+# 0-63, a cp.async double-buffer race) moves every row past it by 3.2e-2
+# or more at S = 32768 in the same emulation.  Each run reads both (the
+# control through the plain version on the altered K and V) and checks
+# that the limit lies between them.
+FLASH_ROW_REL = 1e-2
+# llama3.2-3b serving: prefill_32k's length, its batch cut from 32 to 2
+# (32 caches of 3.76 GB exceed the card's 80 GB), 32 decode steps
+LLAMA_BATCH, LLAMA_PROMPT, LLAMA_GEN = 2, 32768, 32
+# the kernel route against the plain route, float32 weights, one prompt:
+# the two attentions differ by summation order (~1e-6 relative a layer,
+# 3e-5 at most, the float32 tolerance of the kernel), carried through 28
+# layers' residual stream, norms and the head.  Held at 1e-3 of the
+# largest plain logit: ~100x the gap such order differences leave on
+# the CPU parity tests' two layers, and far below the O(1) gaps of a
+# wrong mask, head mapping or tile
+LLAMA_F32_PROMPT, LLAMA_F32_RTOL = 2048, 1e-3
+# the same in bfloat16, with the float32 weights rounded to bfloat16
+# values so that the float32 plain route computes the bfloat16 model
+# without rounding: every matmul, norm and attention output rounds on
+# both routes, and the kernel also rounds P.  The kernel route's logits
+# must lie within LLAMA_BF16_RATIO times the plain route's relative L2
+# distance from the float32 logits.  In a CPU emulation of the kernel's
+# rounding (narrow llama, 4 and 8 layers; tools/flash_bf16_emulation.py)
+# the ratio was 0.95 and 1.10; a stale KV tile in every layer made it
+# 40-55
+LLAMA_BF16_RATIO = 1.5
 DEVICE = "cuda"
 
 
@@ -130,9 +187,10 @@ def cuda_time_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple:
+def bound(n_bytes: float, n_ops: float,
+          ops_per_s: float = FP32_OPS_PER_S) -> tuple:
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = n_ops / FP32_OPS_PER_S * 1e3
+    by_ops = n_ops / ops_per_s * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                            "operations")
 
@@ -171,12 +229,13 @@ def phase_device():
 def phase_build():
     """Every kernel source, one nvcc each, all started together."""
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flashattn import kernel as flashattn
     from repro_torch.kernels.frontier import kernel as frontier
     from repro_torch.kernels.segsum import kernel as segsum
     from repro_torch.kernels.stopcheck import kernel as stopcheck
     t0 = time.perf_counter()
     libs = {"frontier": frontier.library, "stopcheck": stopcheck.library,
-            "segsum": segsum.library}
+            "segsum": segsum.library, "flashattn": flashattn.library}
     with ThreadPoolExecutor(len(libs)) as pool:
         for fut in [pool.submit(build) for build in libs.values()]:
             fut.result()
@@ -186,7 +245,8 @@ def phase_build():
         report = _build.build_report(name)
         log(f"  {name}.cu: nvcc {report['seconds']:.2f} s")
         for line in report["ptxas"].splitlines():
-            if "registers" in line or "Compiling entry" in line:
+            if "registers" in line or "Compiling entry" in line \
+                    or "spill" in line:
                 log(f"  ptxas: {line.strip()}")
 
 
@@ -366,28 +426,31 @@ def phase_profile(label: str, graph, rounds: int, batch: int,
 
 
 def reset_counts() -> None:
-    from repro_torch.kernels import frontier, segsum, stopcheck
+    from repro_torch.kernels import flashattn, frontier, segsum, stopcheck
     frontier.reset_launch_counts()
     stopcheck.reset_launch_counts()
     segsum.reset_launch_counts()
+    flashattn.reset_launch_counts()
 
 
 def all_counts() -> dict:
-    from repro_torch.kernels import frontier, segsum, stopcheck
+    from repro_torch.kernels import flashattn, frontier, segsum, stopcheck
     return {**frontier.launch_counts, **stopcheck.launch_counts,
-            **segsum.launch_counts}
+            **segsum.launch_counts, **flashattn.launch_counts}
 
 
 def read_counts(label: str, kernel_name: str, bfs_levels: int,
                 stop_checks: int) -> dict:
     """The launch counts of the run just made: the named frontier kernel
     carried every level and the stop-check kernel every stop check; the
-    gather-segment-sum kernel has no part in a centrality run."""
-    from repro_torch.kernels import frontier, segsum, stopcheck
+    gather-segment-sum and flash-attention kernels have no part in a
+    centrality run."""
+    from repro_torch.kernels import flashattn, frontier, segsum, stopcheck
     counts = all_counts()
-    if counts[segsum.SEGSUM] != 0:
-        raise AssertionError(f"{label}: the gather-segment-sum kernel ran "
-                             f"in a centrality run: {counts}")
+    if counts[segsum.SEGSUM] != 0 or counts[flashattn.FLASHATTN] != 0:
+        raise AssertionError(f"{label}: the gather-segment-sum or "
+                             "flash-attention kernel ran in a centrality "
+                             f"run: {counts}")
     fr = dict(frontier.launch_counts)
     if fr[kernel_name] == 0 or fr[kernel_name] != bfs_levels \
             or sum(fr.values()) != fr[kernel_name]:
@@ -705,20 +768,45 @@ def phase_segsum(batch, d: int) -> dict:
                      f"entries, V1=S={v}, D={d} float32"}
 
 
+def profile_twice(fn) -> tuple:
+    """``fn`` twice under the profiler, the first as its warm-up (a trace
+    can miss kernels launched as it starts): the second run's device-side
+    (ms, count, name) rows and its wall ms.  The step marker's device
+    range spans the others and is left out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    traced = []    # the active run's events, handed over as it ends
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: traced.append(p.key_averages())
+                 ) as prof:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            prof.step()
+    rows = [(evt.self_device_time_total / 1e3, evt.count, evt.key)
+            for evt in traced[-1]
+            if evt.device_type == torch.autograd.DeviceType.CUDA
+            and not evt.key.startswith("ProfilerStep")]
+    return rows, wall_ms
+
+
 def clone_tree(tree):
     from repro_torch.tree import tree_map
     return tree_map(lambda t: t.detach().clone(), tree)
 
 
-def segsum_only(label: str, want: int) -> dict:
-    """The launch counts of a GraphSAGE run: ``want`` gather-segment-sum
-    launches and no other kernel."""
-    from repro_torch.kernels.segsum import SEGSUM
+def kernel_only(label: str, name: str, want: int) -> dict:
+    """The launch counts of a model run: ``want`` launches of the kernel
+    ``name`` and no other kernel."""
     counts = all_counts()
-    others = sum(v for k, v in counts.items() if k != SEGSUM)
-    if counts[SEGSUM] != want or others:
-        raise AssertionError(f"{label}: expected {want} gather-segment-sum "
-                             f"launches and no other kernel, got {counts}")
+    others = sum(v for k, v in counts.items() if k != name)
+    if counts[name] != want or others:
+        raise AssertionError(f"{label}: expected {want} {name} launches and "
+                             f"no other kernel, got {counts}")
     return counts
 
 
@@ -765,7 +853,7 @@ def phase_graphsage(cfg, batch) -> dict:
     step profiled.  Returns the path's launch counts."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
+    from repro_torch.kernels.segsum import SEGSUM
     from repro_torch.models.gnn import sage_forward, sage_init, sage_loss
     from repro_torch.optim import AdamWConfig, init_state
     from repro_torch.train import make_train_step
@@ -787,7 +875,7 @@ def phase_graphsage(cfg, batch) -> dict:
         logits = sage_forward(params0, batch, cfg)
     torch.cuda.synchronize()
     fwd_s = time.perf_counter() - t0
-    fwd = segsum_only("graphsage forward", cfg.n_layers)
+    fwd = kernel_only("graphsage forward", SEGSUM, cfg.n_layers)
     if logits.shape != (batch.n_nodes, cfg.n_classes) \
             or not bool(torch.isfinite(logits).all()):
         raise AssertionError("graphsage: logits not finite of shape "
@@ -807,7 +895,8 @@ def phase_graphsage(cfg, batch) -> dict:
         if i == 0:
             params1, state1 = clone_tree(params), clone_tree(state)
     # each step: one launch per layer forward and one per layer backward
-    train = segsum_only("graphsage train", 2 * cfg.n_layers * GNN_STEPS)
+    train = kernel_only("graphsage train", SEGSUM,
+                        2 * cfg.n_layers * GNN_STEPS)
     peak = torch.cuda.max_memory_allocated()
     if not np.isfinite(losses).all():
         raise AssertionError(f"graphsage: loss not finite: {losses}")
@@ -817,26 +906,9 @@ def phase_graphsage(cfg, batch) -> dict:
         + f"; launches {train}; peak memory {peak / 2**30:.2f} GiB "
         f"(torch.cuda.max_memory_allocated)")
 
-    # two more steps under the profiler, the first as its warm-up (the
-    # trace can miss kernels launched as it starts): device time by
-    # kernel and idle share of the second
-    torch.cuda.synchronize()
-    traced = []    # the active step's events, handed over as it ends
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
-                 on_trace_ready=lambda p: traced.append(p.key_averages())
-                 ) as prof:
-        for _ in range(2):
-            t0 = time.perf_counter()
-            step(params, state, batch)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-            prof.step()
-    # (the step marker's device-side range spans the others: left out)
-    rows = [(evt.self_device_time_total / 1e3, evt.count, evt.key)
-            for evt in traced[-1]
-            if evt.device_type == torch.autograd.DeviceType.CUDA
-            and not evt.key.startswith("ProfilerStep")]
+    # two more steps under the profiler: device time by kernel and idle
+    # share of the second
+    rows, wall_ms = profile_twice(lambda: step(params, state, batch))
     busy = sum(r[0] for r in rows)
     k4 = sum(r[0] for r in rows if "segsum" in r[2])
     k4_calls = sum(r[1] for r in rows if "segsum_kernel<" in r[2])
@@ -858,11 +930,313 @@ def phase_graphsage(cfg, batch) -> dict:
     plain_params1, plain_state1, plain_m = plain_step(
         params0, init_state(params0), batch)
     torch.cuda.synchronize()
-    segsum_only("graphsage plain route", 0)
+    kernel_only("graphsage plain route", SEGSUM, 0)
     check_first_step(logits, plain_logits, losses[0],
                      float(plain_m["loss"]), params1, plain_params1,
                      state1["m"], plain_state1["m"], opt)
     return {k: fwd[k] + train[k] for k in fwd}
+
+
+def flash_cost(shape, causal: bool, elem: int) -> tuple:
+    """(bytes, operations) of one attention call: q, k, v read once and
+    the output written once; 4 dh operations for every (query, key)
+    pair the mask keeps (q . k and p v), the causal triangle
+    S (S + 1) / 2 a head."""
+    b, s, h, kv, dh = shape
+    pairs = s * (s + 1) / 2 if causal else s * s
+    return (2 * b * s * (h + kv) * dh * elem, 4.0 * b * h * pairs * dh)
+
+
+def flash_inputs(shape, dtype, seed: int):
+    import torch
+    b, s, h, kv, dh = shape
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    return [torch.randn((b, s, n, dh), generator=gen, device=DEVICE,
+                        dtype=torch.float32).to(dtype) for n in (h, kv, kv)]
+
+
+def row_rel_err(got, want):
+    """||got - want|| / ||want|| over the last axis, in float32."""
+    g, w = got.float(), want.float()
+    return (g - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-30)
+
+
+def check_flash_rows(label: str, q, k, v, got, want, causal: bool) -> dict:
+    """The bfloat16 output held per row within FLASH_ROW_REL, and a
+    control: the plain version with KV tile 1 replaced by tile 0, what a
+    kernel reading a stale buffer gives, must lie beyond it in every row
+    that sees the whole tile (128 and on)."""
+    import torch
+    from repro_torch.kernels.flashattn import flash_attention_gqa_ref
+    sound = float(row_rel_err(got, want).max())
+    k2, v2 = k.clone(), v.clone()
+    k2[:, 64:128], v2[:, 64:128] = k[:, :64], v[:, :64]
+    bad = flash_attention_gqa_ref(q, k2, v2, causal=causal)[:, 128:]
+    del k2, v2
+    control = float(row_rel_err(bad, want[:, 128:]).min())
+    tol = FLASH_TOL["bfloat16"]
+    passes_abs = ["passes" if torch.allclose(
+        bad[:, lo:].float(), want[:, 128 + lo:].float(), rtol=tol, atol=tol)
+        else "fails" for lo in (0, 4096 - 128)]
+    del bad
+    log(f"  flash {label}: per-row ||diff|| / ||plain|| at most {sound:.4g} "
+        f"(limit {FLASH_ROW_REL}); control with a stale KV tile: at least "
+        f"{control:.4g} in every row past it; it {passes_abs[0]} the "
+        f"absolute check, and {passes_abs[1]} it on rows 4096 and on")
+    if not sound <= FLASH_ROW_REL < control:
+        raise AssertionError(f"flash {label}: per-row gap {sound} or the "
+                             f"stale-tile control {control} on the wrong "
+                             f"side of {FLASH_ROW_REL}")
+    return {"row_rel_err": sound, "stale_tile_row_rel_err_min": control}
+
+
+def check_flash_case(label: str, shape, dtype, causal: bool, seed: int,
+                     iters: int) -> dict:
+    """K5 against its plain version on N(0, 1) inputs within the dtype's
+    tolerance (and bfloat16 per row too, with its control); then timed
+    beside the plain version, the bound and
+    ``scaled_dot_product_attention`` on KV heads repeated beforehand."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flashattn import (flash_attention_cuda,
+                                               flash_attention_gqa_ref)
+    b, s, h, kv, dh = shape
+    q, k, v = flash_inputs(shape, dtype, seed)
+    got = flash_attention_cuda(q, k, v, causal=causal)
+    want = flash_attention_gqa_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[str(dtype)[6:]]
+    gap = (got.float() - want.float()).abs()
+    err = float(gap.max())
+    excess = float((gap / (tol + tol * want.float().abs())).max())
+    del gap
+    if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+        raise AssertionError(f"flash {label}: max |diff| {err} beyond atol "
+                             f"= rtol = {tol}")
+    rows = (check_flash_rows(label, q, k, v, got, want, causal)
+            if dtype == torch.bfloat16 else {})
+    ms = cuda_time_ms(lambda: flash_attention_cuda(q, k, v, causal=causal),
+                      iters)
+    plain = cuda_time_ms(lambda: flash_attention_gqa_ref(q, k, v,
+                                                         causal=causal), 1)
+    qt = q.transpose(1, 2)
+    kt = k.repeat_interleave(h // kv, dim=2).transpose(1, 2)
+    vt = v.repeat_interleave(h // kv, dim=2).transpose(1, 2)
+    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    torch.cuda.synchronize()
+    lib_err = float((lib.transpose(1, 2).float() - want.float()).abs().max())
+    del got, want, lib
+    lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal), iters)
+    n_bytes, n_ops = flash_cost(shape, causal, q.element_size())
+    b_ms, b_by = bound(n_bytes, n_ops, BF16_OPS_PER_S
+                       if dtype == torch.bfloat16 else FP32_OPS_PER_S)
+    log(f"  flash {label} {str(dtype)[6:]} {'causal' if causal else 'full'}"
+        f" (B, S, H/KV, dh) = ({b}, {s}, {h}/{kv}, {dh}): max |diff| "
+        f"{err:.3g} (atol = rtol = {tol}; largest gap / allowed "
+        f"{excess:.3g}); {ms:.3f} ms ({n_ops / ms / 1e9:.1f} TFLOP/s), plain "
+        f"{plain:.3f} ms, scaled_dot_product_attention {lib_ms:.3f} ms (max "
+        f"|diff| vs plain {lib_err:.3g}), bound {b_ms:.3f} ms ({b_by})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            **rows,
+            "shape": f"(B, S, H/KV, dh) = ({b}, {s}, {h}/{kv}, {dh}) "
+                     f"{str(dtype)[6:]}, {'causal' if causal else 'full'}"}
+
+
+def phase_flash() -> dict:
+    """K5 at the serving path's shape (bfloat16, causal), then float32
+    and a ragged non-causal case."""
+    import torch
+    from repro_torch.kernels.flashattn.kernel import SOURCE
+    dh = FLASH_SHAPE[4]
+    log(f"  dynamic shared memory a block: bfloat16 {5 * 64 * (dh + 8) * 2} "
+        f"bytes, float32 {(64 * (dh + 1) * 2 + 64 * dh + 64 * 65) * 4} bytes"
+        f" at dh={dh} ({SOURCE.name})")
+    row = check_flash_case("serving", FLASH_SHAPE, torch.bfloat16, True,
+                           SEED + 5, 5)
+    torch.cuda.empty_cache()
+    f32 = check_flash_case("float32", FLASH_F32_SHAPE, torch.float32, True,
+                           SEED + 6, 3)
+    ragged = check_flash_case("ragged", FLASH_RAGGED_SHAPE, torch.float32,
+                              False, SEED + 7, 20)
+    torch.cuda.empty_cache()
+    return {**row, **{f"float32_{k}": v for k, v in f32.items()},
+            **{f"ragged_{k}": v for k, v in ragged.items()}}
+
+
+def finite_logits(label: str, logits, batch: int, cfg) -> None:
+    import torch
+    if logits.shape != (batch, cfg.vocab_pad) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{label}: logits not finite of shape "
+                             f"({batch}, {cfg.vocab_pad})")
+
+
+def profile_serving(label: str, fn) -> None:
+    """Device time by kernel of ``fn``'s second run under the profiler
+    (K5, the GEMMs, the rest) and its idle share."""
+    rows, wall_ms = profile_twice(fn)
+    busy = sum(r[0] for r in rows)
+    k5 = sum(r[0] for r in rows if "flash_bf16_kernel" in r[2])
+    k5_calls = sum(r[1] for r in rows if "flash_bf16_kernel" in r[2])
+    gemm = sum(r[0] for r in rows if any(
+        w in r[2].lower() for w in ("gemm", "xmma", "cutlass", "nvjet")))
+    share = 1.0 / max(busy, 1e-9)
+    log(f"  profile of one {label}: wall {wall_ms:.1f} ms, device busy "
+        f"{busy:.1f} ms, idle share {1 - busy / wall_ms:.3f}; K5 {k5:.1f} ms "
+        f"({k5 * share:.1%}, {k5_calls} launches traced), GEMMs {gemm:.1f} ms"
+        f" ({gemm * share:.1%}), the rest {busy - k5 - gemm:.1f} ms "
+        f"({(busy - k5 - gemm) * share:.1%})")
+    for ms, calls, key in sorted(rows, reverse=True)[:10]:
+        log(f"  {ms:9.2f} ms {ms * share:6.1%} x{calls:<6d} {key[:80]}")
+
+
+def rel_l2(got, want) -> float:
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+def check_routes(cfg) -> None:
+    """Full width and depth, one prompt prefilled through K5 and through
+    the dispatcher's plain route, on weights drawn in float32 and
+    rounded to bfloat16 values.  Float32: last-token logits within
+    LLAMA_F32_RTOL of the largest plain logit.  Bfloat16: the kernel
+    route within LLAMA_BF16_RATIO of the plain route's relative L2
+    distance from the float32 plain logits.  In both, the argmax equal
+    unless the plain route's top-2 gap could be closed by the gap
+    allowed (float32) or seen (bfloat16)."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels.flashattn import FLASHATTN
+    from repro_torch.models.transformer import init_params, prefill_step
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 8)
+    params = init_params(gen, cfg32, device=DEVICE)
+    for leaf in tree_leaves(params):
+        leaf.copy_(leaf.to(torch.bfloat16))
+    prompt = torch.randint(0, cfg.vocab, (1, LLAMA_F32_PROMPT), generator=gen,
+                           device=DEVICE)
+
+    def both_routes(params, c, label):
+        reset_counts()
+        got, _ = prefill_step(params, prompt, c)
+        torch.cuda.synchronize()
+        kernel_only(f"{label} kernel route", FLASHATTN, cfg.n_layers)
+        reset_counts()
+        want, _ = prefill_step(params, prompt, c, use_kernel=False)
+        torch.cuda.synchronize()
+        kernel_only(f"{label} plain route", FLASHATTN, 0)
+        finite_logits(f"{label} kernel route", got, 1, cfg)
+        top2 = torch.topk(want[0].float(), 2).values
+        return got, want, float(top2[0] - top2[1])
+
+    with torch.no_grad():
+        got, want, top_gap = both_routes(params, cfg32, "float32")
+        tol = LLAMA_F32_RTOL * float(want.abs().max())
+        gap = float((got - want).abs().max())
+        same_argmax = int(got.argmax()) == int(want.argmax())
+        log(f"  kernel route vs plain route, float32, 1 x {LLAMA_F32_PROMPT}: "
+            f"last-token logits max |diff| {gap:.3g} (tolerance {tol:.3g} = "
+            f"{LLAMA_F32_RTOL} of the largest |logit| "
+            f"{float(want.abs().max()):.3g}"
+            f"); argmax {int(got.argmax())} vs {int(want.argmax())} (plain "
+            f"top-2 gap {top_gap:.3g})")
+        if gap > tol or not (same_argmax or top_gap < tol):
+            raise AssertionError("llama float32: kernel route and plain "
+                                 "route disagree beyond the stated "
+                                 "tolerance")
+        exact = want
+        params = tree_map(lambda x: x.to(torch.bfloat16), params)
+        got, want, top_gap = both_routes(params, cfg, "bfloat16")
+    e_kernel, e_plain = rel_l2(got, exact), rel_l2(want, exact)
+    gap = float((got.float() - want.float()).abs().max())
+    same_argmax = int(got.argmax()) == int(want.argmax())
+    log(f"  kernel route vs plain route, bfloat16, 1 x {LLAMA_F32_PROMPT}: "
+        f"last-token logits' relative L2 distance from the float32 plain "
+        f"route {e_kernel:.4g} (kernel) vs {e_plain:.4g} (plain), ratio "
+        f"{e_kernel / e_plain:.3g} (limit {LLAMA_BF16_RATIO}); kernel vs "
+        f"plain {rel_l2(got, want):.4g}, max |diff| {gap:.3g}; argmax "
+        f"{int(got.argmax())} vs {int(want.argmax())} (plain top-2 gap "
+        f"{top_gap:.3g})")
+    if e_kernel > LLAMA_BF16_RATIO * e_plain \
+            or not (same_argmax or top_gap < 2 * gap):
+        raise AssertionError("llama bfloat16: kernel route and plain route "
+                             "disagree beyond the stated tolerance")
+
+
+def phase_llama() -> dict:
+    """llama3.2-3b serving at full width and depth; returns the launch
+    counts of the counted run (a warm prefill, then the decode)."""
+    import torch
+    from repro_torch.configs.llama3_2_3b import make_config
+    from repro_torch.kernels.flashattn import FLASHATTN
+    from repro_torch.models.transformer import (decode_step, grow_cache,
+                                                init_params, prefill_step)
+    from repro_torch.tree import tree_leaves
+    cfg = make_config()
+    b, s = LLAMA_BATCH, LLAMA_PROMPT
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = init_params(gen, cfg, device=DEVICE)
+    prompt = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"  {cfg.name}: {n_params} parameters ({cfg.dtype}) drawn on the card"
+        f" in {time.perf_counter() - t0:.2f} s; prompt {b} x {s}")
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        # the process's first prefill pays cuBLAS set-up: reported as cold
+        times = []
+        for run in ("cold", "warm"):
+            reset_counts()
+            t0 = time.perf_counter()
+            logits, cache = prefill_step(params, prompt, cfg)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            prefill = kernel_only(f"{run} prefill", FLASHATTN, cfg.n_layers)
+            if run == "cold":
+                del cache
+        finite_logits("prefill", logits, b, cfg)
+        log(f"  prefill {b} x {s}: cold {times[0]:.3f} s "
+            f"({b * s / times[0]:.0f} tokens/s), warm {times[1]:.3f} s "
+            f"({b * s / times[1]:.0f} tokens/s); launches {prefill}")
+
+        cache = grow_cache(cache, LLAMA_GEN)
+        tokens = torch.argmax(logits, -1)[:, None]
+        ids = [tokens]
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(LLAMA_GEN):
+            logits, cache = decode_step(params, cache, tokens, cfg)
+            tokens = torch.argmax(logits, -1)[:, None]
+            ids.append(tokens)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        decode = kernel_only("decode", FLASHATTN, 0)
+        finite_logits("decode", logits, b, cfg)
+        peak = torch.cuda.max_memory_allocated()
+        gen_ids = torch.cat(ids, dim=1)
+        log(f"  decode: {LLAMA_GEN} steps of {b} tokens from a cache of "
+            f"{cache['k'].shape[2]} slots, "
+            f"{decode_s / LLAMA_GEN * 1e3:.2f} ms "
+            f"a step ({b * LLAMA_GEN / decode_s:.1f} tokens/s); launches "
+            f"{decode}; cache at len {cache['len']}; peak memory "
+            f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated); "
+            f"first ids {gen_ids[0, :8].tolist()} / {gen_ids[1, :8].tolist()}")
+        # profiled steps rewrite the last two slots: the counted run is over
+        profile_serving("decode step", lambda: decode_step(
+            params, {**cache, "len": cache["len"] - 2}, tokens, cfg))
+        del cache, logits
+        torch.cuda.empty_cache()
+        profile_serving("warm prefill", lambda: prefill_step(params, prompt,
+                                                             cfg))
+    del params
+    torch.cuda.empty_cache()
+    check_routes(cfg)
+    torch.cuda.empty_cache()
+    return {k: prefill[k] + decode[k] for k in prefill}
 
 
 def main() -> int:
@@ -880,6 +1254,7 @@ def main() -> int:
     from repro_torch.configs.graphsage_reddit import (cfg_for_shape,
                                                       make_config)
     from repro_torch.data import graph_to_batch
+    from repro_torch.kernels.flashattn import FLASHATTN
     from repro_torch.kernels.frontier import FLAT, NODE_BLOCKED
     from repro_torch.kernels.segsum import SEGSUM
     from repro_torch.kernels.stopcheck import STOPCHECK
@@ -973,13 +1348,27 @@ def main() -> int:
     del batch
     torch.cuda.empty_cache()
 
+    log(f"[11] flash-attention kernel at the serving path's shapes: "
+        f"(B, S, H, KV, dh) = {FLASH_SHAPE} bfloat16 causal, "
+        f"{FLASH_F32_SHAPE} float32, {FLASH_RAGGED_SHAPE} non-causal")
+    rows.append({"name": FLASHATTN, "route": "cuda",
+                 "source": "src/repro_torch/kernels/flashattn/csrc/"
+                           "flashattn.cu",
+                 "replaces": "src/repro/kernels/flashattn/kernel.py:70",
+                 "launches": 0, **phase_flash()})
+
+    log(f"[12] llama3.2-3b serving: prefill {LLAMA_BATCH} x {LLAMA_PROMPT} "
+        f"(prefill_32k's length, batch cut from 32), {LLAMA_GEN} decode "
+        f"steps, bfloat16 at full width and depth")
+    paths["llama_serve"] = phase_llama()
+
     # each row's launches: the run of the path that row's kernel carries
     for row, main_path in zip(rows, ("rmat_bidir", "grid", "forward",
-                                     "graphsage")):
+                                     "graphsage", "llama_serve")):
         row["launches"] = paths[main_path][row["name"]]
         row["launches_by_path"] = {k: c[row["name"]]
                                    for k, c in paths.items()}
-    log(f"[11] total {time.perf_counter() - t_start:.1f} s")
+    log(f"[13] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

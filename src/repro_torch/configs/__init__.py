@@ -1,2 +1,3 @@
 """Model configurations of the port (``repro.configs``): graphsage-reddit
-so far.  The registry and ``ArchDef`` wait for the LM slice."""
+and llama3.2-3b so far.  The registry and ``ArchDef`` wait for their
+slice."""

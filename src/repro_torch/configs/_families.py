@@ -1,9 +1,17 @@
-"""The port's copy of the GNN cell shapes it uses
-(``repro.configs._families.GNN_SHAPES``): the full-batch classification
-cells.  ``minibatch_lg`` waits for the neighbour sampler and
-``molecule`` for the equivariant models."""
+"""The port's copy of the cell shapes it uses
+(``repro.configs._families``): the LM cells and the full-batch GNN
+classification cells.  ``minibatch_lg`` waits for the neighbour sampler
+and ``molecule`` for the equivariant models; the registry and
+``ArchDef`` wait for their slice."""
 
-__all__ = ["GNN_SHAPES"]
+__all__ = ["GNN_SHAPES", "LM_SHAPES"]
+
+LM_SHAPES = {
+    "train_4k": dict(seq=4096, batch=256),
+    "prefill_32k": dict(seq=32768, batch=32),
+    "decode_32k": dict(seq=32768, batch=128),
+    "long_500k": dict(seq=524288, batch=1),
+}
 
 # (nodes_pad, edges_pad, d_feat, n_classes, n_graphs, task)
 GNN_SHAPES = {

@@ -1,0 +1,66 @@
+"""Plain PyTorch version of the flash-attention kernel
+(``repro.kernels.flashattn.ref``): a dense softmax.
+
+:func:`flash_attention_ref` takes the kernel's folded layout, q, k, v
+(BH, S, dh).  The scores, the softmax and its product with v are
+float32 whatever the inputs' type; masked scores are -1e30 and the
+output is cast to ``q.dtype``.  Query rows go through in blocks of at
+most ``budget`` score elements (2^28 by default, 1 GiB of float32), so
+a 32768-token prompt over 48 heads needs a few GB and not the 200 GB of
+its full score matrix; a causal block only scores the keys up to its
+last row, since the rest are masked.
+
+:func:`flash_attention_gqa_ref` takes the model's layout, q (B, S, H,
+dh) and k, v (B, S, KV, dh): it repeats each KV head H / KV times, as
+the JAX wrapper's ``_fold_gqa`` does, folds (B, H) and calls the above.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["BUDGET", "flash_attention_gqa_ref", "flash_attention_ref"]
+
+BUDGET = 1 << 28
+_NEG_INF = -1e30
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        budget: int = BUDGET):
+    """q, k, v (BH, S, dh) -> (BH, S, dh) in ``q.dtype``."""
+    bh, s, dh = q.shape
+    kf, vf = k.float(), v.float()
+    out = torch.empty((bh, s, dh), dtype=q.dtype, device=q.device)
+    rows = max(1, min(s, budget // max(bh * s, 1)))
+    for lo in range(0, s, rows):
+        hi = min(s, lo + rows)
+        n_keys = hi if causal else s
+        scores = torch.matmul(q[:, lo:hi].float(),
+                              kf[:, :n_keys].transpose(1, 2)) / (dh ** 0.5)
+        if causal:
+            qpos = torch.arange(lo, hi, device=q.device)[:, None]
+            kpos = torch.arange(n_keys, device=q.device)[None, :]
+            scores = scores.masked_fill(kpos > qpos, _NEG_INF)
+        probs = torch.softmax(scores, dim=-1)
+        del scores
+        out[:, lo:hi] = torch.matmul(probs, vf[:, :n_keys]).to(q.dtype)
+    return out
+
+
+def _fold_gqa(q, k, v):
+    """Model layout to the kernel's: KV heads repeated, (B, H) folded."""
+    b, s, h, dh = q.shape
+    g = h // k.shape[2]
+    kr = torch.repeat_interleave(k, g, dim=2)
+    vr = torch.repeat_interleave(v, g, dim=2)
+
+    def fold(x):
+        return x.transpose(1, 2).reshape(b * h, s, dh)
+
+    return fold(q), fold(kr), fold(vr)
+
+
+def flash_attention_gqa_ref(q, k, v, *, causal: bool = True):
+    """q (B, S, H, dh), k, v (B, S, KV, dh) -> (B, S, H, dh)."""
+    b, s, h, dh = q.shape
+    out = flash_attention_ref(*_fold_gqa(q, k, v), causal=causal)
+    return out.reshape(b, h, s, dh).transpose(1, 2)

@@ -1,1 +1,2 @@
-"""Models of the port (``repro.models``): GraphSAGE so far."""
+"""Models of the port (``repro.models``): GraphSAGE and the dense LM's
+serving path so far."""

@@ -14,8 +14,11 @@ import torch
 
 import repro_torch
 import repro_torch.core as tc
+import repro_torch.configs.llama3_2_3b as llama
+import repro_torch.models.transformer as lm
 from repro_torch.configs.graphsage_reddit import make_smoke_config
 from repro_torch.data import graph_to_batch
+from repro_torch.models.convert import lm_params_from_numpy
 from repro_torch.models.gnn import (GraphBatch, sage_init,
                                     sage_params_from_numpy)
 
@@ -42,7 +45,7 @@ def test_import_pulls_in_no_jax_and_no_repro():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 45
+    assert int(out.stdout.strip()) >= 52
 
 
 def test_guard_walks_the_forward_slice_modules():
@@ -91,6 +94,23 @@ def test_guard_walks_the_graphsage_slice_modules():
             "repro_torch.tree"} <= set(_submodules())
 
 
+def test_guard_walks_the_lm_slice_modules():
+    """The import guard above reaches every module of the LM serving
+    slice and the flash-attention kernel, and the source scan below reads
+    their files."""
+    modules = {"repro_torch.configs.llama3_2_3b",
+               "repro_torch.kernels.flashattn.kernel",
+               "repro_torch.kernels.flashattn.ops",
+               "repro_torch.kernels.flashattn.ref",
+               "repro_torch.models.attention",
+               "repro_torch.models.convert",
+               "repro_torch.models.transformer"}
+    assert modules <= set(_submodules())
+    scanned = {p.relative_to(SRC.parent).with_suffix("").as_posix()
+               .replace("/", ".") for p in SRC.rglob("*.py")}
+    assert modules <= scanned
+
+
 @pytest.mark.parametrize("call", [
     lambda: tc.grid_graph(4, 4),
     lambda: tc.from_edge_list([[0, 1], [1, 2]]),
@@ -106,9 +126,13 @@ def test_guard_walks_the_graphsage_slice_modules():
     lambda: sage_params_from_numpy(
         sage_init(torch.Generator(), make_smoke_config(), device="cpu")),
     lambda: GraphBatch(*[torch.zeros(1)] * 10, n_graphs=1).to("cuda"),
+    lambda: lm.init_params(torch.Generator(), llama.make_smoke_config()),
+    lambda: lm.init_cache(llama.make_smoke_config(), 1, 8),
+    lambda: lm_params_from_numpy({"ln_f": torch.ones(2).numpy()}),
 ], ids=["generator", "from_edge_list", "run_kadabra", "run_adaptive",
         "graph_to", "run_fixed", "run_fixed_sampling", "sage_init",
-        "graph_to_batch", "sage_params_from_numpy", "graph_batch_to"])
+        "graph_to_batch", "sage_params_from_numpy", "graph_batch_to",
+        "lm_init_params", "lm_init_cache", "lm_params_from_numpy"])
 def test_entry_points_raise_without_a_card(call, monkeypatch):
     """The default device is CUDA; with no card the call raises instead
     of running on the CPU."""

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import repro_torch.core as tc
+from repro_torch.kernels import flashattn as fa
 from repro_torch.kernels import frontier as tf
 from repro_torch.kernels import segsum as tk
 from repro_torch.kernels import stopcheck as ts
@@ -252,3 +253,99 @@ def test_graphsage_on_the_card_matches_the_cpu(cuda):
     torch.cuda.synchronize()
     assert tk.launch_counts[tk.SEGSUM] == cfg.n_layers
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
+
+
+FLASH_TOL = {torch.float32: 3e-5, torch.bfloat16: 2e-2}
+# bfloat16 per output row, ||got - want|| / ||want|| over dh: a row over
+# n keys has |out| ~ 1/sqrt(n), which the absolute 2e-2 does not see.
+# Rounding P and the outputs to bfloat16 leaves at most ~4e-3; a stale
+# or skipped KV tile leaves several times 1e-2 (chip_smoke.py reads
+# both at the serving shape)
+FLASH_ROW_REL = 1e-2
+
+
+def _qkv(b, s, h, n_kv, dh, dtype, device, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.randn(b, s, h, dh, generator=gen)
+    k = torch.randn(b, s, n_kv, dh, generator=gen)
+    v = torch.randn(b, s, n_kv, dh, generator=gen)
+    return [x.to(device=device, dtype=dtype) for x in (q, k, v)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [1, 17, 100, 130, 1024])
+@pytest.mark.parametrize("h,n_kv", [(24, 8), (6, 2), (4, 4)])
+def test_flash_kernel_matches_plain(cuda, dtype, dh, causal, s, h, n_kv):
+    """K5 against its plain version: float32 within 3e-5 (summation
+    order), bfloat16 within 2e-2 (P rounded to bfloat16 before P V, and
+    both outputs rounded to bfloat16) and each row within FLASH_ROW_REL
+    of its own norm.  Ragged S, and H / KV = 3 catches a head mapped by
+    h % KV."""
+    q, k, v = _qkv(2, s, h, n_kv, dh, dtype, cuda, seed=s + h)
+    before = fa.launch_counts[fa.FLASHATTN]
+    got = fa.flash_attention_cuda(q, k, v, causal=causal)
+    want = fa.flash_attention_gqa_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.launch_counts[fa.FLASHATTN] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        g, w = got.float(), want.float()
+        rel = (g - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-30)
+        assert float(rel.max()) <= FLASH_ROW_REL
+
+
+def test_flash_kernel_reads_strided_views(cuda):
+    """q, k, v as views into wider tensors (head and row strides that
+    are not the contiguous ones): the same output as contiguous copies."""
+    wide = torch.randn(2, 130, 6, 256, device=cuda).to(torch.bfloat16)
+    kv = torch.randn(2, 130, 2, 384, device=cuda).to(torch.bfloat16)
+    q, k, v = wide[..., 64:192], kv[..., :128], kv[..., 256:]
+    got = fa.flash_attention_cuda(q, k, v)
+    want = fa.flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                   v.contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_flash_kernel_refuses_what_it_cannot_take(cuda):
+    q, k, v = _qkv(1, 8, 4, 2, 64, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_cuda(q[..., :32], k[..., :32], v[..., :32])
+    with pytest.raises(ValueError, match="one type"):
+        fa.flash_attention_cuda(q, k.float(), v)
+    with pytest.raises(ValueError, match="multiple of KV"):
+        fa.flash_attention_cuda(q[:, :, :3], k, v)
+
+
+def test_lm_prefill_runs_the_kernel_once_a_layer(cuda):
+    """A small llama-shaped model (head_dim 64) prefilled on the card:
+    one K5 launch a layer and logits within float32 reach of the CPU's
+    plain route; decode launches nothing."""
+    from repro_torch.models import transformer as lm
+    from repro_torch.tree import tree_map
+    cfg = lm.TransformerConfig(
+        name="lm-gpu-test", n_layers=3, d_model=256, n_heads=6,
+        n_kv_heads=2, head_dim=64, d_ff=512, vocab=500,
+        rope_theta=500_000.0, dtype=torch.float32)
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, 200),
+                           generator=torch.Generator().manual_seed(1))
+    want, want_cache = lm.prefill_step(params, tokens, cfg)
+    gpu_params = tree_map(lambda x: x.to(cuda), params)
+    fa.reset_launch_counts()
+    got, cache = lm.prefill_step(gpu_params, tokens.to(cuda), cfg)
+    torch.cuda.synchronize()
+    assert fa.launch_counts[fa.FLASHATTN] == cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(cache["k"].cpu(), want_cache["k"], rtol=1e-4,
+                               atol=1e-4)
+    cache = lm.grow_cache(cache, 2)
+    fa.reset_launch_counts()
+    lm.decode_step(gpu_params, cache, got.argmax(-1)[:, None], cfg)
+    torch.cuda.synchronize()
+    assert fa.launch_counts[fa.FLASHATTN] == 0

@@ -1,0 +1,276 @@
+"""The port's LM serving slice on the CPU against the JAX package: the
+model substrate (rms_norm, swiglu, RoPE), dense and decode attention,
+``forward``, ``prefill_step`` with its cache, ``decode_step`` and the
+greedy loop of ``examples/serve_lm_torch.py``, with the JAX weights
+carried across by ``lm_params_from_numpy``.  On the CPU every
+full-attention layer runs the flash-attention dispatcher's plain route.
+
+Tolerance, float32 throughout: rtol 1e-5, and for entries near zero an
+atol of 1e-5 of the array's largest magnitude.  Both packages compute
+the same float32 expressions; attention and the matmuls sum in other
+orders (XLA's chunked online softmax against PyTorch's dense one),
+which leaves gaps of ~2e-6 of the largest logit after two layers.
+"""
+import functools
+import importlib.util
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.configs.llama3_2_3b as jcfg
+import repro.models.attention as jatt
+import repro.models.common as jcom
+import repro.models.transformer as jt
+import repro_torch.configs.llama3_2_3b as tcfg
+import repro_torch.models.attention as tatt
+import repro_torch.models.common as tcom
+import repro_torch.models.transformer as tt
+from repro.configs._families import LM_SHAPES as J_LM_SHAPES
+from repro_torch.configs._families import LM_SHAPES
+from repro_torch.kernels import flashattn
+from repro_torch.models.convert import lm_params_from_numpy
+from repro_torch.tree import tree_leaves
+from _torch_parity import np_
+
+EXAMPLE = Path(__file__).resolve().parents[1] / "examples" / \
+    "serve_lm_torch.py"
+
+
+def _close(got, want, rtol=1e-5, rel_atol=1e-5):
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(np_(got), want, rtol=rtol,
+                               atol=rel_atol * float(np.abs(want).max()))
+
+
+def _normal(shape, seed):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+def _narrow(mod, dtype, **kw):
+    """llama-shaped and narrow: 2 layers, d_model 128, 6/2 heads of 32,
+    d_ff 256, vocab 300 (padded to 512), the chunked JAX schedule."""
+    args = dict(name="llama-narrow", n_layers=2, d_model=128, n_heads=6,
+                n_kv_heads=2, head_dim=32, d_ff=256, vocab=300,
+                rope_theta=500_000.0, dtype=dtype, attn_impl="chunk",
+                attn_chunk=64)
+    return mod.TransformerConfig(**{**args, **kw})
+
+
+CONFIGS = {
+    # (JAX config, port config, prompt length)
+    "smoke": (jcfg.make_smoke_config(), tcfg.make_smoke_config(), 48),
+    # S = 128 > attn_chunk: the JAX side runs masked_chunk_attention
+    "narrow": (_narrow(jt, jnp.float32), _narrow(tt, torch.float32), 128),
+    # a sliding-window layer inside one chunk, then a global one
+    "local_global": (
+        _narrow(jt, jnp.float32, layer_pattern=("local", "global"),
+                window=16, attn_impl="dense"),
+        _narrow(tt, torch.float32, layer_pattern=("local", "global"),
+                window=16, attn_impl="dense"), 48),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _setup(name, batch=2, seed=0):
+    """Configs, the JAX weights, the port's copy of them and a prompt
+    (shared by the tests: none writes to them)."""
+    jc, tc, s = CONFIGS[name]
+    jp = jt.init_params(jax.random.PRNGKey(seed), jc)
+    tp = lm_params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    tokens = np.random.default_rng(seed).integers(
+        0, jc.vocab, (batch, s)).astype(np.int32)
+    return jc, tc, jp, tp, tokens
+
+
+# ---------------------------------------------------------------------------
+# configs and parameters
+# ---------------------------------------------------------------------------
+
+def test_configs_match_the_reference():
+    assert LM_SHAPES == J_LM_SHAPES
+    for make in ("make_config", "make_smoke_config"):
+        j, t = getattr(jcfg, make)(), getattr(tcfg, make)()
+        for field in ("name", "n_layers", "d_model", "n_heads", "n_kv_heads",
+                      "d_ff", "vocab", "head_dim", "layer_pattern", "window",
+                      "qkv_bias", "rope_theta", "tie_embeddings",
+                      "attn_impl", "attn_chunk", "hd", "vocab_pad",
+                      "n_groups", "n_remainder"):
+            assert getattr(t, field) == getattr(j, field), field
+        assert t.flops_per_token_fwd() == j.flops_per_token_fwd()
+        assert t.active_params() == j.active_params()
+        assert str(t.dtype).split(".")[-1] == jnp.dtype(j.dtype).name
+    assert abs(tcfg.make_config().active_params() - 3.61e9) < 0.01e9
+
+
+@pytest.mark.parametrize("kw,item", [
+    (dict(moe=object()), "moe"), (dict(param_sharding="fsdp"), "fsdp"),
+    (dict(loss_chunk=512), "loss_chunk")])
+def test_unported_options_raise(kw, item):
+    with pytest.raises(NotImplementedError, match=f"{item}.*ROADMAP"):
+        _narrow(tt, torch.float32, **kw)
+
+
+@pytest.mark.parametrize("name", ["smoke", "narrow", "local_global"])
+def test_init_params_has_the_reference_tree(name):
+    """Same leaves in the same order, shapes and types; the per-leaf
+    spread follows the JAX initializers' scales."""
+    jc, tc, jp, _, _ = _setup(name)
+    tp = tt.init_params(torch.Generator().manual_seed(0), tc, device="cpu")
+    tl, jl = tree_leaves(tp), jax.tree.leaves(jp)
+    assert len(tl) == len(jl)
+    for t, j in zip(tl, jl):
+        assert tuple(t.shape) == j.shape and t.dtype == torch.float32
+        j = np.asarray(j)
+        if j.std() > 0:
+            assert abs(float(t.std()) / j.std() - 1) < 0.2
+        else:
+            assert torch.equal(t, torch.from_numpy(np.array(j)))
+
+
+# ---------------------------------------------------------------------------
+# the substrate, each alone
+# ---------------------------------------------------------------------------
+
+def test_rms_norm_swiglu_alone():
+    x, gamma = _normal((3, 5, 64), 1), _normal((64,), 2)
+    _close(tcom.rms_norm(torch.from_numpy(x), torch.from_numpy(gamma)),
+           jcom.rms_norm(jnp.asarray(x), jnp.asarray(gamma)))
+    a, b = _normal((4, 96), 3), _normal((4, 96), 4)
+    _close(tcom.swiglu(torch.from_numpy(a), torch.from_numpy(b)),
+           jcom.swiglu(jnp.asarray(a), jnp.asarray(b)))
+
+
+@pytest.mark.parametrize("dh,theta", [(128, 500_000.0), (32, 10_000.0)])
+def test_rope_alone_up_to_32k(dh, theta):
+    """Positions 0 .. 32767: the frequencies are the same float32 values,
+    and the angles reach 3.3e4 rad, where cos and sin of the two
+    libraries differ by ~6e-8."""
+    x = _normal((1, 32768, 2, dh), 5)
+    pos = np.arange(32768, dtype=np.int32)[None, :]
+    np.testing.assert_array_equal(np_(tcom.rope_frequencies(dh, theta)),
+                                  np.asarray(jcom.rope_frequencies(dh, theta)))
+    _close(tcom.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), theta),
+           jcom.apply_rope(jnp.asarray(x), jnp.asarray(pos), theta))
+
+
+@pytest.mark.parametrize("causal,window,q_offset", [
+    (True, None, 0), (True, 7, 0), (False, None, 0), (True, 5, 9)])
+def test_dense_attention(causal, window, q_offset):
+    q = _normal((2, 20, 6, 32), 1)
+    k, v = _normal((2, 29, 2, 32), 2), _normal((2, 29, 2, 32), 3)
+    got = tatt.dense_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                               causal=causal, window=window,
+                               q_offset=q_offset)
+    want = jatt.dense_attention(*(jnp.asarray(a) for a in (q, k, v)),
+                                causal=causal, window=window,
+                                q_offset=q_offset)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("pos,window", [(0, None), (37, None), (37, 8),
+                                        (3, 8), (63, 8)])
+def test_decode_attention(pos, window):
+    q = _normal((2, 1, 6, 32), 1)
+    kc, vc = _normal((2, 64, 2, 32), 2), _normal((2, 64, 2, 32), 3)
+    got = tatt.decode_attention(*(torch.from_numpy(a) for a in (q, kc, vc)),
+                                pos, window=window)
+    want = jatt.decode_attention(*(jnp.asarray(a) for a in (q, kc, vc)),
+                                 jnp.int32(pos), window=window)
+    _close(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the model
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["smoke", "narrow", "local_global"])
+def test_forward_logits(name):
+    jc, tc, jp, tp, tokens = _setup(name)
+    want, _aux = jax.jit(lambda p, t: jt.forward(p, t, jc))(
+        jp, jnp.asarray(tokens))
+    got = tt.forward(tp, torch.from_numpy(tokens), tc)
+    assert got.shape == (2, tokens.shape[1], tc.vocab_pad)
+    _close(got, want)
+
+
+def test_local_layer_beyond_one_chunk_raises():
+    jc, tc, _, tp, _ = _setup("local_global")
+    long = torch.zeros((1, tc.attn_chunk + 1), dtype=torch.int64)
+    with pytest.raises(NotImplementedError, match="sliding-window prefill"):
+        tt.prefill_step(tp, long, tc)
+
+
+@pytest.mark.parametrize("name", ["smoke", "narrow", "local_global"])
+def test_prefill_and_four_decode_steps(name):
+    """prefill_step's logits and cache, then 4 decode_steps on a cache
+    grown by 4 (as serve_lm.py grows it), logits at every step and the
+    cache after the last."""
+    jc, tc, jp, tp, tokens = _setup(name)
+    want, jcache = jax.jit(lambda p, t: jt.prefill_step(p, t, jc))(
+        jp, jnp.asarray(tokens))
+    got, tcache = tt.prefill_step(tp, torch.from_numpy(tokens), tc)
+    _close(got, want)
+    assert tcache["len"] == int(jcache["len"]) == tokens.shape[1]
+    for key in ("k", "v"):
+        _close(tcache[key], jcache[key])
+
+    pad = ((0, 0), (0, 0), (0, 4), (0, 0), (0, 0))
+    jcache = {"k": jnp.pad(jcache["k"], pad), "v": jnp.pad(jcache["v"], pad),
+              "len": jcache["len"]}
+    tcache = tt.grow_cache(tcache, 4)
+    decode = jax.jit(lambda p, c, t: jt.decode_step(p, c, t, jc))
+    for i in range(4):
+        tok = np.random.default_rng(10 + i).integers(
+            0, jc.vocab, (2, 1)).astype(np.int32)
+        want, jcache = decode(jp, jcache, jnp.asarray(tok))
+        got, tcache = tt.decode_step(tp, tcache, torch.from_numpy(tok), tc)
+        _close(got, want)
+    assert tcache["len"] == int(jcache["len"]) == tokens.shape[1] + 4
+    for key in ("k", "v"):
+        _close(tcache[key], jcache[key])
+    with pytest.raises(ValueError, match="grow it"):
+        tt.decode_step(tp, tcache, torch.from_numpy(tok), tc)
+
+
+def _example():
+    spec = importlib.util.spec_from_file_location("serve_lm_torch", EXAMPLE)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_example_greedy_loop_matches_jax():
+    """The example's generate() against serve_lm.py's loop on the JAX
+    package, same weights and prompt: the same token ids."""
+    jc, tc, jp, tp, tokens = _setup("narrow")
+    gen_len = 8
+    prefill = jax.jit(lambda p, t: jt.prefill_step(p, t, jc))
+    decode = jax.jit(lambda p, c, t: jt.decode_step(p, c, t, jc))
+    logits, cache = prefill(jp, jnp.asarray(tokens))
+    pad = ((0, 0), (0, 0), (0, gen_len), (0, 0), (0, 0))
+    cache = {"k": jnp.pad(cache["k"], pad), "v": jnp.pad(cache["v"], pad),
+             "len": cache["len"]}
+    tok = jnp.argmax(logits, -1)[:, None]
+    want = [tok]
+    for _ in range(gen_len - 1):
+        logits, cache = decode(jp, cache, tok)
+        tok = jnp.argmax(logits, -1)[:, None]
+        want.append(tok)
+    ids, last, _, _ = _example().generate(tp, torch.from_numpy(tokens), tc,
+                                          gen_len)
+    np.testing.assert_array_equal(np_(ids),
+                                  np.asarray(jnp.concatenate(want, axis=1)))
+    _close(last, logits)
+
+
+def test_example_smoke_path_runs(capsys):
+    flashattn.reset_launch_counts()
+    ids = _example().main(["--smoke", "--device", "cpu", "--gen-len", "6"])
+    assert ids.shape == (4, 6)
+    assert "OK" in capsys.readouterr().out
+    assert flashattn.launch_counts[flashattn.FLASHATTN] == 0
