@@ -10,15 +10,18 @@ any failed phase.  Phases:
 2. build the frontier, stop-check, gather-segment-sum and
    flash-attention kernels from their ``csrc/`` sources (one nvcc each,
    started together; sm_90a) and print the build seconds and the
-   ``ptxas`` register, spill and shared-memory lines;
+   ``ptxas`` register, spill, shared-memory and warning lines;
 3. hold each kernel against its plain PyTorch version at main-path
    shapes (one mid-BFS level of R-MAT 2^20 x 30, B=64): the flat kernel
-   on the COO edges, the node-blocked kernel on a CSC layout at the
-   card's blocking.  Bitwise while the sums are exact integers below
-   2^24, else rtol 1e-6 (atomics add in a varying order).  Times each
-   with CUDA events after warm-up, beside its plain version, the byte
-   bound and ``torch.sparse.mm`` (the library yardstick, called only
-   here);
+   on the COO edges; on a CSC layout at the card's blocking the
+   node-blocked route's frontier-words kernel and its whole level (the
+   words pass, then the node-blocked kernel).  Bitwise while the sums
+   are exact integers below 2^24, else rtol 1e-6 (atomics add in a
+   varying order).  Times each with CUDA events after warm-up (the
+   node-blocked wrapper a call, as the path calls it, and beside it each
+   of its two kernels' device time from the profiler), beside its plain
+   version, the byte bound and ``torch.sparse.mm`` (the library
+   yardstick, called only here);
 4. the main path: ``run_kadabra`` on R-MAT 2^20 x 30, B=64, eps=0.01,
    delta=0.1 (``repro.configs.betweenness``), no CSC layout, so every
    level goes through the flat kernel and every epoch's stop check
@@ -29,12 +32,14 @@ any failed phase.  Phases:
    with the budgets of this graph's own calibration (bitwise, a NaN case
    and V = 1, 5000, 40000 included), timed beside the plain version and
    the byte bound;
-5. a second path through the node-blocked kernel: a 256 x 256 grid with
-   a CSC layout.  The kernel is first held against its plain version and
-   timed at the grid's own shapes (one mid-BFS level, B=8: these are the
-   node-blocked row's numbers, the R-MAT ones stay beside them), then
-   ``run_kadabra`` runs at eps=0.05, then two of its rounds under the
-   profiler;
+5. a second path through the node-blocked route: a 256 x 256 grid with
+   a CSC layout.  Its two kernels were held against their plain versions
+   and timed at the grid's own shapes at the start of [3] (one mid-BFS
+   level, B=8, before any profiler session, which leaves overhead on
+   later launches: these are the node-blocked row's numbers, the R-MAT
+   ones stay beside them); here ``run_kadabra`` runs at eps=0.05 (every
+   level one words launch and one node-blocked launch), then two of its
+   rounds under the profiler;
 6. accuracy: ``run_kadabra`` on a 1000-vertex hyperbolic graph within
    eps=0.05 of the exact ``brandes_numpy``;
 7. the forward path: ``run_adaptive`` with betweenness, closeness and
@@ -59,13 +64,16 @@ any failed phase.  Phases:
    forward, 4 a step); then a step under the profiler (after a warm-up
    step); then the same forward and first step on the dispatcher's
    plain route held against the kernel route's;
-11. the flash-attention kernel (K5) against its plain version at the
-   serving path's shape: q (2, 32768, 24, 128), k and v (2, 32768, 8,
-   128), bfloat16, causal, within 2e-2 (P is rounded to bfloat16 before
-   P V); then float32 at (1, 4096, 24/8, 128) within 3e-5 and a ragged
-   non-causal (1, 1000, 6/2, 64).  Each timed beside its plain version,
-   its bound and ``scaled_dot_product_attention`` (the library
-   yardstick, called only here, on KV heads repeated beforehand);
+11. the flash-attention kernel (K5): the ptxas lines of its bfloat16
+   (wgmma + TMA) kernels and their HGMMA and UTMALDG counts from
+   ``cuobjdump -sass``; then K5 against its plain version at the serving
+   path's shape: q (2, 32768, 24, 128), k and v (2, 32768, 8, 128),
+   bfloat16, causal, within 2e-2 (P is rounded to bfloat16 before P V)
+   and per row, with a stale-ring-slot control; then float32 at (1,
+   4096, 24/8, 128) within 3e-5 and a ragged non-causal (1, 1000, 6/2,
+   64).  Each timed (and its TFLOP/s) beside its plain version, its
+   bound and ``scaled_dot_product_attention`` (the library yardstick,
+   called only here, on KV heads repeated beforehand);
 12. llama3.2-3b serving at full width and depth in bfloat16 (3.61e9
    parameters drawn on the card): a prefill of 2 prompts of 32768
    tokens (the prefill_32k cell's length; its batch of 32 is cut to 2,
@@ -139,12 +147,16 @@ FLASH_TOL = {"bfloat16": 2e-2, "float32": 3e-5}
 # keys has |out| ~ 1/sqrt(n), so the absolute 2e-2 only binds the first
 # rows.  Sound, the gap is P's and the outputs' rounding to bfloat16 (u
 # = 2^-8): at most 4.1e-3 in a CPU emulation of the kernel's rounding
-# at S = 4096 and 32768 (tools/flash_bf16_emulation.py).  A stale KV tile (keys 64-127 read as keys
-# 0-63, a cp.async double-buffer race) moves every row past it by 3.2e-2
-# or more at S = 32768 in the same emulation.  Each run reads both (the
-# control through the plain version on the altered K and V) and checks
-# that the limit lies between them.
+# at S = 4096 and 32768 (tools/flash_bf16_emulation.py).  The kernel's
+# K/V tiles hold FLASH_KV_TILE keys in a ring of FLASH_KV_STAGES slots,
+# so a consumer that reads a slot before its refill lands sees the tile
+# FLASH_KV_STAGES before: keys 256-383 read as keys 0-127, which moves
+# every row past them by 4.5e-2 or more at S = 32768 in the same
+# emulation.  Each run reads both (the control through the plain
+# version on the altered K and V) and checks that the limit lies
+# between them.
 FLASH_ROW_REL = 1e-2
+FLASH_KV_TILE, FLASH_KV_STAGES = 128, 2
 # llama3.2-3b serving: prefill_32k's length, its batch cut from 32 to 2
 # (32 caches of 3.76 GB exceed the card's 80 GB), 32 decode steps
 LLAMA_BATCH, LLAMA_PROMPT, LLAMA_GEN = 2, 32768, 32
@@ -210,7 +222,8 @@ def compare(name: str, got, want) -> float:
         if not torch.allclose(got, want, rtol=RTOL, atol=0.0):
             raise AssertionError(f"{name}: max |diff| {err} beyond rtol "
                                  f"{RTOL}")
-        log(f"  {name}: within rtol {RTOL} (max |diff| {err})")
+        same = "; bitwise equal" if torch.equal(got, want) else ""
+        log(f"  {name}: within rtol {RTOL} (max |diff| {err}{same})")
     return err
 
 
@@ -245,9 +258,40 @@ def phase_build():
         report = _build.build_report(name)
         log(f"  {name}.cu: nvcc {report['seconds']:.2f} s")
         for line in report["ptxas"].splitlines():
-            if "registers" in line or "Compiling entry" in line \
-                    or "spill" in line:
+            if any(w in line for w in ("registers", "Compiling entry",
+                                       "spill", "arning")):
                 log(f"  ptxas: {line.strip()}")
+
+
+def cuobjdump_path() -> str:
+    """The toolkit's ``cuobjdump``, else the copy in Triton's package."""
+    import shutil
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    cand = Path("/usr/local/cuda/bin/cuobjdump")
+    if cand.exists():
+        return str(cand)
+    import triton
+    return str(Path(triton.__file__).parent / "backends/nvidia/bin/cuobjdump")
+
+
+def sass_ops(name: str, ops=("HGMMA", "UTMALDG")) -> dict:
+    """Per kernel of the built library ``name``: how many SASS lines hold
+    each of ``ops`` (``cuobjdump -sass``)."""
+    from repro_torch.kernels import _build
+    sass = subprocess.run(
+        [cuobjdump_path(), "-sass", _build.build_report(name)["path"]],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    found, func = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            func = line.split("Function :")[1].strip()
+            found[func] = dict.fromkeys(ops, 0)
+        elif func is not None:
+            for op in ops:
+                found[func][op] += op in line
+    return found
 
 
 def mid_bfs_state(graph, batch: int):
@@ -309,16 +353,52 @@ def check_flat(graph, dist, sigma, levels) -> dict:
             "library_ms": library_ms(graph, dist, sigma, levels)}
 
 
+def kernel_device_ms(fn, calls: int, names) -> dict:
+    """Device time a call of each kernel whose name holds one of
+    ``names``, from ``calls`` calls of ``fn`` under the profiler (after
+    one untraced call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    found = dict.fromkeys(names, 0.0)
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            for name in names:
+                if name in evt.key:
+                    found[name] += evt.self_device_time_total / 1e3 / calls
+    return found
+
+
 def check_node_blocked(graph, csc, dist, sigma, levels) -> dict:
-    """The node-blocked kernel against its plain version on ``csc``, with
-    the state at csc.v_pad rows.  The wrapper is timed as the path calls
-    it, its block bitmap included; the bitmap is also timed alone."""
+    """The node-blocked route against its plain versions on ``csc``,
+    with the state at csc.v_pad rows: the words kernel and the level
+    (words pass + ``frontier_nb_kernel``), bitwise.  The wrapper is
+    timed a call as the path calls it (two launches, allocations
+    included); beside it each kernel's device time from the profiler."""
     import torch
     from repro_torch.kernels.frontier import (
-        frontier_block_bitmap, frontier_expand_node_blocked,
-        frontier_expand_node_blocked_ref)
+        WORDS, frontier_block_bitmap, frontier_expand_node_blocked,
+        frontier_expand_node_blocked_ref, frontier_words,
+        frontier_words_ref, launch_counts)
     batch = dist.shape[1]
     n_active = int(frontier_block_bitmap(csc, dist, levels).sum())
+    before = launch_counts[WORDS]
+    words, zeros = frontier_words(dist, levels)
+    torch.cuda.synchronize()
+    if launch_counts[WORDS] != before + 1 or not torch.equal(
+            words, frontier_words_ref(dist, levels)) or bool(zeros.any()):
+        raise AssertionError("frontier_words: not bitwise equal to its "
+                             "plain version")
+    log(f"  frontier_words: bitwise equal to its plain version "
+        f"({words.shape[1]} word(s) a row, "
+        f"{int((words != 0).any(dim=1).sum())} frontier rows)")
+    del words, zeros
     got = frontier_expand_node_blocked(csc, dist, sigma, levels)
     want = frontier_expand_node_blocked_ref(csc, dist, sigma, levels)
     torch.cuda.synchronize()
@@ -326,18 +406,23 @@ def check_node_blocked(graph, csc, dist, sigma, levels) -> dict:
     del got, want
     ms = cuda_time_ms(lambda: frontier_expand_node_blocked(
         csc, dist, sigma, levels), 20)
-    bitmap = cuda_time_ms(lambda: frontier_block_bitmap(csc, dist, levels),
-                          20)
+    device = kernel_device_ms(lambda: frontier_expand_node_blocked(
+        csc, dist, sigma, levels), 20, ("frontier_words_kernel",
+                                        "frontier_nb_kernel"))
     plain = cuda_time_ms(lambda: frontier_expand_node_blocked_ref(
         csc, dist, sigma, levels), 3)
-    b_ms, b_by = bound(n_active * csc.block_e * 8 + csc.n_edge_blocks * 4
-                       + csc.v_pad * batch * 12,
+    b_ms, b_by = bound(n_active * csc.block_e * 8 + csc.v_pad * batch * 12,
                        2.0 * n_active * csc.block_e * batch)
-    log(f"  frontier_node_blocked: {ms:.3f} ms with its bitmap ({bitmap:.3f}"
-        f" ms alone; {n_active}/{csc.n_edge_blocks} blocks active), plain "
-        f"{plain:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
-    return {"max_abs_err": err, "ms": ms, "bitmap_ms": bitmap,
-            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+    log(f"  frontier_node_blocked: {ms:.3f} ms a call ({n_active}/"
+        f"{csc.n_edge_blocks} edge blocks active); device time "
+        f"frontier_words_kernel {device['frontier_words_kernel']:.4f} ms, "
+        f"frontier_nb_kernel {device['frontier_nb_kernel']:.4f} ms; plain "
+        f"{plain:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return {"max_abs_err": err, "ms": ms,
+            "words_device_ms": device["frontier_words_kernel"],
+            "nb_device_ms": device["frontier_nb_kernel"],
+            "active_blocks": n_active, "plain_ms": plain, "bound_ms": b_ms,
+            "bound_by": b_by,
             "library_ms": library_ms(graph, dist, sigma, levels)}
 
 
@@ -383,9 +468,10 @@ def phase_grid_kernel(grid) -> dict:
     level of GRID_BATCH searches on the grid's CSC layout."""
     dist, sigma, levels = mid_bfs_state(grid, GRID_BATCH)
     csc = grid.csc
-    log(f"  kernel at the grid's shapes: V={grid.n_nodes} B={GRID_BATCH} "
-        f"rows={dist.shape[0]} block_v={csc.block_v} block_e={csc.block_e}"
-        f", levels {levels.tolist()}")
+    log(f"[3] node-blocked route at the grid's shapes (before any profiler "
+        f"run): {GRID_SIDE} x {GRID_SIDE} grid, V={grid.n_nodes} "
+        f"B={GRID_BATCH} rows={dist.shape[0]} block_v={csc.block_v} "
+        f"block_e={csc.block_e}, levels {levels.tolist()}")
     nb = check_node_blocked(grid, csc, dist, sigma, levels)
     return {**nb, "shape": f"grid {GRID_SIDE} x {GRID_SIDE}, B={GRID_BATCH},"
                            f" block_v={csc.block_v} block_e={csc.block_e}"}
@@ -442,7 +528,8 @@ def all_counts() -> dict:
 def read_counts(label: str, kernel_name: str, bfs_levels: int,
                 stop_checks: int) -> dict:
     """The launch counts of the run just made: the named frontier kernel
-    carried every level and the stop-check kernel every stop check; the
+    carried every level (the node-blocked one with its words pass) and
+    the stop-check kernel every stop check; the
     gather-segment-sum and flash-attention kernels have no part in a
     centrality run."""
     from repro_torch.kernels import flashattn, frontier, segsum, stopcheck
@@ -452,8 +539,11 @@ def read_counts(label: str, kernel_name: str, bfs_levels: int,
                              "flash-attention kernel ran in a centrality "
                              f"run: {counts}")
     fr = dict(frontier.launch_counts)
+    # a node-blocked level is two launches: its words pass and the kernel
+    words = fr[kernel_name] if kernel_name == frontier.NODE_BLOCKED else 0
     if fr[kernel_name] == 0 or fr[kernel_name] != bfs_levels \
-            or sum(fr.values()) != fr[kernel_name]:
+            or fr[frontier.WORDS] != words \
+            or sum(fr.values()) != fr[kernel_name] + words:
         raise AssertionError(f"{label}: expected all {bfs_levels} levels "
                              f"through {kernel_name}, got {counts}")
     got = counts[stopcheck.STOPCHECK]
@@ -963,29 +1053,32 @@ def row_rel_err(got, want):
 
 def check_flash_rows(label: str, q, k, v, got, want, causal: bool) -> dict:
     """The bfloat16 output held per row within FLASH_ROW_REL, and a
-    control: the plain version with KV tile 1 replaced by tile 0, what a
-    kernel reading a stale buffer gives, must lie beyond it in every row
-    that sees the whole tile (128 and on)."""
+    control: the plain version with KV tile FLASH_KV_STAGES read as tile
+    0 (a consumer reading a ring slot before its refill), which must lie
+    beyond it in every row that sees the whole stale tile."""
     import torch
     from repro_torch.kernels.flashattn import flash_attention_gqa_ref
     sound = float(row_rel_err(got, want).max())
+    lo = FLASH_KV_STAGES * FLASH_KV_TILE
+    past = lo + FLASH_KV_TILE
     k2, v2 = k.clone(), v.clone()
-    k2[:, 64:128], v2[:, 64:128] = k[:, :64], v[:, :64]
-    bad = flash_attention_gqa_ref(q, k2, v2, causal=causal)[:, 128:]
+    k2[:, lo:past], v2[:, lo:past] = k[:, :FLASH_KV_TILE], v[:, :FLASH_KV_TILE]
+    bad = flash_attention_gqa_ref(q, k2, v2, causal=causal)[:, past:]
     del k2, v2
-    control = float(row_rel_err(bad, want[:, 128:]).min())
+    control = float(row_rel_err(bad, want[:, past:]).min())
     tol = FLASH_TOL["bfloat16"]
     passes_abs = ["passes" if torch.allclose(
-        bad[:, lo:].float(), want[:, 128 + lo:].float(), rtol=tol, atol=tol)
-        else "fails" for lo in (0, 4096 - 128)]
+        bad[:, r:].float(), want[:, past + r:].float(), rtol=tol, atol=tol)
+        else "fails" for r in (0, 4096 - past)]
     del bad
     log(f"  flash {label}: per-row ||diff|| / ||plain|| at most {sound:.4g} "
-        f"(limit {FLASH_ROW_REL}); control with a stale KV tile: at least "
-        f"{control:.4g} in every row past it; it {passes_abs[0]} the "
+        f"(limit {FLASH_ROW_REL}); control with a stale ring slot (keys "
+        f"{lo}-{past - 1} read as 0-{FLASH_KV_TILE - 1}): at least "
+        f"{control:.4g} in every row from {past} on; it {passes_abs[0]} the "
         f"absolute check, and {passes_abs[1]} it on rows 4096 and on")
     if not sound <= FLASH_ROW_REL < control:
         raise AssertionError(f"flash {label}: per-row gap {sound} or the "
-                             f"stale-tile control {control} on the wrong "
+                             f"stale-slot control {control} on the wrong "
                              f"side of {FLASH_ROW_REL}")
     return {"row_rel_err": sound, "stale_tile_row_rel_err_min": control}
 
@@ -1031,15 +1124,16 @@ def check_flash_case(label: str, shape, dtype, causal: bool, seed: int,
     n_bytes, n_ops = flash_cost(shape, causal, q.element_size())
     b_ms, b_by = bound(n_bytes, n_ops, BF16_OPS_PER_S
                        if dtype == torch.bfloat16 else FP32_OPS_PER_S)
+    tflops = n_ops / ms / 1e9
     log(f"  flash {label} {str(dtype)[6:]} {'causal' if causal else 'full'}"
         f" (B, S, H/KV, dh) = ({b}, {s}, {h}/{kv}, {dh}): max |diff| "
         f"{err:.3g} (atol = rtol = {tol}; largest gap / allowed "
-        f"{excess:.3g}); {ms:.3f} ms ({n_ops / ms / 1e9:.1f} TFLOP/s), plain "
+        f"{excess:.3g}); {ms:.3f} ms ({tflops:.1f} TFLOP/s), plain "
         f"{plain:.3f} ms, scaled_dot_product_attention {lib_ms:.3f} ms (max "
         f"|diff| vs plain {lib_err:.3g}), bound {b_ms:.3f} ms ({b_by})")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-            **rows,
+    return {"max_abs_err": err, "ms": ms, "tflops": tflops,
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms, **rows,
             "shape": f"(B, S, H/KV, dh) = ({b}, {s}, {h}/{kv}, {dh}) "
                      f"{str(dtype)[6:]}, {'causal' if causal else 'full'}"}
 
@@ -1048,11 +1142,26 @@ def phase_flash() -> dict:
     """K5 at the serving path's shape (bfloat16, causal), then float32
     and a ragged non-causal case."""
     import torch
+    from repro_torch.kernels import _build
     from repro_torch.kernels.flashattn.kernel import SOURCE
     dh = FLASH_SHAPE[4]
-    log(f"  dynamic shared memory a block: bfloat16 {5 * 64 * (dh + 8) * 2} "
-        f"bytes, float32 {(64 * (dh + 1) * 2 + 64 * dh + 64 * 65) * 4} bytes"
-        f" at dh={dh} ({SOURCE.name})")
+    tiles = (1 + 2 * FLASH_KV_STAGES) * FLASH_KV_TILE * dh * 2
+    log(f"  dynamic shared memory a block: bfloat16 {tiles} bytes of tiles "
+        f"(+ barriers and 1024-byte alignment), float32 "
+        f"{(64 * (dh + 1) * 2 + 64 * dh + 64 * 65) * 4} bytes at dh={dh} "
+        f"({SOURCE.name})")
+    ptxas = _build.build_report("flashattn")["ptxas"].splitlines()
+    for i, line in enumerate(ptxas):
+        if "Compiling entry" in line and "flash_bf16_kernel" in line:
+            log(f"  ptxas: {line.strip()}")
+            log(f"  ptxas: {' | '.join(x.strip() for x in ptxas[i + 1:i + 4])}")
+    ops = {f: n for f, n in sass_ops("flashattn").items()
+           if "flash_bf16_kernel" in f}
+    for func, counts in ops.items():
+        log(f"  cuobjdump -sass: {func}: {counts}")
+    if len(ops) != 2 or not all(n["HGMMA"] and n["UTMALDG"]
+                                for n in ops.values()):
+        raise AssertionError(f"flash_bf16_kernel lacks HGMMA or UTMALDG: {ops}")
     row = check_flash_case("serving", FLASH_SHAPE, torch.bfloat16, True,
                            SEED + 5, 5)
     torch.cuda.empty_cache()
@@ -1255,7 +1364,7 @@ def main() -> int:
                                                       make_config)
     from repro_torch.data import graph_to_batch
     from repro_torch.kernels.flashattn import FLASHATTN
-    from repro_torch.kernels.frontier import FLAT, NODE_BLOCKED
+    from repro_torch.kernels.frontier import FLAT, NODE_BLOCKED, WORDS
     from repro_torch.kernels.segsum import SEGSUM
     from repro_torch.kernels.stopcheck import STOPCHECK
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1270,7 +1379,13 @@ def main() -> int:
     log(f"  R-MAT 2^{RMAT_SCALE} x {EDGE_FACTOR} built in "
         f"{time.perf_counter() - t0:.1f} s: V={rmat.n_nodes} "
         f"E={rmat.n_edges} max degree {rmat.max_degree}")
+    # the grid's node-blocked level is timed first: a torch.profiler
+    # session leaves overhead on every later launch in the process, and
+    # this level is bound by its host time
+    grid = with_csc_layout(grid_graph(GRID_SIDE, GRID_SIDE, device=DEVICE))
+    grid_row = phase_grid_kernel(grid)
     rows = phase_kernels(rmat)
+    rows[1].update(grid_row)
     torch.cuda.empty_cache()
     paths = {}   # path -> its run's launch counts
 
@@ -1293,8 +1408,6 @@ def main() -> int:
 
     log(f"[5] node-blocked path: run_kadabra on a {GRID_SIDE} x {GRID_SIDE} "
         f"grid with a CSC layout, eps={GRID_EPS}")
-    grid = with_csc_layout(grid_graph(GRID_SIDE, GRID_SIDE, device=DEVICE))
-    rows[1].update(phase_grid_kernel(grid))
     _res, paths["grid"] = drive("grid", grid, NODE_BLOCKED, GRID_EPS, 0.1)
     phase_profile("grid", grid, 2, GRID_BATCH)
     del grid
@@ -1362,12 +1475,16 @@ def main() -> int:
         f"steps, bfloat16 at full width and depth")
     paths["llama_serve"] = phase_llama()
 
-    # each row's launches: the run of the path that row's kernel carries
+    # each row's launches: the run of the path that row's kernel carries;
+    # the node-blocked row's words pass beside it
     for row, main_path in zip(rows, ("rmat_bidir", "grid", "forward",
                                      "graphsage", "llama_serve")):
         row["launches"] = paths[main_path][row["name"]]
         row["launches_by_path"] = {k: c[row["name"]]
                                    for k, c in paths.items()}
+    rows[1]["words_launches"] = paths["grid"][WORDS]
+    rows[1]["words_launches_by_path"] = {k: c[WORDS]
+                                         for k, c in paths.items()}
     log(f"[13] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

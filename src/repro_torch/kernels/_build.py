@@ -5,7 +5,16 @@ a plain C interface under ``build/kernels/`` at the repository root (a
 directory ``.gitignore`` lists):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
-         -Xcompiler -fPIC -Xptxas -v -o build/kernels/<name>.so <source>
+         -Xcompiler -fPIC -Xptxas -v -o <tmp>.so <source> [extra flags]
+
+A source that needs more (an include path such as
+``-I/usr/local/cutlass/include``, a library such as ``-lcuda``) names
+its own ``extra_flags``; they follow the source, so link flags land
+after it.  The library is renamed to
+``build/kernels/<name>-<digest>.so``, the digest taken over the command
+line and the source's bytes: a changed source or flag set gets a new
+path, so the dynamic loader, which returns the handle it already holds
+for a path it has opened, never hands back a stale library.
 
 Every C entry point returns ``cudaGetLastError()`` and the Python
 wrapper raises on a non-zero code (:func:`check`).  Nothing here runs at
@@ -15,6 +24,7 @@ no ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import shutil
 import subprocess
@@ -23,7 +33,7 @@ import time
 from pathlib import Path
 
 __all__ = ["BUILD_DIR", "KernelBuildError", "build_report", "check", "load",
-           "nvcc_path"]
+           "nvcc_path", "raw_stream"]
 
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "kernels"
@@ -31,8 +41,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-# name -> (ctypes.CDLL, build report); one build per process
+# (name, extra flags) -> ctypes.CDLL; one build per process
 _LOADED: dict = {}
+# name -> report of its latest build in this process
+_REPORTS: dict = {}
 
 
 class KernelBuildError(RuntimeError):
@@ -49,41 +61,60 @@ def nvcc_path() -> str:
     raise KernelBuildError("nvcc not found on PATH or under CUDA_HOME")
 
 
-def load(name: str, source: Path, declare) -> ctypes.CDLL:
+def load(name: str, source: Path, declare, extra_flags=()) -> ctypes.CDLL:
     """The loaded library ``name``, built from ``source`` on first use.
 
-    The library is written to a temporary name and renamed to
-    ``BUILD_DIR/<name>.so``, so a concurrent builder never loads a
-    half-written file.  ``declare(lib)`` sets ``argtypes``/``restype`` of
-    its entry points.
+    ``extra_flags`` are further ``nvcc`` arguments for this source only,
+    placed after it.  The library is written to a temporary name and
+    renamed to ``BUILD_DIR/<name>-<digest>.so`` (module docstring), so a
+    concurrent builder never loads a half-written file.  ``declare(lib)``
+    sets ``argtypes``/``restype`` of its entry points.
     """
-    if name not in _LOADED:
+    key = (name, tuple(extra_flags))
+    if key not in _LOADED:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(source), *key[1]]
+        stable = [arg for arg in cmd if arg != tmp]
+        digest = hashlib.sha256("\0".join(stable).encode()
+                                + Path(source).read_bytes()).hexdigest()[:16]
         t0 = time.perf_counter()
-        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-                               str(source)], capture_output=True, text=True)
+        proc = subprocess.run(cmd, capture_output=True, text=True)
         seconds = time.perf_counter() - t0
         if proc.returncode != 0:
             os.unlink(tmp)
             raise KernelBuildError(f"{name}: nvcc exit {proc.returncode}\n"
                                    f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, BUILD_DIR / f"{name}.so")
-        lib = ctypes.CDLL(str(BUILD_DIR / f"{name}.so"))
+        path = BUILD_DIR / f"{name}-{digest}.so"
+        os.replace(tmp, path)
+        lib = ctypes.CDLL(str(path))
         declare(lib)
-        _LOADED[name] = (lib, {"seconds": seconds,
-                               "ptxas": proc.stdout + proc.stderr})
-    return _LOADED[name][0]
+        _LOADED[key] = lib
+        _REPORTS[name] = {"seconds": seconds, "path": str(path),
+                          "ptxas": proc.stdout + proc.stderr}
+    return _LOADED[key]
 
 
 def build_report(name: str) -> dict:
-    """``{"seconds", "ptxas"}`` of the library ``name`` built by this
-    process."""
-    return _LOADED[name][1]
+    """``{"seconds", "path", "ptxas"}`` of the library ``name`` built by
+    this process."""
+    return _REPORTS[name]
 
 
 def check(code: int, what: str) -> None:
     """Raise when a C entry point returned a CUDA error code."""
     if code != 0:
         raise RuntimeError(f"{what} failed: CUDA error {code}")
+
+
+def raw_stream(device) -> int:
+    """The handle of ``device``'s current CUDA stream, for a launch.
+
+    The same value as ``torch.cuda.current_stream(device).cuda_stream``
+    without building a Stream object, which costs some 4 us a call: the
+    node-blocked frontier level, one launch pair per BFS level, is bound
+    by its host time on small graphs.
+    """
+    import torch
+    return torch._C._cuda_getCurrentRawStream(device.index)

@@ -4,7 +4,10 @@ The kernel lives in ``csrc/flashattn.cu`` (its source note says which
 TPU kernel it replaces, what bounds it on the card and how the design
 answers that bound).  It reads q (B, S, H, dh) and k, v (B, S, KV, dh)
 in the model's layout through their strides, maps query head h to KV
-head h // (H / KV), and writes a contiguous (B, S, H, dh) output.
+head h // (H / KV), and writes a contiguous (B, S, H, dh) output.  The
+bfloat16 route loads its tiles with TMA, whose tensor maps the C entry
+point encodes with the driver's ``cuTensorMapEncodeTiled``: the library
+links ``libcuda`` (``EXTRA_FLAGS``).
 
 :func:`flash_attention_cuda` launches it and raises on CPU tensors; the
 dispatcher in ``ops.py`` sends those to the plain version.  Each launch
@@ -19,12 +22,15 @@ import torch
 
 from .. import _build
 
-__all__ = ["FLASHATTN", "HEAD_DIMS", "SOURCE", "flash_attention_cuda",
-           "launch_counts", "library", "reset_launch_counts"]
+__all__ = ["EXTRA_FLAGS", "FLASHATTN", "HEAD_DIMS", "SOURCE",
+           "flash_attention_cuda", "launch_counts", "library",
+           "reset_launch_counts"]
 
 FLASHATTN = "flash_attention"
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flashattn.cu"
 HEAD_DIMS = (64, 128)
+# nvcc arguments of this source beyond the common ones: the driver API
+EXTRA_FLAGS = ("-lcuda",)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launch_counts = {FLASHATTN: 0}
@@ -44,7 +50,7 @@ def _declare(lib) -> None:
 def library() -> ctypes.CDLL:
     """The built flash-attention library (compiled with nvcc on first
     use)."""
-    return _build.load("flashattn", SOURCE, _declare)
+    return _build.load("flashattn", SOURCE, _declare, EXTRA_FLAGS)
 
 
 def _check(q, k, v) -> None:
@@ -90,6 +96,9 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *strides,
         b, s, h, k.shape[2], dh, _DTYPES[q.dtype], int(causal),
         1.0 / dh ** 0.5, stream)
+    if code < 0:
+        raise RuntimeError("flash_attention: the driver refused a TMA tensor "
+                           f"map (CUresult {-code})")
     _build.check(code, "flash_attention kernel launch")
     launch_counts[FLASHATTN] += 1
     return out

@@ -13,7 +13,9 @@ vertex-major state), the same as ``repro.kernels.frontier.ref``:
   contrib  : (rows, B) float32
 
 The node-blocked version runs the same sum over a ``CSCLayout``'s edge
-order and keeps the row count it was handed.  While sigma holds exact
+order and keeps the row count it was handed.  ``frontier_words_ref`` is
+the plain version of the node-blocked route's first pass: the frontier
+packed 32 samples to an int32 word.  While sigma holds exact
 integers below 2^24 every summation order gives the same bits, so these
 versions and the kernels agree bit for bit on BFS-derived state.
 """
@@ -21,7 +23,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["frontier_expand_batched_ref", "frontier_expand_node_blocked_ref"]
+__all__ = ["frontier_expand_batched_ref", "frontier_expand_node_blocked_ref",
+           "frontier_words_ref"]
 
 
 # (edge, sample) cells gathered at once; bounds the temporaries at full
@@ -51,3 +54,20 @@ def frontier_expand_node_blocked_ref(csc, dist, sigma, levels):
     out = _expand(csc.src, csc.dst, dist, sigma, levels,
                   max(csc.v_pad, rows))
     return out if rows >= csc.v_pad else out[:rows]
+
+
+def frontier_words_ref(dist, levels):
+    """(rows, ceil(B / 32)) int32: bit b % 32 of word b // 32 is set iff
+    ``dist[v, b] == levels[b]`` (bit 31 makes a word negative)."""
+    rows, batch = dist.shape
+    n_words = -(-batch // 32)
+    hit = torch.zeros((rows, n_words * 32), dtype=torch.int64,
+                      device=dist.device)
+    hit[:, :batch] = dist == levels[None, :]
+    weight = torch.bitwise_left_shift(
+        torch.ones(32, dtype=torch.int64, device=dist.device),
+        torch.arange(32, device=dist.device))
+    words = (hit.view(rows, n_words, 32) * weight).sum(dim=2)
+    # keep the low 32 bits as a two's-complement int32
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(
+        torch.int32)

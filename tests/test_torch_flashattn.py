@@ -114,6 +114,44 @@ def test_plain_property_convex_hull(seed, causal):
     assert (got >= vmin).all() and (got <= vmax).all()
 
 
+# the bfloat16 kernel's KV tile and the depth of its K/V ring
+KV_TILE, KV_STAGES = 128, 2
+FLASH_ROW_REL = 1e-2
+
+
+def _stale_ring_slot(x):
+    """(BH, S, dh) with the keys of tile KV_STAGES read as tile 0: what
+    a consumer sees when it reads a ring slot before its refill lands
+    (the slot still holds the tile KV_STAGES before)."""
+    x = x.clone()
+    lo = KV_STAGES * KV_TILE
+    x[:, lo:lo + KV_TILE] = x[:, :KV_TILE]
+    return x
+
+
+@pytest.mark.parametrize("s", [384, 512])
+def test_stale_ring_slot_control_exceeds_the_row_limit(s):
+    """The control that chip_smoke.py reads beside the bfloat16 kernel:
+    built through the plain version, it must lie beyond the per-row
+    limit (||diff|| / ||plain|| <= 1e-2) in every row that sees the
+    whole stale tile, so that the limit would catch a ring race.  S =
+    384 spans three tiles; 512 adds rows past the stale one."""
+    bh, dh = 16, 128
+    q, k, v = [torch.from_numpy(_normal((bh, s, dh), s + i)).to(
+        torch.bfloat16) for i in range(3)]
+    want = tf.flash_attention_ref(q, k, v, causal=True).float()
+    bad = tf.flash_attention_ref(q, _stale_ring_slot(k), _stale_ring_slot(v),
+                                 causal=True).float()
+    first = (KV_STAGES + 1) * KV_TILE - 1      # sees keys 256 .. 383
+    rel = ((bad - want).norm(dim=-1)
+           / want.norm(dim=-1).clamp_min(1e-30))[:, first:]
+    assert rel.shape == (bh, s - first)
+    assert float(rel.min()) > FLASH_ROW_REL
+    # rows before the stale tile are untouched
+    assert torch.equal(bad[:, :KV_STAGES * KV_TILE],
+                       want[:, :KV_STAGES * KV_TILE])
+
+
 def test_dispatcher_refuses_what_it_cannot_honour():
     q = torch.zeros(1, 8, 2, 64)
     k = torch.zeros(1, 8, 1, 64)

@@ -3,8 +3,10 @@
 The inputs are BFS-derived (sigma holds exact small integers), so every
 summation order gives the same bits: the port's plain versions must equal
 the JAX XLA references and the JAX Pallas kernels (interpret mode) bit
-for bit.  Also the bitmap helpers, the CPU behaviour of the kernel
-wrappers, and the dispatcher's routes and forced-lane errors.
+for bit.  Also the bitmap helpers, the frontier words of the
+node-blocked route (which must reproduce the JAX row mask and block
+bitmap), the CPU behaviour of the kernel wrappers, and the dispatcher's
+routes and forced-lane errors.
 """
 import dataclasses
 
@@ -112,6 +114,57 @@ def test_bitmap_helpers_match_jax():
     assert 0 < got.sum() < csc.n_edge_blocks
 
 
+@pytest.mark.parametrize("batch", [1, 5, 8, 31, 32, 33, 64, 65])
+def test_words_ref_unpacks_to_the_frontier(batch):
+    """Bit b % 32 of word b // 32 is dist[:, b] == levels[b], bit for
+    bit, and the padding bits of the last word are clear."""
+    rng = np.random.default_rng(batch)
+    dist = torch.from_numpy(rng.integers(-3, 4, (300, batch)).astype(
+        np.int32))
+    levels = torch.from_numpy(rng.integers(0, 3, batch).astype(np.int32))
+    words = tf.frontier_words_ref(dist, levels)
+    assert words.dtype == torch.int32
+    assert words.shape == (300, -(-batch // 32))
+    bits = (words.long()[:, :, None] >> torch.arange(32)) & 1
+    bits = bits.reshape(300, -1).bool()
+    assert torch.equal(bits[:, :batch], dist == levels[None, :])
+    assert not bool(bits[:, batch:].any())
+
+
+@pytest.mark.parametrize("name,batch", [("rmat", 8), ("er", 33),
+                                        ("grid", 3)])
+def test_words_or_is_the_jax_row_mask(name, batch):
+    """A row's words OR-ed together are non-zero exactly on the JAX
+    ``frontier_row_mask``."""
+    dist, _, levels = _state(GRAPHS[name](), batch, seed=batch)
+    words = tf.frontier_words_ref(_t(dist), _t(levels))
+    np.testing.assert_array_equal(np_((words != 0).any(dim=1)),
+                                  np_(j_row_mask(dist, levels)))
+
+
+@pytest.mark.parametrize("name,block_v,block_e,padded", [
+    ("er", 64, 128, False), ("grid", 37, 128, True),
+    ("rmat", 100, 256, True)])
+def test_words_or_over_edge_blocks_is_the_jax_bitmap(name, block_v, block_e,
+                                                     padded):
+    """The words of each edge block's sources OR-ed together are
+    non-zero exactly on the JAX ``frontier_block_bitmap``: the block
+    skip the node-blocked kernel decides by itself."""
+    jgraph = GRAPHS[name]()
+    csc = jc.build_csc_layout(jgraph, block_v=block_v, block_e=block_e)
+    dist, _, levels = _state(jgraph, 4, seed=block_v)
+    if padded:
+        dist = jnp.pad(dist, ((0, csc.v_pad - dist.shape[0]), (0, 0)),
+                       constant_values=-3)
+    tcsc = to_port(dataclasses.replace(jgraph, csc=csc)).csc
+    words = tf.frontier_words_ref(_t(dist), _t(levels))
+    hit = (words[tcsc.src.long()] != 0).any(dim=1)
+    got = hit.view(tcsc.n_edge_blocks, tcsc.block_e).any(dim=1)
+    want = np_(j_bitmap(csc, dist, levels))
+    np.testing.assert_array_equal(np_(got).astype(np.int32), want)
+    assert 0 < want.sum() < csc.n_edge_blocks
+
+
 def test_cpu_wrappers_run_the_plain_version_without_launching():
     """On CPU tensors the kernel wrappers return the plain version's
     result and count no launch."""
@@ -123,8 +176,11 @@ def test_cpu_wrappers_run_the_plain_version_without_launching():
     before = dict(tf.launch_counts)
     flat = tf.frontier_expand_flat(g.src, g.dst, dist, sigma, levels)
     nb = tf.frontier_expand_node_blocked(csc, dist, sigma, levels)
+    words, zeros = tf.frontier_words(dist, levels)
     want = tf.frontier_expand_batched_ref(g.src, g.dst, dist, sigma, levels)
     assert torch.equal(flat, want) and torch.equal(nb, want)
+    assert torch.equal(words, tf.frontier_words_ref(dist, levels))
+    assert zeros.shape == dist.shape and not bool(zeros.any())
     assert tf.launch_counts == before
 
 

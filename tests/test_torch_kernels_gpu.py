@@ -61,14 +61,117 @@ def test_node_blocked_kernel_matches_plain(cuda, block_v, block_e, padded):
         sigma = torch.cat([sigma, sigma.new_zeros((extra, 8))])
     got = tf.frontier_expand_node_blocked(csc, dist, sigma, levels)
     want = tf.frontier_expand_node_blocked_ref(csc, dist, sigma, levels)
-    # an all-ones bitmap (skip nothing) gives the same bits
-    from repro_torch.kernels.frontier.kernel import _launch_node_blocked
-    every = _launch_node_blocked(
-        csc, dist, sigma, levels.to(torch.int32),
-        torch.ones(csc.n_edge_blocks, dtype=torch.int32, device=cuda))
     torch.cuda.synchronize()
     assert got.shape == dist.shape
-    assert torch.equal(got, want) and torch.equal(every, want)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("batch", [1, 5, 8, 64, 65])
+def test_node_blocked_kernel_matches_plain_at_every_width(cuda, batch):
+    """B divides 32, 32 divides B, and neither (the words kernel's two
+    routes; one and three words a row): bitwise, two launches a level."""
+    graph = tc.rmat_graph(11, 16, seed=4, device=cuda)
+    csc = tc.build_csc_layout(graph, block_v=512, block_e=256)
+    dist, sigma, levels = _state(graph, batch, seed=batch)
+    tf.reset_launch_counts()
+    got = tf.frontier_expand_node_blocked(csc, dist, sigma, levels)
+    want = tf.frontier_expand_node_blocked_ref(csc, dist, sigma, levels)
+    torch.cuda.synchronize()
+    assert tf.launch_counts == {tf.FLAT: 0, tf.NODE_BLOCKED: 1, tf.WORDS: 1}
+    assert want.max() < 2 ** 24 and torch.equal(got, want)
+
+
+def test_node_blocked_kernel_without_frontier(cuda):
+    """No row on any frontier: every edge block skips itself and the
+    output is the words pass's zeros."""
+    graph = tc.rmat_graph(10, 8, seed=5, device=cuda)
+    csc = tc.build_csc_layout(graph, block_v=256, block_e=128)
+    dist, sigma, _ = _state(graph, 8)
+    levels = torch.full((8,), 10 ** 6, dtype=torch.int32, device=cuda)
+    got = tf.frontier_expand_node_blocked(csc, dist, sigma, levels)
+    torch.cuda.synchronize()
+    assert got.shape == dist.shape and not bool(got.any())
+
+
+def test_node_blocked_kernel_with_every_block_active(cuda):
+    """Every real row on every frontier (dist 0 at level 0), so every
+    edge block that holds a real edge is active: bitwise (integer
+    sigma, sums below 2^24)."""
+    graph = tc.rmat_graph(10, 8, seed=6, device=cuda)
+    csc = tc.build_csc_layout(graph, block_v=256, block_e=128)
+    gen = torch.Generator().manual_seed(6)
+    sigma = torch.randint(1, 100, (graph.n_nodes + 1, 8), generator=gen
+                          ).float().to(cuda)
+    dist = torch.full((graph.n_nodes + 1, 8), 0, dtype=torch.int32,
+                      device=cuda)
+    dist[graph.n_nodes] = -3
+    levels = torch.zeros(8, dtype=torch.int32, device=cuda)
+    real = (csc.src.view(csc.n_edge_blocks, csc.block_e)
+            < graph.n_nodes).any(dim=1)
+    assert bool(real.sum() > 1)
+    assert torch.equal(tf.frontier_block_bitmap(csc, dist, levels).bool(),
+                       real)
+    got = tf.frontier_expand_node_blocked(csc, dist, sigma, levels)
+    want = tf.frontier_expand_node_blocked_ref(csc, dist, sigma, levels)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("batch", [8, 65])
+def test_node_blocked_kernel_on_hubs(cuda, batch):
+    """Two hubs joined to every other vertex: every edge block sees its
+    destinations repeat, so it sorts its edges by destination and sums
+    each hub's edges before one atomic (float4 and scalar columns)."""
+    n = 3000
+    rest = torch.arange(2, n)
+    edges = torch.cat([torch.stack([torch.zeros_like(rest), rest], 1),
+                       torch.stack([torch.ones_like(rest), rest], 1)])
+    graph = tc.from_edge_list(edges, n, device=cuda)
+    csc = tc.build_csc_layout(graph, block_v=512, block_e=1024)
+    gen = torch.Generator().manual_seed(batch)
+    dist = torch.randint(0, 2, (n + 1, batch), generator=gen,
+                         dtype=torch.int32).to(cuda)
+    dist[n] = -3
+    sigma = torch.randint(1, 50, (n + 1, batch), generator=gen).float().to(
+        cuda)
+    levels = torch.ones(batch, dtype=torch.int32, device=cuda)
+    got = tf.frontier_expand_node_blocked(csc, dist, sigma, levels)
+    want = tf.frontier_expand_node_blocked_ref(csc, dist, sigma, levels)
+    torch.cuda.synchronize()
+    assert want[:2].max() < 2 ** 24 and bool(want[:2].min() > 0)
+    assert torch.equal(got, want)
+
+
+def test_node_blocked_kernel_with_wide_node_blocks(cuda):
+    """Node blocks of 2^21 rows leave the sort key no room: the edge
+    blocks walk their edges unsorted, with the same result."""
+    graph = tc.rmat_graph(10, 8, seed=7, device=cuda)
+    csc = tc.build_csc_layout(graph, block_v=1 << 21, block_e=1024)
+    dist, sigma, levels = _state(graph, 8, seed=7)
+    extra = csc.v_pad - dist.shape[0]
+    dist = torch.cat([dist, dist.new_full((extra, 8), -3)])
+    sigma = torch.cat([sigma, sigma.new_zeros((extra, 8))])
+    got = tf.frontier_expand_node_blocked(csc, dist, sigma, levels)
+    want = tf.frontier_expand_node_blocked_ref(csc, dist, sigma, levels)
+    torch.cuda.synchronize()
+    assert want.max() < 2 ** 24 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("batch", [1, 5, 8, 31, 32, 33, 64, 65])
+def test_words_kernel_matches_plain(cuda, batch):
+    """The frontier words bitwise against their plain version, and the
+    output it zeroes."""
+    gen = torch.Generator().manual_seed(batch)
+    dist = torch.randint(-3, 4, (1000, batch), generator=gen,
+                         dtype=torch.int32).to(cuda)
+    levels = torch.randint(0, 3, (batch,), generator=gen,
+                           dtype=torch.int32).to(cuda)
+    before = tf.launch_counts[tf.WORDS]
+    words, out = tf.frontier_words(dist, levels)
+    torch.cuda.synchronize()
+    assert tf.launch_counts[tf.WORDS] == before + 1
+    assert torch.equal(words, tf.frontier_words_ref(dist, levels))
+    assert out.shape == dist.shape and not bool(out.any())
 
 
 def test_dispatcher_routes_cuda_state_to_kernels(cuda):
@@ -78,7 +181,7 @@ def test_dispatcher_routes_cuda_state_to_kernels(cuda):
     tf.frontier_expand(graph.src, graph.dst, dist, sigma, levels)
     csc = tc.build_csc_layout(graph, block_v=128, block_e=256)
     tf.frontier_expand(graph.src, graph.dst, dist, sigma, levels, csc=csc)
-    assert tf.launch_counts == {tf.FLAT: 1, tf.NODE_BLOCKED: 1}
+    assert tf.launch_counts == {tf.FLAT: 1, tf.NODE_BLOCKED: 1, tf.WORDS: 1}
     with pytest.raises(ValueError, match="CPU tensors"):
         tf.frontier_expand(graph.src, graph.dst, dist, sigma, levels,
                            lane="ref")
@@ -275,14 +378,15 @@ def _qkv(b, s, h, n_kv, dh, dtype, device, seed=0):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("dh", [64, 128])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("s", [1, 17, 100, 130, 1024])
+@pytest.mark.parametrize("s", [1, 17, 100, 130, 1024, 257, 4097])
 @pytest.mark.parametrize("h,n_kv", [(24, 8), (6, 2), (4, 4)])
 def test_flash_kernel_matches_plain(cuda, dtype, dh, causal, s, h, n_kv):
     """K5 against its plain version: float32 within 3e-5 (summation
     order), bfloat16 within 2e-2 (P rounded to bfloat16 before P V, and
     both outputs rounded to bfloat16) and each row within FLASH_ROW_REL
-    of its own norm.  Ragged S, and H / KV = 3 catches a head mapped by
-    h % KV."""
+    of its own norm.  Ragged S, S = 257 and 4097 wrap the bfloat16
+    route's two-stage K/V ring (3 and 33 tiles of 128 keys), and H / KV
+    = 3 catches a head mapped by h % KV."""
     q, k, v = _qkv(2, s, h, n_kv, dh, dtype, cuda, seed=s + h)
     before = fa.launch_counts[fa.FLASHATTN]
     got = fa.flash_attention_cuda(q, k, v, causal=causal)

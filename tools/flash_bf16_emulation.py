@@ -8,8 +8,10 @@ output.  This script reads, on N(0, 1) inputs:
 
 1. the per-row gap ||got - want|| / ||want|| of the emulated kernel
    against the plain version, at S = 4096 (every row) and at the last
-   512 rows of S = 32768, and the same for a stale KV tile (keys 64-127
-   read as keys 0-63) in the rows past it;
+   512 rows of S = 32768, and the same for a stale ring slot in the rows
+   past it: the kernel's K/V tiles hold 128 keys in a ring of 2 stages,
+   so a consumer that reads a slot before its refill lands sees the tile
+   two before (keys 256-383 read as keys 0-127);
 2. end to end, a narrow llama-shaped bfloat16 model prefilled through
    the emulated kernel and through the plain route: each route's
    relative L2 distance of the last-token logits from the float32 plain
@@ -47,10 +49,14 @@ def attention(q, k, v, *, round_p: bool, causal: bool = True):
     return ((p @ v) / l).bfloat16().float()
 
 
+# the kernel's KV tile and ring depth
+TILE, STAGES = 128, 2
+
+
 def stale(x):
-    """Keys 64-127 replaced by keys 0-63."""
+    """Keys of tile STAGES (256-383) replaced by those of tile 0."""
     x = x.clone()
-    x[:, 64:128] = x[:, :64]
+    x[:, STAGES * TILE:(STAGES + 1) * TILE] = x[:, :TILE]
     return x
 
 
@@ -64,7 +70,7 @@ def kernel_level(s: int, heads: int, rows: int, seed: int) -> None:
                for n in (rows, s, s))
     want = attention(q, k, v, round_p=False)
     sound = row_gap(attention(q, k, v, round_p=True), want)
-    past = slice(max(0, 128 - (s - rows)), None)
+    past = slice(max(0, (STAGES + 1) * TILE - (s - rows)), None)
     control = row_gap(attention(q, stale(k), stale(v), round_p=True),
                       want)[:, past]
     print(f"S={s}, last {rows} rows, {heads} heads: row gap max "
