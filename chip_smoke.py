@@ -12,16 +12,20 @@ any failed phase.  Phases:
    started together; sm_90a) and print the build seconds and the
    ``ptxas`` register, spill, shared-memory and warning lines;
 3. hold each kernel against its plain PyTorch version at main-path
-   shapes (one mid-BFS level of R-MAT 2^20 x 30, B=64): the flat kernel
-   on the COO edges; on a CSC layout at the card's blocking the
-   node-blocked route's frontier-words kernel and its whole level (the
-   words pass, then the node-blocked kernel).  Bitwise while the sums
-   are exact integers below 2^24, else rtol 1e-6 (atomics add in a
-   varying order).  Times each with CUDA events after warm-up (the
-   node-blocked wrapper a call, as the path calls it, and beside it each
-   of its two kernels' device time from the profiler), beside its plain
-   version, the byte bound and ``torch.sparse.mm`` (the library
-   yardstick, called only here);
+   shapes (one mid-BFS level of R-MAT 2^20 x 30, B=64): the flat route
+   (the words pass, then the pull over the graph's in-edge plan, its hub
+   rows cut into items and combined), bitwise, and twice on non-integer
+   sigma, which must give the same bits (the pull's order is fixed);
+   ``cuobjdump -sass`` must show no atomic in ``frontier_pull_kernel``
+   (and some in ``frontier_nb_kernel``, the check's control); then on a
+   CSC layout at the card's blocking the node-blocked route's
+   frontier-words kernel and its whole level (the words pass, then the
+   node-blocked kernel).  Bitwise while the sums are exact integers
+   below 2^24, else rtol 1e-6 (atomics add in a varying order).  Times
+   each wrapper a call with CUDA events after warm-up, as the path calls
+   it, and beside it each of its kernels' device time from the profiler,
+   its plain version, the byte bound and ``torch.sparse.mm`` (the
+   library yardstick, called only here);
 4. the main path: ``run_kadabra`` on R-MAT 2^20 x 30, B=64, eps=0.01,
    delta=0.1 (``repro.configs.betweenness``), no CSC layout, so every
    level goes through the flat kernel and every epoch's stop check
@@ -82,7 +86,8 @@ any failed phase.  Phases:
    32 greedy decode steps (no K5); a decode step and a warm prefill
    under the profiler;
    then the kernel route against the plain route end to end in float32
-   on one 2048-token prompt.
+   on one 2048-token prompt; then the smoke config (float32, head dim
+   16) prefilled through K5 against the CPU's plain route.
 
 Every run resets the launch counts just before it and reads them just
 after: each kernel of the run must have carried all of its work.
@@ -277,21 +282,37 @@ def cuobjdump_path() -> str:
 
 
 def sass_ops(name: str, ops=("HGMMA", "UTMALDG")) -> dict:
-    """Per kernel of the built library ``name``: how many SASS lines hold
-    each of ``ops`` (``cuobjdump -sass``)."""
+    """Per kernel of the built library ``name``: how many SASS
+    instructions have each of ``ops`` as their opcode (the part before
+    the first dot; ``cuobjdump -sass``)."""
+    import re
     from repro_torch.kernels import _build
     sass = subprocess.run(
         [cuobjdump_path(), "-sass", _build.build_report(name)["path"]],
         capture_output=True, text=True, check=True, timeout=300).stdout
+    insn = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                      r"([A-Z][A-Z0-9_]*)")
     found, func = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             func = line.split("Function :")[1].strip()
             found[func] = dict.fromkeys(ops, 0)
         elif func is not None:
-            for op in ops:
-                found[func][op] += op in line
+            m = insn.search(line)
+            if m and m.group(1) in found[func]:
+                found[func][m.group(1)] += 1
     return found
+
+
+# opcodes of global and shared-memory atomics and reductions on sm_90
+ATOMIC_OPS = ("RED", "REDG", "REDAS", "ATOM", "ATOMG", "ATOMS")
+
+
+def atomics_in(kernel: str) -> int:
+    """SASS atomic and reduction instructions in every instantiation of
+    the frontier library's ``kernel``."""
+    return sum(sum(n.values()) for f, n in sass_ops(
+        "frontier", ATOMIC_OPS).items() if kernel in f)
 
 
 def mid_bfs_state(graph, batch: int):
@@ -329,27 +350,92 @@ def library_ms(graph, dist, sigma, levels) -> float:
 
 
 def check_flat(graph, dist, sigma, levels) -> dict:
-    """The flat kernel against its plain version on the COO edges."""
+    """The flat route (words pass, pull, combine) against its plain
+    version on the COO edges, over the graph's in-edge plan: bitwise, the
+    same bits twice on non-integer sigma, no atomic in the pull's SASS;
+    the wrapper timed a call, each kernel's device time from the
+    profiler."""
     import torch
     from repro_torch.kernels.frontier import (frontier_expand_batched_ref,
                                               frontier_expand_flat)
     v1, batch = graph.n_nodes + 1, dist.shape[1]
-    got = frontier_expand_flat(graph.src, graph.dst, dist, sigma, levels)
+    t0 = time.perf_counter()
+    plan = graph.pull_plan()
+    torch.cuda.synchronize()
+    counts = torch.diff(plan.offsets)
+    log(f"  pull plan built in {time.perf_counter() - t0:.2f} s: "
+        f"{plan.split_seg.shape[0]} of {v1} rows above {plan.split} in-edges,"
+        f" cut into {plan.n_items} items; largest row "
+        f"{int(counts.max())} in-edges")
+    args = (graph.src, graph.dst, dist, sigma, levels, plan)
+    got = frontier_expand_flat(*args)
     want = frontier_expand_batched_ref(graph.src, graph.dst, dist, sigma,
                                        levels)
     torch.cuda.synchronize()
     err = compare("frontier_flat", got, want)
     del got, want
-    ms = cuda_time_ms(lambda: frontier_expand_flat(
-        graph.src, graph.dst, dist, sigma, levels), 20)
+    gen = torch.Generator(device=dist.device).manual_seed(SEED + 8)
+    noisy = (sigma * (0.5 + torch.rand(sigma.shape, generator=gen,
+                                       device=dist.device))).contiguous()
+    first = frontier_expand_flat(graph.src, graph.dst, dist, noisy, levels,
+                                 plan)
+    again = frontier_expand_flat(graph.src, graph.dst, dist, noisy, levels,
+                                 plan)
+    want = frontier_expand_batched_ref(graph.src, graph.dst, dist, noisy,
+                                       levels)
+    torch.cuda.synchronize()
+    if not torch.equal(first, again):
+        raise AssertionError("frontier_flat: two launches on non-integer "
+                             "sigma gave different bits")
+    # two float32 sums of a row's n non-negative terms in different orders
+    # lie within 2 n u of their sum of each other (order_bound); the hub
+    # rows' n ~ 1e5 put that far beyond RTOL
+    tol = 2.0 * counts[:, None].float() * U32 * want
+    gap = (first - want).abs()
+    noisy_err = float(gap.max())
+    if not bool((gap <= tol).all()):
+        raise AssertionError(f"frontier_flat, non-integer sigma: max |diff| "
+                             f"{noisy_err} beyond the order bound")
+    log(f"  frontier_flat: two launches on non-integer sigma, the same "
+        f"bits; max |diff| {noisy_err:.3g} from the plain version, largest "
+        f"gap/bound {float((gap / tol.clamp(min=1e-30)).max()):.3g}")
+    del noisy, first, again, want, tol, gap
+    atomics = {k: atomics_in(k) for k in ("frontier_pull_kernel",
+                                          "frontier_pull_combine_kernel",
+                                          "frontier_nb_kernel")}
+    log(f"  cuobjdump -sass atomic and reduction instructions "
+        f"({'/'.join(ATOMIC_OPS)}): {atomics}")
+    pull_atomics = atomics["frontier_pull_kernel"] \
+        + atomics["frontier_pull_combine_kernel"]
+    if pull_atomics or not atomics["frontier_nb_kernel"]:
+        raise AssertionError("the pull's SASS holds an atomic, or the "
+                             "node-blocked kernel's none (the control)")
+    ms = cuda_time_ms(lambda: frontier_expand_flat(*args), 20)
+    names = ("frontier_words_kernel", "frontier_pull_kernel",
+             "frontier_pull_combine_kernel")
+    device = kernel_device_ms(lambda: frontier_expand_flat(*args), 20, names)
     plain = cuda_time_ms(lambda: frontier_expand_batched_ref(
         graph.src, graph.dst, dist, sigma, levels), 3)
-    b_ms, b_by = bound(graph.e_pad * 8 + v1 * batch * 12,
+    # the bytes of the route's own inputs: the plan (sources in
+    # destination order, row offsets, the split rows' item tables; the
+    # COO src/dst are not read during a level), dist and sigma read once,
+    # out written once
+    plan_bytes = sum(t.numel() * t.element_size() for t in (
+        plan.ids_sorted, plan.offsets, plan.item_begin, plan.item_end,
+        plan.split_seg, plan.split_first))
+    b_ms, b_by = bound(plan_bytes + v1 * batch * 12,
                        2.0 * graph.e_pad * batch)
-    log(f"  frontier_flat: {ms:.3f} ms, plain {plain:.3f} ms, bound "
-        f"{b_ms:.3f} ms ({b_by})")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by,
+    log(f"  frontier_flat: plan {plan_bytes} bytes, state {v1 * batch * 12}"
+        f" bytes")
+    log(f"  frontier_flat: {ms:.3f} ms a call; device time "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in device.items())
+        + f"; plain {plain:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+    return {"max_abs_err": err, "noisy_max_abs_err": noisy_err, "ms": ms,
+            "words_device_ms": device["frontier_words_kernel"],
+            "pull_device_ms": device["frontier_pull_kernel"],
+            "combine_device_ms": device["frontier_pull_combine_kernel"],
+            "sass_atomics": atomics["frontier_pull_kernel"],
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": library_ms(graph, dist, sigma, levels)}
 
 
@@ -528,7 +614,7 @@ def all_counts() -> dict:
 def read_counts(label: str, kernel_name: str, bfs_levels: int,
                 stop_checks: int) -> dict:
     """The launch counts of the run just made: the named frontier kernel
-    carried every level (the node-blocked one with its words pass) and
+    carried every level, each with its words pass, and
     the stop-check kernel every stop check; the
     gather-segment-sum and flash-attention kernels have no part in a
     centrality run."""
@@ -539,11 +625,11 @@ def read_counts(label: str, kernel_name: str, bfs_levels: int,
                              "flash-attention kernel ran in a centrality "
                              f"run: {counts}")
     fr = dict(frontier.launch_counts)
-    # a node-blocked level is two launches: its words pass and the kernel
-    words = fr[kernel_name] if kernel_name == frontier.NODE_BLOCKED else 0
+    # a level of either route is two launches: its words pass and the
+    # route's kernel
     if fr[kernel_name] == 0 or fr[kernel_name] != bfs_levels \
-            or fr[frontier.WORDS] != words \
-            or sum(fr.values()) != fr[kernel_name] + words:
+            or fr[frontier.WORDS] != bfs_levels \
+            or sum(fr.values()) != 2 * bfs_levels:
         raise AssertionError(f"{label}: expected all {bfs_levels} levels "
                              f"through {kernel_name}, got {counts}")
     got = counts[stopcheck.STOPCHECK]
@@ -1274,6 +1360,34 @@ def check_routes(cfg) -> None:
                              "disagree beyond the stated tolerance")
 
 
+def check_smoke_config() -> None:
+    """``make_smoke_config()`` (float32, head dim 16): a prefill on the
+    card through K5, one launch a layer, against the CPU's plain route
+    within the float32 tolerance of the LM tests (1e-4)."""
+    import torch
+    from repro_torch.configs.llama3_2_3b import make_smoke_config
+    from repro_torch.kernels.flashattn import FLASHATTN
+    from repro_torch.models.transformer import init_params, prefill_step
+    from repro_torch.tree import tree_map
+    cfg = make_smoke_config()
+    params = init_params(torch.Generator().manual_seed(SEED), cfg,
+                         device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (4, 96),
+                           generator=torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        want, _ = prefill_step(params, tokens, cfg)
+        reset_counts()
+        got, _ = prefill_step(tree_map(lambda x: x.to(DEVICE), params),
+                              tokens.to(DEVICE), cfg)
+        torch.cuda.synchronize()
+    counts = kernel_only("smoke config prefill", FLASHATTN, cfg.n_layers)
+    gap = float((got.cpu() - want).abs().max())
+    log(f"  smoke config ({cfg.n_layers} layers, head dim {cfg.hd}, "
+        f"{str(cfg.dtype)[6:]}) prefill 4 x 96 on the card: logits max "
+        f"|diff| {gap:.3g} from the CPU's plain route; launches {counts}")
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
 def phase_llama() -> dict:
     """llama3.2-3b serving at full width and depth; returns the launch
     counts of the counted run (a warm prefill, then the decode)."""
@@ -1345,6 +1459,7 @@ def phase_llama() -> dict:
     torch.cuda.empty_cache()
     check_routes(cfg)
     torch.cuda.empty_cache()
+    check_smoke_config()
     return {k: prefill[k] + decode[k] for k in prefill}
 
 
@@ -1482,8 +1597,10 @@ def main() -> int:
         row["launches"] = paths[main_path][row["name"]]
         row["launches_by_path"] = {k: c[row["name"]]
                                    for k, c in paths.items()}
-    rows[1]["words_launches"] = paths["grid"][WORDS]
-    rows[1]["words_launches_by_path"] = {k: c[WORDS]
+    # beside the launches of each frontier route, its words passes
+    for row, main_path in zip(rows[:2], ("rmat_bidir", "grid")):
+        row["words_launches"] = paths[main_path][WORDS]
+        row["words_launches_by_path"] = {k: c[WORDS]
                                          for k, c in paths.items()}
     log(f"[13] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -80,8 +80,10 @@ def _init_state(graph: Graph, sources):
 def _expand_level(graph: Graph, dist, sigma, level, active):
     """One batched relaxation; inactive columns are left untouched.
     Returns (dist, sigma, n_new (B,))."""
+    # the flat route's in-edge plan, built on its first level (lazily: the
+    # dispatcher asks for it only on the flat route)
     contrib = frontier_expand(graph.src, graph.dst, dist, sigma, level,
-                              csc=graph.csc)
+                              csc=graph.csc, plan=graph.pull_plan)
     new = (contrib > 0) & (dist == -1) & active[None, :]
     dist = torch.where(new, level[None, :] + 1, dist)
     sigma = torch.where(new, contrib, sigma)

@@ -5,7 +5,8 @@ on the device as dense index tensors, in the same three layouts as the
 JAX package, array for array:
 
 * CSR (``indptr``/``indices``) for the backward path walk;
-* COO (``src``/``dst``, sorted by source) for the flat frontier kernel;
+* COO (``src``/``dst``, sorted by source), from which the flat frontier
+  route's in-edge plan is built on first use (:meth:`Graph.pull_plan`);
 * the optional node-blocked CSC layout (:class:`CSCLayout`), edges
   bucketed by destination node block and, inside a bucket, ranged by
   source block, each (destination block, source block) pair padded to a
@@ -102,10 +103,26 @@ class Graph:
     n_edges: int
     max_degree: int
     csc: Optional[CSCLayout] = None
+    _cache: dict = dataclasses.field(default_factory=dict, repr=False,
+                                     compare=False)
 
     @property
     def e_pad(self) -> int:
         return int(self.indices.shape[0])
+
+    def pull_plan(self):
+        """The flat frontier route's plan of (src, dst) over the V+1
+        state rows (``kernels.frontier.build_pull_plan``); built on first
+        use, then kept while it is the plan of this graph's edges (a
+        ``dataclasses.replace`` copy shares the cache)."""
+        plan = self._cache.get("pull")
+        if plan is None or plan.ids is not self.src \
+                or plan.seg is not self.dst \
+                or plan.n_segments != self.n_nodes + 1:
+            from ..kernels.frontier import build_pull_plan
+            self._cache["pull"] = build_pull_plan(self.src, self.dst,
+                                                  self.n_nodes + 1)
+        return self._cache["pull"]
 
     @property
     def device(self) -> torch.device:
@@ -117,7 +134,7 @@ class Graph:
             self, indptr=self.indptr.to(dev), indices=self.indices.to(dev),
             src=self.src.to(dev), dst=self.dst.to(dev),
             degree=self.degree.to(dev),
-            csc=None if self.csc is None else self.csc.to(dev))
+            csc=None if self.csc is None else self.csc.to(dev), _cache={})
 
 
 def _tensor(a, dev) -> torch.Tensor:

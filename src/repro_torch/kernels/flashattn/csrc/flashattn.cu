@@ -10,7 +10,9 @@
 // GQA repeat and the (B, S, H) -> (B*H, S) fold of the JAX wrapper are
 // never materialised.  The scores, the running max and sum (m, l) and
 // the accumulator are float32; the output is in q's type (float32 or
-// bfloat16), divided by max(l, 1e-30).  dh is 64 or 128; any S >= 1.
+// bfloat16), divided by max(l, 1e-30).  dh is 16, 64 or 128 in float32
+// (16: the head width of every smoke config), 64 or 128 in bfloat16;
+// any S >= 1.
 //
 // Replaces the TPU kernel
 //   src/repro/kernels/flashattn/kernel.py: flash_attention_pallas
@@ -754,6 +756,9 @@ extern "C" int flash_attention_launch(
                                        n_heads, f32_smem, s));
   if (dtype == 0 && head_dim == 64)
     return static_cast<int>(launch_f32(flash_f32_kernel<64>, p, batch,
+                                       n_heads, f32_smem, s));
+  if (dtype == 0 && head_dim == 16)
+    return static_cast<int>(launch_f32(flash_f32_kernel<16>, p, batch,
                                        n_heads, f32_smem, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -22,13 +22,16 @@ import torch
 
 from .. import _build
 
-__all__ = ["EXTRA_FLAGS", "FLASHATTN", "HEAD_DIMS", "SOURCE",
+__all__ = ["EXTRA_FLAGS", "FLASHATTN", "HEAD_DIMS", "SOURCE", "check_inputs",
            "flash_attention_cuda", "launch_counts", "library",
            "reset_launch_counts"]
 
 FLASHATTN = "flash_attention"
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flashattn.cu"
-HEAD_DIMS = (64, 128)
+# head dims the kernel takes, by type: the float32 route is templated on
+# dh (16 is every smoke config's); the bfloat16 route's 128-byte swizzle
+# and wgmma shapes are written for 64 and 128 only
+HEAD_DIMS = {torch.float32: (16, 64, 128), torch.bfloat16: (64, 128)}
 # nvcc arguments of this source beyond the common ones: the driver API
 EXTRA_FLAGS = ("-lcuda",)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -53,7 +56,9 @@ def library() -> ctypes.CDLL:
     return _build.load("flashattn", SOURCE, _declare, EXTRA_FLAGS)
 
 
-def _check(q, k, v) -> None:
+def check_inputs(q, k, v) -> None:
+    """Raise unless the kernel takes q, k and v (shapes, one type, a head
+    dim of that type's, one device, 16-byte strides)."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"q must be (B, S, H, dh) and k, v one (B, S, KV, "
                          f"dh) shape, got {tuple(q.shape)}, {tuple(k.shape)}"
@@ -66,8 +71,9 @@ def _check(q, k, v) -> None:
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("q, k and v must share one type, float32 or "
                          f"bfloat16; got {q.dtype}, {k.dtype}, {v.dtype}")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"head_dim {dh} not in {HEAD_DIMS}")
+    if dh not in HEAD_DIMS[q.dtype]:
+        raise ValueError(f"head_dim {dh} is not one the {q.dtype} kernel "
+                         f"takes: {HEAD_DIMS[q.dtype]}")
     if not (k.device == q.device and v.device == q.device):
         raise ValueError("q, k and v must lie on one device")
     step = 16 // q.element_size()
@@ -85,7 +91,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True):
     if not q.is_cuda:
         raise ValueError("flash_attention_cuda launches the CUDA kernel but "
                          "q lies on the CPU; call flash_attention")
-    _check(q, k, v)
+    check_inputs(q, k, v)
     b, s, h, dh = q.shape
     out = torch.empty((b, s, h, dh), dtype=q.dtype, device=q.device)
     if s == 0 or b == 0 or h == 0:

@@ -1,37 +1,51 @@
 // Batched BFS frontier expansion on Hopper (sm_90a), plain C interface.
 //
-// Both kernels compute one level of B concurrent BFS searches over a
+// Both routes compute one level of B concurrent BFS searches over a
 // vertex-major (rows, B) state:
 //
-//   out[v, b] += sigma[src[e], b]  for every edge e with dst[e] == v
-//                                  and dist[src[e], b] == levels[b]
+//   out[v, b] = sum of sigma[src[e], b]  over the edges e with dst[e] == v
+//                                        and dist[src[e], b] == levels[b]
 //
-// `out` starts at zero (the flat route's caller zero-fills it; the
-// node-blocked route's words pass writes the zeros).  Padded edges point
-// at the sink row, whose dist (-3) never equals a level, so they add
-// nothing.
+// Sink and padding rows hold dist -3, which no level equals, so padded
+// edges (sink to sink) add nothing.  Both routes start with the words
+// pass, frontier_words_kernel: it reads dist once and writes the frontier
+// words, words[v, w] bit c set iff dist[v, 32 w + c] == levels[32 w + c]
+// (W = ceil(B / 32) words a row).  An edge then asks "is my source on
+// any frontier, and on which columns" with one 4-byte load, not a B-wide
+// dist row: at R-MAT 2^20, B=64 the words are 8.4 MB, which the 50 MB L2
+// holds.  Where B divides 32 or 32 divides B, each warp reads 32
+// consecutive dist cells, coalesced, and one __ballot_sync makes the
+// words; other B take one thread a word.  The node-blocked route has the
+// pass write the zeros of `out` as well; the pull writes every output row
+// itself and passes no `out`.
 //
-// frontier_flat_kernel replaces the TPU kernel
+// frontier_pull_kernel replaces the TPU kernel
 //   src/repro/kernels/frontier/kernel.py: frontier_expand_batched_pallas
 // (body _flat_kernel).  The TPU pins the whole state in VMEM and scatters
-// through a one-hot MXU matmul; here the state stays in device memory and
-// the scatter is a direct atomic add.
+// an edge block through a one-hot MXU matmul into one output tile that
+// its sequential grid revisits.  The card's blocks run in no order, so
+// the level is a pull over a plan built once per graph (kernel.py
+// build_pull_plan, the gather-segment-sum kernel's segment plan): the
+// edges' sources in destination order and each row's offsets.  One group
+// of lanes owns one destination row: the lanes run over the B columns,
+// 4 a lane with float4 loads when B % 4 == 0 (16 lanes at B=64), else 1.
+// The group walks the row's sources in order, 4 at a time so that their
+// loads overlap: each source's word of this lane's columns, then, only
+// on a hit, its sigma columns, added in registers under the bits.  Then
+// it writes the row once: no atomics and no zero pass; a row without
+// in-edges, or past the plan's rows, is written as zeros.  R-MAT's hubs
+// have in-degrees near 1e5, which would leave one group serial over them:
+// a row with more than `split` in-edges is cut into items of at most
+// `split`, one group an item writing a float32 partial row, and
+// frontier_pull_combine_kernel adds each such row's partials in item
+// order.  Both orders are fixed, so every run gives the same bits.
 //
 // frontier_nb_kernel replaces the TPU kernel
 //   src/repro/kernels/frontier/kernel.py: frontier_expand_node_blocked_pallas
 // (body _nb_kernel) on its replicated route (not wide_state).  A level is
 // two launches:
 //
-// 1. frontier_words_kernel reads dist once and writes the frontier words,
-//    words[v, w] bit c set iff dist[v, 32 w + c] == levels[32 w + c]
-//    (W = ceil(B / 32) words a row; sink and padding rows hold -3, which
-//    no level equals), and writes the zeros of `out` in the same pass.
-//    This is what the TPU's block bitmap was for, at row grain: an edge
-//    asks "is my source on any frontier, and on which columns" with W
-//    4-byte loads, not a B-wide dist row.  At R-MAT 2^20, B=64 the words
-//    are 8.4 MB, which the 50 MB L2 holds.  Where B divides 32 or 32
-//    divides B, each warp reads 32 consecutive dist cells, coalesced, and
-//    one __ballot_sync makes the words; other B take one thread a word.
+// 1. the words pass, which also writes the zeros of `out`;
 // 2. frontier_nb_kernel: one thread block per edge block of the
 //    node-blocked CSC layout.  It stages the block's source and
 //    destination ids in shared memory with 16-byte loads, reads each
@@ -61,18 +75,17 @@
 // Bound on the card.  A level moves at least E * 8 bytes of edge indices
 // plus (V+1) * B * 12 bytes of dist, sigma and out; it does E * B
 // compares and at most E * B adds, far below the card's arithmetic rate,
-// so both routes are bound by memory traffic.  The flat kernel's answer:
-// lanes of a thread group run over the B columns of one edge, so the
-// reads of dist[src, :] and sigma[src, :] are one contiguous row, and the
-// source-sorted edge order keeps consecutive edges on the same or nearby
-// rows, which the L1/L2 caches serve.  The node-blocked route replaces
-// the per-edge dist row (B * 4 bytes) by the source's words (W * 4
-// bytes), so only frontier hits touch sigma, and sums a destination's
-// hits before its atomic.
+// so both routes are bound by memory traffic.  Both replace the per-edge
+// dist row (B * 4 bytes) by the source's words (W * 4 bytes), so only
+// frontier hits touch sigma, and both read a source's sigma columns as
+// one contiguous row.  The pull also writes each output row once, where
+// the node-blocked route sums a destination's hits before one atomic.
 //
-// Float sums: atomics add in an order that varies from run to run.
-// While sigma holds exact integers below 2^24 every order gives the same
-// bits; beyond that results agree to float32 rounding (rtol 1e-6).
+// Float sums: the pull adds in a fixed order, so it gives the same bits
+// on every run; the node-blocked route's atomics add in an order that
+// varies from run to run.  While sigma holds exact integers below 2^24
+// every order gives the same bits; beyond that results agree to float32
+// rounding (rtol 1e-6).
 //
 // Each entry point launches on the caller's stream and returns
 // cudaGetLastError(); the caller raises on a non-zero code.
@@ -84,41 +97,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxGrid = 132 * 64;  // SMs x resident blocks, grid-stride
 
-// Column lanes per edge: up to one warp's worth; the rest of the block
-// runs over edges.
-inline dim3 block_shape(int batch) {
-  int bx = batch < 32 ? batch : 32;
-  if (bx < 1) bx = 1;
-  return dim3(bx, kThreads / bx);
-}
-
-__device__ __forceinline__ void expand_edge(
-    long long u, long long v, const int* __restrict__ dist,
-    const float* __restrict__ sigma, const int* __restrict__ levels,
-    float* __restrict__ out, int batch) {
-  const long long src_row = u * batch;
-  const long long dst_row = v * batch;
-  for (int b = threadIdx.x; b < batch; b += blockDim.x) {
-    if (dist[src_row + b] == levels[b]) {
-      atomicAdd(out + dst_row + b, sigma[src_row + b]);
-    }
-  }
-}
-
-__global__ void frontier_flat_kernel(const int* __restrict__ src,
-                                     const int* __restrict__ dst,
-                                     const int* __restrict__ dist,
-                                     const float* __restrict__ sigma,
-                                     const int* __restrict__ levels,
-                                     float* __restrict__ out,
-                                     long long n_edges, int batch) {
-  const long long stride = (long long)gridDim.x * blockDim.y;
-  for (long long e = (long long)blockIdx.x * blockDim.y + threadIdx.y;
-       e < n_edges; e += stride) {
-    expand_edge(src[e], dst[e], dist, sigma, levels, out, batch);
-  }
-}
-
+// `out` may be null: then the pass writes only the words.
 __global__ void frontier_words_kernel(const int* __restrict__ dist,
                                       const int* __restrict__ levels,
                                       unsigned* __restrict__ words,
@@ -144,7 +123,7 @@ __global__ void frontier_words_kernel(const int* __restrict__ dist,
       bool hit = false;
       if (i < n) {
         hit = dist[i] == __ldg(levels + b);
-        out[i] = 0.0f;
+        if (out != nullptr) out[i] = 0.0f;
       }
       const unsigned ballot = __ballot_sync(0xffffffffu, hit);
       if (batch >= 32) {
@@ -161,18 +140,18 @@ __global__ void frontier_words_kernel(const int* __restrict__ dist,
     const int b0 = (int)(i - v * n_words) * 32;
     const int nb = min(32, batch - b0);
     const int* d = dist + v * batch + b0;
-    float* o = out + v * batch + b0;
     unsigned bits = 0u;
     for (int c = 0; c < nb; ++c) {
       bits |= (unsigned)(d[c] == __ldg(levels + b0 + c)) << c;
-      o[c] = 0.0f;
+      if (out != nullptr) out[v * batch + b0 + c] = 0.0f;
     }
     words[i] = bits;
   }
 }
 
-// Lanes that share one edge: every column of B <= 32 (rounded up to a
-// power of two, so groups never straddle a warp), else a whole warp.
+// Lanes that share one edge or one row: every column of B <= 32 (rounded
+// up to a power of two, so groups never straddle a warp), else a whole
+// warp.
 __host__ __device__ inline int edge_lanes(int batch) {
   int g = 1;
   while (g < batch && g < 32) g <<= 1;
@@ -390,6 +369,172 @@ frontier_nb_kernel(const int* __restrict__ csc_src,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The pull (K1)
+// ---------------------------------------------------------------------------
+
+constexpr int kPullUnroll = 4;   // sources whose loads are in flight at once
+
+// The bits of columns b .. b + popcount(mask) - 1 of row u's frontier
+__device__ __forceinline__ unsigned frontier_bits(
+    const unsigned* __restrict__ words, long long u, int n_words, int b,
+    unsigned mask) {
+  return (__ldg(words + u * n_words + (b >> 5)) >> (b & 31)) & mask;
+}
+
+// The frontier-masked sum of sigma[u, b .. b + WIDTH) over the sources
+// u = src_sorted[begin .. end), added in that order
+template <int WIDTH>
+__device__ __forceinline__ float4 pull_sum(
+    const int* __restrict__ src_sorted, long long begin, long long end,
+    const unsigned* __restrict__ words, const float* __restrict__ sigma,
+    int batch, int n_words, int b) {
+  constexpr unsigned mask = (1u << WIDTH) - 1u;
+  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (long long e0 = begin; e0 < end; e0 += kPullUnroll) {
+    long long u[kPullUnroll];
+    unsigned bits[kPullUnroll];
+    float4 x[kPullUnroll];
+#pragma unroll
+    for (int k = 0; k < kPullUnroll; ++k)
+      u[k] = e0 + k < end ? __ldg(src_sorted + e0 + k) : -1;
+#pragma unroll
+    for (int k = 0; k < kPullUnroll; ++k)
+      bits[k] = u[k] >= 0 ? frontier_bits(words, u[k], n_words, b, mask)
+                          : 0u;
+#pragma unroll
+    for (int k = 0; k < kPullUnroll; ++k) {
+      x[k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (bits[k] != 0u) {
+        if (WIDTH == 4) {
+          x[k] = __ldg(reinterpret_cast<const float4*>(sigma + u[k] * batch
+                                                       + b));
+        } else {
+          x[k].x = __ldg(sigma + u[k] * batch + b);
+        }
+      }
+    }
+    // +0 where a bit is clear, as the plain version's +0 terms
+#pragma unroll
+    for (int k = 0; k < kPullUnroll; ++k) {
+      if (bits[k] == 0u) continue;
+      acc.x += bits[k] & 1u ? x[k].x : 0.0f;
+      if (WIDTH == 4) {
+        acc.y += bits[k] & 2u ? x[k].y : 0.0f;
+        acc.z += bits[k] & 4u ? x[k].z : 0.0f;
+        acc.w += bits[k] & 8u ? x[k].w : 0.0f;
+      }
+    }
+  }
+  return acc;
+}
+
+template <int WIDTH>
+__device__ __forceinline__ void store_cols(float* p, const float4& v) {
+  if (WIDTH == 4) {
+    *reinterpret_cast<float4*>(p) = v;
+  } else {
+    *p = v.x;
+  }
+}
+
+// Groups [0, n_items) sum one item of a split row into its partial row;
+// groups [n_items, n_items + rows) own one output row each: a row of at
+// most `split` in-edges is summed and written, a longer one is left to
+// frontier_pull_combine_kernel, a row at or past plan_rows is zeros.
+template <int WIDTH>
+__global__ void __launch_bounds__(kThreads) frontier_pull_kernel(
+    const long long* __restrict__ offsets,
+    const int* __restrict__ src_sorted,
+    const long long* __restrict__ item_begin,
+    const long long* __restrict__ item_end, long long n_items,
+    const unsigned* __restrict__ words, const float* __restrict__ sigma,
+    float* __restrict__ out, float* __restrict__ partial, long long rows,
+    long long plan_rows, long long split, int batch, int n_words) {
+  const int lanes = edge_lanes(batch / WIDTH);
+  const long long unit =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) / lanes;
+  const int lane = threadIdx.x % lanes;
+  if (unit >= n_items + rows) return;
+  long long begin = 0, end = 0;
+  float* row;
+  if (unit < n_items) {
+    begin = item_begin[unit];
+    end = item_end[unit];
+    row = partial + unit * batch;
+  } else {
+    const long long v = unit - n_items;
+    row = out + v * batch;
+    if (v < plan_rows) {
+      begin = offsets[v];
+      end = offsets[v + 1];
+      if (end - begin > split) return;
+    }
+  }
+  for (int b = lane * WIDTH; b < batch; b += lanes * WIDTH) {
+    store_cols<WIDTH>(row + b, pull_sum<WIDTH>(src_sorted, begin, end, words,
+                                               sigma, batch, n_words, b));
+  }
+}
+
+// One group per split row: its items' partial rows split_first[q] ..
+// split_first[q+1] - 1, added in item order.
+template <int WIDTH>
+__global__ void __launch_bounds__(kThreads) frontier_pull_combine_kernel(
+    const int* __restrict__ split_row,
+    const long long* __restrict__ split_first, long long n_split,
+    const float* __restrict__ partial, float* __restrict__ out, int batch) {
+  const int lanes = edge_lanes(batch / WIDTH);
+  const long long q =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) / lanes;
+  const int lane = threadIdx.x % lanes;
+  if (q >= n_split) return;
+  const long long p0 = split_first[q], p1 = split_first[q + 1];
+  float* row = out + (long long)split_row[q] * batch;
+  for (int b = lane * WIDTH; b < batch; b += lanes * WIDTH) {
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (long long p = p0; p < p1; ++p) {
+      const float* part = partial + p * batch + b;
+      if (WIDTH == 4) {
+        const float4 x = *reinterpret_cast<const float4*>(part);
+        acc.x += x.x;
+        acc.y += x.y;
+        acc.z += x.z;
+        acc.w += x.w;
+      } else {
+        acc.x += *part;
+      }
+    }
+    store_cols<WIDTH>(row + b, acc);
+  }
+}
+
+template <int WIDTH>
+int pull_launch(const long long* offsets, const int* src_sorted,
+                const long long* item_begin, const long long* item_end,
+                long long n_items, const int* split_row,
+                const long long* split_first, long long n_split,
+                const unsigned* words, const float* sigma, float* out,
+                float* partial, long long rows, long long plan_rows,
+                long long split, int batch, cudaStream_t stream) {
+  const int groups = kThreads / edge_lanes(batch / WIDTH);
+  const long long blocks = (n_items + rows + groups - 1) / groups;
+  const long long combine_blocks = (n_split + groups - 1) / groups;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  const int n_words = (batch + 31) / 32;
+  if (blocks > 0) {
+    frontier_pull_kernel<WIDTH><<<(unsigned)blocks, kThreads, 0, stream>>>(
+        offsets, src_sorted, item_begin, item_end, n_items, words, sigma,
+        out, partial, rows, plan_rows, split, batch, n_words);
+  }
+  if (combine_blocks > 0) {
+    frontier_pull_combine_kernel<WIDTH>
+        <<<(unsigned)combine_blocks, kThreads, 0, stream>>>(
+            split_row, split_first, n_split, partial, out, batch);
+  }
+  return (int)cudaGetLastError();
+}
+
 int words_launch(const void* dist, const void* levels, void* words,
                  void* out, long long rows, int batch, cudaStream_t stream) {
   if (rows > 0 && batch > 0) {
@@ -434,21 +579,42 @@ int nb_launch(const void* csc_src, const void* csc_dst,
 
 }  // namespace
 
-extern "C" int frontier_flat_launch(const void* src, const void* dst,
-                                    const void* dist, const void* sigma,
-                                    const void* levels, void* out,
-                                    long long n_edges, int batch,
-                                    void* stream) {
-  if (n_edges > 0 && batch > 0) {
-    const dim3 block = block_shape(batch);
-    long long blocks = (n_edges + block.y - 1) / block.y;
-    const int grid = (int)(blocks < kMaxGrid ? blocks : kMaxGrid);
-    frontier_flat_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-        (const int*)src, (const int*)dst, (const int*)dist,
-        (const float*)sigma, (const int*)levels, (float*)out, n_edges,
-        batch);
+// One pulled level: the words pass (which leaves `out` alone), then
+// frontier_pull_kernel and, when a row is split, the combine; all on
+// `stream`.  The plan (kernel.py build_pull_plan) covers rows
+// [0, plan_rows) of the state's `rows`; `partial` holds max(n_items, 1)
+// rows of B float32.
+extern "C" int frontier_pull_launch(
+    const void* dist, const void* levels, const void* sigma, void* words,
+    void* out, void* partial, long long rows, int batch,
+    const void* offsets, const void* src_sorted, long long plan_rows,
+    long long split, const void* item_begin, const void* item_end,
+    long long n_items, const void* split_row, const void* split_first,
+    long long n_split, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (rows <= 0 || batch <= 0) return (int)cudaGetLastError();
+  const int err = words_launch(dist, levels, words, nullptr, rows, batch, s);
+  if (err != 0) return err;
+  // float4 columns need B % 4 == 0 and 16-byte aligned rows
+  const int vec = batch % 4 == 0
+      && (((unsigned long long)sigma | (unsigned long long)out
+           | (unsigned long long)partial) & 15ull) == 0;
+  auto* off = (const long long*)offsets;
+  auto* ids = (const int*)src_sorted;
+  auto* ib = (const long long*)item_begin;
+  auto* ie = (const long long*)item_end;
+  auto* sr = (const int*)split_row;
+  auto* sf = (const long long*)split_first;
+  auto* w = (const unsigned*)words;
+  auto* sg = (const float*)sigma;
+  if (vec) {
+    return pull_launch<4>(off, ids, ib, ie, n_items, sr, sf, n_split, w, sg,
+                          (float*)out, (float*)partial, rows, plan_rows,
+                          split, batch, s);
   }
-  return (int)cudaGetLastError();
+  return pull_launch<1>(off, ids, ib, ie, n_items, sr, sf, n_split, w, sg,
+                        (float*)out, (float*)partial, rows, plan_rows, split,
+                        batch, s);
 }
 
 extern "C" int frontier_words_launch(const void* dist, const void* levels,

@@ -6,14 +6,20 @@ lane; the decision is the pure function :func:`select_route`:
 * ``"ref"``          the plain PyTorch version, for CPU tensors only;
 * ``"node_blocked"`` the node-blocked CUDA kernel, for CUDA tensors of a
   graph that carries a ``CSCLayout``;
-* ``"flat"``         the flat CUDA kernel, for CUDA tensors otherwise.
+* ``"flat"``         the pull over the COO edges' in-edge plan (words
+  pass and ``frontier_pull_kernel``), for CUDA tensors otherwise.
 
-On the card the flat kernel keeps its state in device memory, so unlike
-the TPU kernel it has no fit limit; the node-blocked kernel's only limit
-is the shared memory of one staged edge block.  A forced lane that cannot
-be honoured raises: a kernel forced on a CPU tensor, ``"node_blocked"``
-without a layout, an edge block over the card's shared memory, or the
-plain version forced on a CUDA tensor.  Nothing falls back quietly.
+On the card both routes keep their state in device memory, so unlike the
+TPU kernels the pull has no fit limit; the node-blocked kernel's only
+limit is the shared memory of one staged edge block.  The pull's plan is
+built once per graph and handed in as ``plan``: the plan itself, or a
+callable that gives it (``Graph.pull_plan``), called only when the flat
+route runs, so a CPU or node-blocked level builds none.  Without one the
+flat route builds it from ``src``/``dst`` at each call.
+A forced lane that cannot be honoured raises: a kernel forced on a CPU
+tensor, ``"node_blocked"`` without a layout, an edge block over the
+card's shared memory, or the plain version forced on a CUDA tensor.
+Nothing falls back quietly.
 """
 from __future__ import annotations
 
@@ -60,7 +66,8 @@ def select_route(*, cuda: bool, csc=None, lane=None) -> str:
     return lane
 
 
-def frontier_expand(src, dst, dist, sigma, level, *, csc=None, lane=None):
+def frontier_expand(src, dst, dist, sigma, level, *, csc=None, lane=None,
+                    plan=None):
     """Route one frontier expansion (module docstring).
 
     Batched state is (rows, B) with ``level`` (B,); unbatched state is
@@ -77,7 +84,8 @@ def frontier_expand(src, dst, dist, sigma, level, *, csc=None, lane=None):
                                            s2.contiguous(), lv)
     elif route == "flat":
         out = frontier_expand_flat(src, dst, d2.contiguous(),
-                                   s2.contiguous(), lv)
+                                   s2.contiguous(), lv,
+                                   plan() if callable(plan) else plan)
     else:
         # the COO sum at the state's row count, as the JAX package's
         # automatic CPU route takes it with or without a layout

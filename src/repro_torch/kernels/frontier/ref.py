@@ -13,18 +13,20 @@ vertex-major state), the same as ``repro.kernels.frontier.ref``:
   contrib  : (rows, B) float32
 
 The node-blocked version runs the same sum over a ``CSCLayout``'s edge
-order and keeps the row count it was handed.  ``frontier_words_ref`` is
-the plain version of the node-blocked route's first pass: the frontier
-packed 32 samples to an int32 word.  While sigma holds exact
-integers below 2^24 every summation order gives the same bits, so these
-versions and the kernels agree bit for bit on BFS-derived state.
+order and keeps the row count it was handed.  ``frontier_pull_ref`` runs
+it over a pull plan (``kernel.build_pull_plan``) in the pull kernel's
+order of additions.  ``frontier_words_ref`` is the plain version of the
+words pass both routes start with: the frontier packed 32 samples to an
+int32 word.  While sigma holds exact integers below 2^24 every summation
+order gives the same bits, so these versions and the kernels agree bit
+for bit on BFS-derived state.
 """
 from __future__ import annotations
 
 import torch
 
 __all__ = ["frontier_expand_batched_ref", "frontier_expand_node_blocked_ref",
-           "frontier_words_ref"]
+           "frontier_pull_ref", "frontier_words_ref"]
 
 
 # (edge, sample) cells gathered at once; bounds the temporaries at full
@@ -54,6 +56,42 @@ def frontier_expand_node_blocked_ref(csc, dist, sigma, levels):
     out = _expand(csc.src, csc.dst, dist, sigma, levels,
                   max(csc.v_pad, rows))
     return out if rows >= csc.v_pad else out[:rows]
+
+
+def frontier_pull_ref(plan, dist, sigma, levels):
+    """The pull over ``plan`` (the in-edge plan of the COO edges, rows
+    [0, plan.n_segments) of the state; later rows are zeros).
+
+    A row of at most ``plan.split`` in-edges sums them in plan order; a
+    longer row sums each item into a partial row, then the partials in
+    item order.  On the CPU ``index_add_`` adds in index order, so this
+    is the kernel's order of additions, and the two agree bit for bit on
+    any sigma.
+    """
+    rows, batch = dist.shape
+    dev = dist.device
+    counts = torch.diff(plan.offsets)
+    heavy = counts > plan.split
+    n_seg = counts.shape[0]
+    seg = torch.repeat_interleave(torch.arange(n_seg, device=dev), counts)
+    # each entry's unit: its row, or for a split row rows + its item
+    unit = seg.clone()
+    on_item = heavy[seg]
+    pos = torch.arange(seg.shape[0], device=dev)[on_item]
+    unit[on_item] = rows + torch.searchsorted(plan.item_begin, pos,
+                                              right=True) - 1
+    sums = torch.zeros((rows + plan.n_items, batch), dtype=torch.float32,
+                       device=dev)
+    chunk = max(1, _CHUNK_CELLS // max(batch, 1))
+    for lo in range(0, seg.shape[0], chunk):
+        s = plan.ids_sorted[lo: lo + chunk].long()
+        vals = torch.where(dist[s] == levels[None, :], sigma[s], 0.0)
+        sums.index_add_(0, unit[lo: lo + chunk], vals)
+    out = sums[:rows]
+    owner = torch.repeat_interleave(plan.split_seg.long(),
+                                    torch.diff(plan.split_first))
+    out.index_add_(0, owner, sums[rows:])
+    return out
 
 
 def frontier_words_ref(dist, levels):

@@ -50,7 +50,8 @@ class SegmentPlan:
     output rows gathered from a table of ``n_rows`` rows.
 
     ``order`` is the stable sort of ``seg`` (entries of one segment keep
-    their input order), ``ids_sorted = ids[order]`` and segment s owns
+    their input order; None in a plan that gathers no per-entry weights,
+    as the frontier pull's), ``ids_sorted = ids[order]`` and segment s owns
     sorted entries ``offsets[s] .. offsets[s+1] - 1``.  Segments with
     more than ``split`` entries are listed in ``split_seg``; their
     entries are cut into items ``item_begin[h] .. item_end[h] - 1`` of at
@@ -62,7 +63,8 @@ class SegmentPlan:
     n_rows: int
     split: int
     ids: torch.Tensor          # (N,) the ids the plan was built from
-    order: torch.Tensor        # (N,) int64
+    seg: torch.Tensor          # (N,) the segments it was built from
+    order: Optional[torch.Tensor]  # (N,) int64, or None
     ids_sorted: torch.Tensor   # (N,) int32
     offsets: torch.Tensor      # (S+1,) int64
     item_begin: torch.Tensor   # (H,) int64
@@ -73,7 +75,7 @@ class SegmentPlan:
 
     @property
     def n_entries(self) -> int:
-        return int(self.order.shape[0])
+        return int(self.ids_sorted.shape[0])
 
     @property
     def n_items(self) -> int:
@@ -119,22 +121,25 @@ def _one_plan(ids, seg, n_segments: int, n_rows: int,
     item_end = torch.minimum(item_begin + split, offsets[heavy + 1][owner])
     return SegmentPlan(
         n_segments=int(n_segments), n_rows=int(n_rows), split=int(split),
-        ids=ids, order=order,
+        ids=ids, seg=seg, order=order,
         ids_sorted=ids.index_select(0, order).to(torch.int32),
         offsets=offsets, item_begin=item_begin, item_end=item_end,
         split_seg=heavy.to(torch.int32), split_first=split_first)
 
 
 def build_plan(ids, seg, n_segments: int, n_rows: int, *,
-               split: int = SPLIT) -> SegmentPlan:
-    """The plan of (ids, seg) and, as its ``transpose``, that of
-    (seg, ids).  Checks the index ranges once (one sync on the card)."""
+               split: int = SPLIT, transpose: bool = True) -> SegmentPlan:
+    """The plan of (ids, seg) and, as its ``transpose`` (unless
+    ``transpose=False``), that of (seg, ids).  Checks the index ranges
+    once (one sync on the card)."""
     if split < 1:
         raise ValueError(f"split must be >= 1, got {split}")
     check_ranges(ids, seg, n_rows, n_segments)
+    plan = _one_plan(ids, seg, n_segments, n_rows, split)
+    if not transpose:
+        return plan
     return dataclasses.replace(
-        _one_plan(ids, seg, n_segments, n_rows, split),
-        transpose=_one_plan(seg, ids, n_rows, n_segments, split))
+        plan, transpose=_one_plan(seg, ids, n_rows, n_segments, split))
 
 
 def _declare(lib) -> None:
@@ -180,7 +185,8 @@ def gather_segment_sum_cuda(ids, seg, w, table, n_segments: int,
     if plan.n_entries != n or plan.n_segments != n_segments \
             or plan.n_rows != table.shape[0] \
             or plan.ids.data_ptr() != ids.data_ptr() \
-            or plan.order.device != table.device:
+            or plan.seg.data_ptr() != seg.data_ptr() \
+            or plan.order is None or plan.order.device != table.device:
         raise ValueError("the plan was not built for these ids, seg, "
                          "n_segments and table rows on this device")
     d = table.shape[1]

@@ -163,3 +163,24 @@ def test_dispatcher_refuses_what_it_cannot_honour():
         tf.flash_attention(q.requires_grad_(True), k, k)
     with torch.no_grad():
         assert tf.flash_attention(q, k, k).shape == (1, 8, 2, 64)
+
+
+@pytest.mark.parametrize("dtype,dh,takes", [
+    (torch.float32, 16, True), (torch.float32, 64, True),
+    (torch.float32, 128, True), (torch.bfloat16, 64, True),
+    (torch.bfloat16, 128, True), (torch.bfloat16, 16, False),
+    (torch.float32, 32, False)])
+def test_kernel_head_dims_by_type(dtype, dh, takes):
+    """The kernel takes float32 at head dim 16 (every smoke config's), 64
+    and 128, bfloat16 at 64 and 128; any other pair raises an error that
+    names the type and the dims it takes."""
+    from repro_torch.kernels.flashattn.kernel import HEAD_DIMS, check_inputs
+    q = torch.zeros(1, 8, 4, dh, dtype=dtype)
+    k = torch.zeros(1, 8, 2, dh, dtype=dtype)
+    assert (dh in HEAD_DIMS[dtype]) == takes
+    if takes:
+        check_inputs(q, k, k)
+    else:
+        with pytest.raises(ValueError, match=rf"head_dim {dh} .*{dtype}.*"
+                                             rf"{HEAD_DIMS[dtype]}"):
+            check_inputs(q, k, k)

@@ -37,16 +37,102 @@ def _state(graph, batch, seed=0):
 
 @pytest.mark.parametrize("batch", [1, 5, 8, 64])
 def test_flat_kernel_matches_plain(cuda, batch):
+    """The pull at an R-MAT mid level (its hubs cut into items), one
+    words launch and one pull launch, bitwise on exact integer sums."""
     graph = tc.rmat_graph(12, 16, seed=1, device=cuda)
     dist, sigma, levels = _state(graph, batch)
-    before = tf.launch_counts[tf.FLAT]
-    got = tf.frontier_expand_flat(graph.src, graph.dst, dist, sigma, levels)
+    plan = graph.pull_plan()
+    assert plan.n_items > 0
+    before = dict(tf.launch_counts)
+    got = tf.frontier_expand_flat(graph.src, graph.dst, dist, sigma, levels,
+                                  plan)
     want = tf.frontier_expand_batched_ref(graph.src, graph.dst, dist, sigma,
                                           levels)
     torch.cuda.synchronize()
-    assert tf.launch_counts[tf.FLAT] == before + 1
+    assert tf.launch_counts[tf.FLAT] == before[tf.FLAT] + 1
+    assert tf.launch_counts[tf.WORDS] == before[tf.WORDS] + 1
     assert want.max() < 2 ** 24        # exact integer sums: bitwise
     assert torch.equal(got, want)
+
+
+def _star(leaves, device):
+    """A hub (vertex 0) with ``leaves`` neighbours."""
+    ids = torch.arange(1, leaves + 1)
+    return tc.from_edge_list(torch.stack([torch.zeros_like(ids), ids], 1),
+                             leaves + 1, device=device)
+
+
+@pytest.mark.parametrize("batch", [1, 8, 33, 64, 96])
+@pytest.mark.parametrize("split", [tf.PULL_SPLIT, 5])
+def test_pull_kernel_at_every_width(cuda, batch, split):
+    """B = 1 .. 96 (W = 1, 2, 3 frontier words; 1 or 4 columns a lane),
+    with rows past the plan's (padding, dist -3) that must come out zero
+    whatever the fresh output held."""
+    graph = tc.rmat_graph(10, 8, seed=4, device=cuda)
+    dist, sigma, levels = _state(graph, batch, seed=batch)
+    dist = torch.cat([dist, dist.new_full((7, batch), -3)]).contiguous()
+    sigma = torch.cat([sigma, sigma.new_full((7, batch), 5.0)]).contiguous()
+    plan = tf.build_pull_plan(graph.src, graph.dst, graph.n_nodes + 1,
+                              split=split)
+    torch.full((4 * dist.numel(),), 7.0, device=cuda)   # dirty the cache
+    got = tf.frontier_expand_flat(graph.src, graph.dst, dist, sigma, levels,
+                                  plan)
+    want = tf.frontier_expand_batched_ref(graph.src, graph.dst, dist, sigma,
+                                          levels)
+    torch.cuda.synchronize()
+    assert want.max() < 2 ** 24 and bool(want.any())
+    assert torch.equal(got, want)
+    assert not bool(got[graph.n_nodes:].any())
+
+
+@pytest.mark.parametrize("batch,split", [(64, tf.PULL_SPLIT), (33, 5),
+                                         (8, 3)])
+def test_pull_kernel_adds_in_the_plain_pull_order(cuda, batch, split):
+    """On non-integer sigma two launches give the same bits, and those of
+    the pull's plain version on the CPU, whose index_add_ adds in the
+    kernel's order (each row's sources in plan order, a split row's
+    partials in item order)."""
+    graph = tc.rmat_graph(11, 8, seed=6, device=cuda)
+    dist, sigma, levels = _state(graph, batch, seed=split)
+    gen = torch.Generator(device=cuda).manual_seed(split)
+    sigma = (sigma * (0.5 + torch.rand(sigma.shape, generator=gen,
+                                       device=cuda))).contiguous()
+    plan = tf.build_pull_plan(graph.src, graph.dst, graph.n_nodes + 1,
+                              split=split)
+    assert plan.n_items > 0
+    a = tf.frontier_expand_flat(graph.src, graph.dst, dist, sigma, levels,
+                                plan)
+    b = tf.frontier_expand_flat(graph.src, graph.dst, dist, sigma, levels,
+                                plan)
+    cpu = graph.to("cpu")
+    want = tf.frontier_pull_ref(
+        tf.build_pull_plan(cpu.src, cpu.dst, cpu.n_nodes + 1, split=split),
+        dist.cpu(), sigma.cpu(), levels.cpu())
+    torch.cuda.synchronize()
+    assert not torch.equal(want, torch.round(want))
+    assert torch.equal(a, b)
+    assert torch.equal(a.cpu(), want)
+
+
+def test_pull_kernel_combines_a_hub(cuda):
+    """A hub over ``split`` in-edges goes through the combine kernel: its
+    row is the sum of its items' partial rows."""
+    from torch.profiler import ProfilerActivity, profile
+    graph = _star(3 * tf.PULL_SPLIT + 17, cuda)
+    plan = graph.pull_plan()
+    assert plan.n_items == 4 and plan.split_seg.tolist() == [0]
+    dist, sigma, _ = _state(graph, 8)
+    levels = torch.ones(8, dtype=torch.int32, device=cuda)
+    levels[:2] = 0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = tf.frontier_expand_flat(graph.src, graph.dst, dist, sigma,
+                                      levels, plan)
+        torch.cuda.synchronize()
+    names = [evt.key for evt in prof.key_averages()]
+    assert any("frontier_pull_combine_kernel" in n for n in names), names
+    want = tf.frontier_expand_batched_ref(graph.src, graph.dst, dist, sigma,
+                                          levels)
+    assert torch.equal(got, want) and bool(want[0].any())
 
 
 @pytest.mark.parametrize("block_v,block_e,padded", [
@@ -181,7 +267,8 @@ def test_dispatcher_routes_cuda_state_to_kernels(cuda):
     tf.frontier_expand(graph.src, graph.dst, dist, sigma, levels)
     csc = tc.build_csc_layout(graph, block_v=128, block_e=256)
     tf.frontier_expand(graph.src, graph.dst, dist, sigma, levels, csc=csc)
-    assert tf.launch_counts == {tf.FLAT: 1, tf.NODE_BLOCKED: 1, tf.WORDS: 1}
+    # each route's level starts with a words pass
+    assert tf.launch_counts == {tf.FLAT: 1, tf.NODE_BLOCKED: 1, tf.WORDS: 2}
     with pytest.raises(ValueError, match="CPU tensors"):
         tf.frontier_expand(graph.src, graph.dst, dist, sigma, levels,
                            lane="ref")
@@ -192,7 +279,9 @@ def test_run_kadabra_on_the_card(cuda):
     tf.reset_launch_counts()
     ts.reset_launch_counts()
     res = tc.run_kadabra(graph, eps=0.05, device=cuda)
-    assert tf.launch_counts[tf.FLAT] == res.bfs_levels > 0
+    assert tf.launch_counts[tf.FLAT] == tf.launch_counts[tf.WORDS] \
+        == res.bfs_levels > 0
+    assert tf.launch_counts[tf.NODE_BLOCKED] == 0
     assert ts.launch_counts[ts.STOPCHECK] == res.n_epochs > 0
     import numpy as np
     assert np.abs(res.btilde - tc.brandes_numpy(graph)).max() < 0.05
@@ -252,7 +341,8 @@ def test_forward_run_on_the_card(cuda):
     ts.reset_launch_counts()
     res = tc.run_adaptive(graph, ("betweenness", "closeness", "harmonic"),
                           eps=0.05, device=cuda)
-    assert tf.launch_counts[tf.FLAT] == res.bfs_levels > 0
+    assert tf.launch_counts[tf.FLAT] == tf.launch_counts[tf.WORDS] \
+        == res.bfs_levels > 0
     assert ts.launch_counts[ts.STOPCHECK] == 3 * res.n_epochs > 0
     assert res.converged
     assert np.abs(res.reports[0].scores
@@ -453,3 +543,36 @@ def test_lm_prefill_runs_the_kernel_once_a_layer(cuda):
     lm.decode_step(gpu_params, cache, got.argmax(-1)[:, None], cfg)
     torch.cuda.synchronize()
     assert fa.launch_counts[fa.FLASHATTN] == 0
+
+
+def test_flash_kernel_float32_head_dim_16(cuda):
+    """The float32 route at head dim 16, the smoke configs' width."""
+    for causal in (True, False):
+        q, k, v = _qkv(2, 100, 4, 2, 16, torch.float32, cuda, seed=16)
+        got = fa.flash_attention_cuda(q, k, v, causal=causal)
+        want = fa.flash_attention_gqa_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=3e-5, atol=3e-5)
+
+
+def test_smoke_config_prefill_runs_the_kernel_once_a_global_layer(cuda):
+    """``make_smoke_config()`` (float32, head dim 16) prefilled on the
+    card: one K5 launch a global layer, logits within float32 reach of
+    the CPU's plain route."""
+    from repro_torch.configs.llama3_2_3b import make_smoke_config
+    from repro_torch.models import transformer as lm
+    from repro_torch.tree import tree_map
+    cfg = make_smoke_config()
+    assert cfg.hd == 16 and cfg.dtype == torch.float32
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (4, 96),
+                           generator=torch.Generator().manual_seed(1))
+    want, _ = lm.prefill_step(params, tokens, cfg)
+    fa.reset_launch_counts()
+    got, _ = lm.prefill_step(tree_map(lambda x: x.to(cuda), params),
+                             tokens.to(cuda), cfg)
+    torch.cuda.synchronize()
+    n_global = sum(kind != "local" for _, kind in lm._layers(params, cfg))
+    assert fa.launch_counts[fa.FLASHATTN] == n_global == cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
