@@ -25,7 +25,9 @@ any failed phase.  Phases:
    each wrapper a call with CUDA events after warm-up, as the path calls
    it, and beside it each of its kernels' device time from the profiler,
    its plain version, the byte bound and ``torch.sparse.mm`` (the
-   library yardstick, called only here);
+   library yardstick, called only here).  The stop-check kernel is
+   timed a call first, before the grid's level and any profiler
+   session (1,000 calls back to back at V = 2^20);
 4. the main path: ``run_kadabra`` on R-MAT 2^20 x 30, B=64, eps=0.01,
    delta=0.1 (``repro.configs.betweenness``), no CSC layout, so every
    level goes through the flat kernel and every epoch's stop check
@@ -34,8 +36,8 @@ any failed phase.  Phases:
    time by kernel, device idle share);
    then the stop-check kernel against its plain version at V = 2^20
    with the budgets of this graph's own calibration (bitwise, a NaN case
-   and V = 1, 5000, 40000 included), timed beside the plain version and
-   the byte bound;
+   and V = 1, 5000, 40000 included), and its device time a check and
+   its launches a check (one) from the profiler, beside the byte bound;
 5. a second path through the node-blocked route: a 256 x 256 grid with
    a CSC layout.  Its two kernels were held against their plain versions
    and timed at the grid's own shapes at the start of [3] (one mid-BFS
@@ -56,11 +58,14 @@ any failed phase.  Phases:
    ``tests/test_estimators.py``;
 9. the gather-segment-sum kernel against its plain version at the
    GraphSAGE path's shapes (R-MAT 2^21 x 15, ~6e7 edges, 128 columns):
-   the layer's forward call and its transposed (backward) call.  Bitwise
-   on integer-valued inputs; on N(0, 1) float32 and bfloat16 tables
-   within the summation-order bound stated in the output.  Timed beside
-   its plain version, the byte bound and ``torch.sparse.mm`` on the
-   plan's (S, V1) CSR matrix (the library yardstick, called only here);
+   the layer's forward call and its transposed (backward) call, and the
+   share of entries on the plans' hot sources.  Bitwise on
+   integer-valued inputs; on N(0, 1) float32 and bfloat16 tables two
+   calls give the same bits, within the summation-order bound stated in
+   the output.  Timed beside its plain version, the byte bound (the
+   plan's ids and offsets, the weights in plan order, the table and the
+   output once) and ``torch.sparse.mm`` on the plan's (S, V1) CSR matrix
+   (the library yardstick, called only here);
 10. GraphSAGE (graphsage-reddit at full width, adapted to the
    ogb_products cell: d_feat 100, 47 classes) on that graph: one
    full-graph inference forward (after a warm-up one), then 3 AdamW
@@ -127,6 +132,7 @@ FWD_EPS, FWD_MAX_EPOCHS = 0.01, 200
 ER_N, ER_DEGREE, ER_EPS = 1500, 8.0, 0.05
 STOPCHECK_SHAPES = (1, 5000, 40000)   # besides the full V
 STOPCHECK_OPS = 20                    # float operations per vertex
+STOPCHECK_CALLS = 1000                # back-to-back calls timed a call
 # GraphSAGE: R-MAT at the scale of ogbn-products (2,449,029 nodes,
 # 61,859,140 edges): 2^21 nodes, ~6e7 directed edges
 GNN_SCALE, GNN_EDGE_FACTOR, GNN_CELL, GNN_STEPS = 21, 15, "ogb_products", 3
@@ -682,11 +688,40 @@ def same_bits(name: str, got, want) -> float:
         (~nan).any()) else 0.0
 
 
+def stop_inputs(v: int):
+    """Seeded counts (0..399) and budgets in [1e-3, 20) at V = ``v`` on
+    the card."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED)
+    counts = rng.integers(0, 400, v).astype(np.float32)
+    lil, liu = (rng.random((2, v)) * 20 + 1e-3).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(DEVICE) for a in (counts, lil, liu))
+
+
+def time_stopcheck(v: int) -> dict:
+    """The stop-check kernel a call at V = ``v``, CUDA events over
+    STOPCHECK_CALLS back-to-back calls (host and device time), before any
+    profiler session: one leaves overhead on every later launch."""
+    import torch
+    from repro_torch.kernels.stopcheck import stopcheck_fused, stopcheck_ref
+    counts, lil, liu = stop_inputs(v)
+    omega = torch.tensor(29978.7, device=DEVICE)
+    args = (counts, 17_408, lil, liu, omega)
+    ms = cuda_time_ms(lambda: stopcheck_fused(*args), STOPCHECK_CALLS)
+    plain = cuda_time_ms(lambda: stopcheck_ref(*args), 50)
+    log(f"[3] stop-check kernel at V={v} (before any profiler session): "
+        f"{ms * 1e3:.2f} us a call over {STOPCHECK_CALLS} calls, plain "
+        f"{plain * 1e3:.2f} us")
+    return {"ms": ms, "plain_ms": plain}
+
+
 def phase_stopcheck(rmat, vertex_diameter: int, tau: int) -> dict:
     """The stop-check kernel at V = 2^20 with the budgets of the R-MAT
     run's own calibration (a fresh 32-sample frame through the
-    betweenness estimator's make_params at the run's vertex diameter)."""
-    import numpy as np
+    betweenness estimator's make_params at the run's vertex diameter),
+    bitwise in every case; then its device time a launch and its
+    launches a check from the profiler."""
     import torch
     from repro_torch.core.engine import draw_fold, resolve_estimators
     from repro_torch.core.estimators.base import RunContext
@@ -700,8 +735,7 @@ def phase_stopcheck(rmat, vertex_diameter: int, tau: int) -> dict:
     p = est[0].make_params(rmat, ctx, MAIN_EPS, MAIN_DELTA, cal.counts,
                            cal.tau)
     lil, liu, omega = p.log_inv_delta_l, p.log_inv_delta_u, p.omega
-    counts = torch.from_numpy(np.random.default_rng(SEED).integers(
-        0, 400, v).astype(np.float32)).to(rmat.device)
+    counts = stop_inputs(v)[0]
     log(f"  stop check at V={v}: omega {float(omega):.1f}, tau {tau}")
     nan_lil = lil.clone()
     nan_lil[v // 3] = float("nan")
@@ -717,29 +751,29 @@ def phase_stopcheck(rmat, vertex_diameter: int, tau: int) -> dict:
         torch.cuda.synchronize()
         err = max(err, same_bits(f"stopcheck {name}", got, want))
     args = (counts, tau, lil, liu, omega)
-    ms = cuda_time_ms(lambda: stopcheck_fused(*args), 200)
-    plain = cuda_time_ms(lambda: stopcheck_ref(*args), 50)
     b_ms, b_by = bound(3 * 4 * v + 2 * 4, STOPCHECK_OPS * v)
-    # the two kernels' own device time, without the host's enqueue
-    from torch.profiler import ProfilerActivity, profile
+    # the kernel's own device time, without the host's enqueue, and the
+    # launches a check (the second of two traced runs: a trace can miss
+    # the first launches of a session)
     calls = 50
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            stopcheck_fused(*args)
-        torch.cuda.synchronize()
-    device_ms = sum(
-        evt.self_device_time_total for evt in prof.key_averages()
-        if evt.device_type == torch.autograd.DeviceType.CUDA
-        and "stopcheck" in evt.key) / 1e3 / calls
-    log(f"  stopcheck: {ms * 1e3:.2f} us per call ({device_ms * 1e3:.2f} us "
-        f"of it in its two kernels), plain {plain * 1e3:.2f} us, bound "
+    rows, _ = profile_twice(
+        lambda: [stopcheck_fused(*args) for _ in range(calls)])
+    launches = sum(r[1] for r in rows)
+    device_ms = sum(r[0] for r in rows) / max(launches, 1)
+    if launches != calls or not all("stopcheck_kernel" in r[2]
+                                    for r in rows):
+        raise AssertionError(f"stopcheck: {launches} device launches in "
+                             f"{calls} checks: "
+                             f"{[(r[2], r[1]) for r in rows]}")
+    log(f"  stopcheck: {device_ms * 1e3:.2f} us of device time a check, "
+        f"one launch a check ({launches} in {calls} checks), bound "
         f"{b_ms * 1e3:.2f} us ({b_by}); no single PyTorch call computes "
         "[max f, max g]")
-    return {"max_abs_err": err, "ms": ms, "device_ms": device_ms,
-            "plain_ms": plain,
+    return {"max_abs_err": err, "device_ms": device_ms,
+            "launches_a_check": launches / calls,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "shape": f"V={v} float32 x 3 (R-MAT 2^{RMAT_SCALE} budgets)"}
+            "shape": f"V={v} float32 x 3 (bitwise on R-MAT 2^{RMAT_SCALE} "
+                     "budgets; timed a call on seeded ones)"}
 
 
 def phase_forward(rmat) -> tuple:
@@ -873,8 +907,14 @@ def check_segsum_call(label: str, ids, seg, w, n_segments: int, n_rows: int,
     for dtype in (torch.float32, torch.bfloat16):
         table = torch.randn((n_rows, d), generator=gen, device=DEVICE,
                             dtype=torch.float32).to(dtype)
-        got = gather_segment_sum_cuda(ids, seg, w, table, n_segments,
-                                      plan).float()
+        got = gather_segment_sum_cuda(ids, seg, w, table, n_segments, plan)
+        again = gather_segment_sum_cuda(ids, seg, w, table, n_segments, plan)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"segsum {label} {dtype}: two calls gave "
+                                 "different bits")
+        del again
+        got = got.float()
         want = gather_segment_sum_ref(ids, seg, w, table, n_segments).float()
         tol = order_bound(ids, seg, w, table, n_segments)
         if dtype == torch.bfloat16:
@@ -885,19 +925,28 @@ def check_segsum_call(label: str, ids, seg, w, n_segments: int, n_rows: int,
         if not bool((gap <= tol).all()):
             raise AssertionError(f"segsum {label} {dtype}: max |diff| {err} "
                                  f"beyond its bound (ratio {ratio:.3g})")
-        log(f"  segsum {label}, N(0,1) {str(dtype)[6:]}: max |diff| {err:.3g}"
-            f", within the order bound (largest bound {float(tol.max()):.3g},"
-            f" largest gap/bound {ratio:.3g})")
+        log(f"  segsum {label}, N(0,1) {str(dtype)[6:]}: two calls bitwise "
+            f"equal; max |diff| {err:.3g} from the plain version, within "
+            f"the order bound (largest bound {float(tol.max()):.3g}, "
+            f"largest gap/bound {ratio:.3g})")
         if dtype == torch.float32:
             err32 = err
         del got, want, tol, gap, table
     return err32
 
 
+def segsum_bytes(plan, d: int, elem: int) -> float:
+    """The bytes K4's route must move for one call over ``plan``: the
+    plan's ids (4 an entry) and offsets (8 a segment), the weights in plan
+    order (4 an entry), the table once and the output once."""
+    return (8.0 * plan.n_entries + 8.0 * (plan.n_segments + 1)
+            + elem * d * (plan.n_rows + plan.n_segments))
+
+
 def phase_segsum(batch, d: int) -> dict:
     """The gather-segment-sum kernel at the GraphSAGE layer's shapes: the
     forward call (ids=src, seg=dst, w=edge mask, an (N, d) table) and its
-    transposed backward call, each checked; the forward one timed."""
+    transposed backward call, each checked and timed."""
     import torch
     from repro_torch.kernels.segsum import (gather_segment_sum_cuda,
                                             gather_segment_sum_ref)
@@ -905,10 +954,14 @@ def phase_segsum(batch, d: int) -> dict:
     t0 = time.perf_counter()
     plan = batch.segment_plan()
     torch.cuda.synchronize()
+    hot_share = [float((p.ids_sorted < 0).sum()) / max(p.n_entries, 1)
+                 for p in (plan, plan.transpose)]
     log(f"  segment plans (src->dst and its transpose) built in "
         f"{time.perf_counter() - t0:.2f} s: {plan.split_seg.shape[0]} of {v} "
         f"segments above {plan.split} entries, cut into {plan.n_items} items;"
-        f" largest segment {int(torch.diff(plan.offsets).max())} entries")
+        f" largest segment {int(torch.diff(plan.offsets).max())} entries; "
+        f"the {plan.n_hot} hot sources carry {hot_share[0]:.3f} of the "
+        f"entries ({hot_share[1]:.3f} in the transpose)")
     err = max(
         check_segsum_call("forward", batch.src, batch.dst, batch.edge_mask,
                           v, v, d, plan),
@@ -922,24 +975,27 @@ def phase_segsum(batch, d: int) -> dict:
         batch.dst, batch.src, batch.edge_mask, table, v, plan.transpose), 20)
     plain = cuda_time_ms(lambda: gather_segment_sum_ref(*args), 3)
     # the library yardstick: the plan's (S, V1) CSR matrix of weights
-    csr = torch.sparse_csr_tensor(plan.offsets, plan.ids_sorted.long(),
-                                  batch.edge_mask[plan.order], (v, v),
-                                  check_invariants=True)
+    csr = torch.sparse_csr_tensor(plan.offsets, plan.sorted_ids().long(),
+                                  plan.weights_in_order(batch.edge_mask),
+                                  (v, v), check_invariants=True)
     lib = torch.sparse.mm(csr, table)
     want = gather_segment_sum_ref(*args)
     torch.cuda.synchronize()
     lib_err = float((lib - want).abs().max())
     del lib, want
     lib_ms = cuda_time_ms(lambda: torch.sparse.mm(csr, table), 10)
-    b_ms, b_by = bound(12.0 * n + 2.0 * v * d * 4, 2.0 * n * d)
+    b_ms, b_by = bound(segsum_bytes(plan, d, 4), 2.0 * n * d)
     gather_ms = n * d * 4 / HBM_BYTES_PER_S * 1e3
     log(f"  segsum: {ms:.3f} ms forward call ({back_ms:.3f} ms transposed), "
         f"plain {plain:.3f} ms, torch.sparse.mm {lib_ms:.3f} ms (max |diff| "
-        f"vs plain {lib_err:.3g}), bound {b_ms:.3f} ms ({b_by}); one table "
-        f"row read per entry would take {gather_ms:.3f} ms at the HBM rate")
+        f"vs plain {lib_err:.3g}), bound {b_ms:.3f} ms ({b_by}: the plan's "
+        f"ids and offsets, w in plan order, the table and the output once); "
+        f"one table row read per entry would take {gather_ms:.3f} ms at the "
+        f"HBM rate")
     return {"max_abs_err": err, "ms": ms, "transposed_ms": back_ms,
             "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms,
+            "library_ms": lib_ms, "hot_sources": plan.n_hot,
+            "hot_share": hot_share[0], "transposed_hot_share": hot_share[1],
             "shape": f"R-MAT 2^{GNN_SCALE} x {GNN_EDGE_FACTOR}: N={n} "
                      f"entries, V1=S={v}, D={d} float32"}
 
@@ -1494,9 +1550,10 @@ def main() -> int:
     log(f"  R-MAT 2^{RMAT_SCALE} x {EDGE_FACTOR} built in "
         f"{time.perf_counter() - t0:.1f} s: V={rmat.n_nodes} "
         f"E={rmat.n_edges} max degree {rmat.max_degree}")
-    # the grid's node-blocked level is timed first: a torch.profiler
-    # session leaves overhead on every later launch in the process, and
-    # this level is bound by its host time
+    # the stop check a call and the grid's node-blocked level are timed
+    # first: a torch.profiler session leaves overhead on every later
+    # launch in the process, and both are bound by their host time
+    stop_row = time_stopcheck(rmat.n_nodes)
     grid = with_csc_layout(grid_graph(GRID_SIDE, GRID_SIDE, device=DEVICE))
     grid_row = phase_grid_kernel(grid)
     rows = phase_kernels(rmat)
@@ -1517,7 +1574,7 @@ def main() -> int:
                  "source": "src/repro_torch/kernels/stopcheck/csrc/"
                            "stopcheck.cu",
                  "replaces": "src/repro/kernels/stopcheck/kernel.py:45",
-                 "launches": 0,
+                 "launches": 0, **stop_row,
                  **phase_stopcheck(rmat, res.vertex_diameter, res.tau)})
     torch.cuda.empty_cache()
 

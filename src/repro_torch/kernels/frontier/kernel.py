@@ -31,7 +31,6 @@ a level adds one to its route's count and one to ``WORDS``.
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 from pathlib import Path
 
 import torch
@@ -137,11 +136,12 @@ def build_pull_plan(src, dst, rows: int, *,
     stable sort: a row keeps its edges' COO order), ``offsets`` bounds
     each row's run, and each row of more than ``split`` in-edges is cut
     into items.  Nothing assumes the edges symmetric.  The pull gathers
-    no per-edge weight, so the plan keeps no ``order``.  Raises unless
+    no per-edge weight and marks no hot source, so the plan keeps no
+    ``order`` and its ``ids_sorted`` are the plain ids.  Raises unless
     every id lies in [0, rows) (one sync on the card); build it once per
     graph (``Graph.pull_plan``)."""
-    plan = build_plan(src, dst, rows, rows, split=split, transpose=False)
-    return dataclasses.replace(plan, order=None)
+    return build_plan(src, dst, rows, rows, split=split, hot_rows=0,
+                      keep_order=False, transpose=False)
 
 
 def frontier_expand_flat(src, dst, dist, sigma, levels, plan=None):
@@ -159,6 +159,10 @@ def frontier_expand_flat(src, dst, dist, sigma, levels, plan=None):
             or plan.ids_sorted.device != dist.device:
         raise ValueError("the pull plan was not built for these edges on "
                          "the state's device")
+    elif plan.n_hot:
+        # bit 31 of a hot-marked id would send the pull out of bounds
+        raise ValueError("the pull plan marks hot sources; build it with "
+                         "build_pull_plan (hot_rows=0)")
     if max(plan.n_segments, plan.n_rows) > rows:
         raise ValueError(f"the pull plan spans {plan.n_segments} rows, "
                          f"more than the state's {rows}")

@@ -22,6 +22,7 @@ from repro.kernels.frontier import (frontier_expand_batched_pallas,
                                     frontier_expand_batched_ref as j_ref)
 from repro_torch.core import bfs_sssp_batched
 from repro_torch.kernels import frontier as tf
+from repro_torch.kernels.segsum.kernel import build_plan
 from _torch_parity import np_, to_port
 
 STAR_LEAVES = 700     # the hub's in-degree, over the default split (512)
@@ -221,6 +222,32 @@ def test_directed_coo_gets_its_own_plan():
                                 tf.build_pull_plan(src, dst, n + 2))
     with pytest.raises(ValueError, match="outside"):
         tf.frontier_expand_flat(src, dst, dist[:n], sigma[:n], levels)
+
+
+def test_pull_refuses_a_plan_that_marks_hot_sources():
+    """A gather-segment-sum plan of the same edges marks its hottest
+    sources in bit 31 of their ids, which the pull would read as
+    negative rows: the wrapper raises.  The same plan built with no hot
+    source (it keeps its ``order``, which the pull ignores) is taken and
+    gives the JAX package's sum."""
+    rng = np.random.default_rng(11)
+    n, e = 60, 500
+    src = torch.from_numpy(rng.integers(0, n, e).astype(np.int32))
+    dst = torch.from_numpy(rng.integers(0, n, e).astype(np.int32))
+    dist = torch.from_numpy(rng.integers(-1, 3, (n, 8)).astype(np.int32))
+    sigma = torch.from_numpy(rng.integers(0, 5, (n, 8)).astype(np.float32))
+    levels = torch.from_numpy(rng.integers(0, 3, 8).astype(np.int32))
+    hot = build_plan(src, dst, n, n)
+    assert hot.n_hot > 0 and bool((hot.ids_sorted < 0).any())
+    with pytest.raises(ValueError, match="marks hot sources"):
+        tf.frontier_expand_flat(src, dst, dist, sigma, levels, hot)
+    cold = build_plan(src, dst, n, n, hot_rows=0)
+    want = np_(j_ref(jnp.asarray(np_(src)), jnp.asarray(np_(dst)),
+                     jnp.asarray(np_(dist)), jnp.asarray(np_(sigma)),
+                     jnp.asarray(np_(levels))))
+    np.testing.assert_array_equal(
+        np_(tf.frontier_expand_flat(src, dst, dist, sigma, levels, cold)),
+        want)
 
 
 def test_graph_builds_its_plan_once():

@@ -295,9 +295,15 @@ def _stop_inputs(v, device, seed=0):
     return counts.to(device), lil.to(device), liu.to(device)
 
 
-@pytest.mark.parametrize("v", [1, 1000, (1 << 20) + 3])
-def test_stopcheck_kernel_matches_plain(cuda, v):
-    counts, lil, liu = _stop_inputs(v, cuda, seed=v)
+@pytest.mark.parametrize("v", [1, 1000, 5000, 40000, 1 << 20,
+                               (1 << 20) + 3])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_stopcheck_kernel_matches_plain(cuda, v, offset):
+    """``offset`` 1 starts every stream one element into its storage, so
+    the kernel takes its scalar loads (the pointers are not 16-byte
+    aligned)."""
+    counts, lil, liu = (t[offset:] for t in _stop_inputs(v + offset, cuda,
+                                                         seed=v))
     omega = torch.tensor(84_000.0, device=cuda)
     before = ts.launch_counts[ts.STOPCHECK]
     got = ts.stopcheck_fused(counts, 17_408, lil, liu, omega)
@@ -306,6 +312,68 @@ def test_stopcheck_kernel_matches_plain(cuda, v):
     assert ts.launch_counts[ts.STOPCHECK] == before + 1
     # explicitly rounded arithmetic in the plain version's order: bitwise
     assert torch.equal(got, want)
+
+
+def test_stopcheck_kernel_resets_its_ticket(cuda):
+    """1,000 checks back to back on one stream, over inputs that change
+    from check to check: each gives the plain version's bits, so the last
+    block of every launch found the ticket at 0 and left it there."""
+    counts, lil, liu = _stop_inputs(1 << 20, cuda, seed=5)
+    omega = torch.tensor(84_000.0, device=cuda)
+    outs = []
+    for i in range(1000):
+        counts[i] = float(1000 + i)
+        outs.append(ts.stopcheck_fused(counts.clone(), 17_408 + i, lil, liu,
+                                       omega))
+    torch.cuda.synchronize()
+    counts, _, _ = _stop_inputs(1 << 20, cuda, seed=5)
+    for i in (0, 1, 2, 499, 998, 999):
+        counts_i = counts.clone()
+        counts_i[:i + 1] = torch.arange(1000, 1001 + i, device=cuda).float()
+        assert torch.equal(outs[i], ts.stopcheck_ref(counts_i, 17_408 + i,
+                                                     lil, liu, omega))
+
+
+def test_stopcheck_kernel_scratch_per_stream(cuda):
+    """Checks on two streams in flight together: each stream has its own
+    scratch pairs and ticket, and both results are the plain version's."""
+    a = _stop_inputs(1 << 20, cuda, seed=6)
+    b = _stop_inputs(1 << 20, cuda, seed=7)
+    omega = torch.tensor(84_000.0, device=cuda)
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    torch.cuda.synchronize()
+    got = []
+    for _ in range(50):
+        with torch.cuda.stream(s1):
+            got.append((0, ts.stopcheck_fused(a[0], 17_408, a[1], a[2],
+                                              omega)))
+        with torch.cuda.stream(s2):
+            got.append((1, ts.stopcheck_fused(b[0], 17_408, b[1], b[2],
+                                              omega)))
+    torch.cuda.synchronize()
+    want = [ts.stopcheck_ref(x[0], 17_408, x[1], x[2], omega) for x in (a, b)]
+    assert all(torch.equal(out, want[k]) for k, out in got)
+
+
+def test_stopcheck_is_one_launch_a_check(cuda):
+    """The profiler sees one kernel launch a check, and it is the
+    stop-check kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    counts, lil, liu = _stop_inputs(1 << 20, cuda, seed=8)
+    omega = torch.tensor(84_000.0, device=cuda)
+    ts.stopcheck_fused(counts, 64, lil, liu, omega)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            ts.stopcheck_fused(counts, 64, lil, liu, omega)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0 and "Memcpy" not in e.key
+               and "Memset" not in e.key]
+    assert [e.count for e in kernels] == [10], [(e.key, e.count)
+                                               for e in kernels]
+    assert "stopcheck_kernel" in kernels[0].key
 
 
 def test_stopcheck_kernel_propagates_nan(cuda):
@@ -392,23 +460,72 @@ def test_segsum_kernel_matches_plain(cuda, n, v, d, s, dtype, skew):
     assert got.dtype == dtype and torch.equal(got, want)
 
 
-def test_segsum_kernel_is_deterministic_and_close_on_gaussian(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segsum_kernel_is_deterministic_and_close_on_gaussian(cuda, dtype):
     """N(0, 1) table: two kernel calls give the same bits, and the kernel
     and the plain version (atomics, any order) each lie within the
     recursive-summation bound (n_s - 1) u sum|terms| of the exact sum, so
-    within twice that of each other."""
-    ids, seg, w, table = _segsum_inputs(50000, 2000, 128, 300, cuda,
+    within twice that of each other (for bfloat16 plus one rounding of
+    each side to bfloat16, 2^-8 relative)."""
+    ids, seg, w, table = _segsum_inputs(50000, 2000, 128, 300, cuda, dtype,
                                         integer=False, skew=True)
-    plan = tk.build_plan(ids, seg, 300, 2000)
+    plan = tk.build_plan(ids, seg, 300, 2000, hot_rows=100)
     a = tk.gather_segment_sum_cuda(ids, seg, w, table, 300, plan)
     b = tk.gather_segment_sum_cuda(ids, seg, w, table, 300, plan)
-    want = tk.gather_segment_sum_ref(ids, seg, w, table, 300)
+    want = tk.gather_segment_sum_ref(ids, seg, w, table, 300).float()
     deg = torch.bincount(seg.long(), minlength=300).float()[:, None]
     tol = 2.0 * deg * 2.0 ** -24 * tk.gather_segment_sum_ref(
-        ids, seg, w.abs(), table.abs(), 300)
+        ids, seg, w.abs(), table.float().abs(), 300)
+    if dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -8 * (2.0 * want.abs() + tol)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
-    assert bool(((a - want).abs() <= tol).all())
+    assert bool(((a.float() - want).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 128),
+                                     (torch.float32, 37),
+                                     (torch.bfloat16, 128),
+                                     (torch.bfloat16, 38)])
+@pytest.mark.parametrize("hot_rows", [0, 7, 1 << 20])
+def test_segsum_kernel_hot_tier(cuda, dtype, d, hot_rows):
+    """Skewed ids and segments (split segments too) with no hot source,
+    a few, and every source hot: the marked rows read under the L2
+    policy, the rest plainly, bitwise the plain version either way."""
+    gen = torch.Generator().manual_seed(hot_rows + d)
+    n, v, s = 30000, 400, 60
+    ids = torch.clamp((torch.rand(n, generator=gen) ** 4 * v).long(),
+                      max=v - 1).to(torch.int32).to(cuda)
+    seg = torch.clamp((torch.rand(n, generator=gen) ** 6 * s).long(),
+                      max=s - 1).to(torch.int32).to(cuda)
+    w = torch.randint(0, 4, (n,), generator=gen).float().to(cuda)
+    table = torch.randint(-8, 9, (v, d), generator=gen).float().to(
+        device=cuda, dtype=dtype)
+    plan = tk.build_plan(ids, seg, s, v, hot_rows=hot_rows)
+    assert plan.n_items > 0 and plan.n_hot == min(hot_rows, v)
+    assert bool((plan.ids_sorted < 0).any()) == (hot_rows > 0)
+    for p, args in ((plan, (ids, seg, w, table, s)),
+                    (plan.transpose, (seg, ids, w, table[:s], v))):
+        got = tk.gather_segment_sum_cuda(*args, p)
+        torch.cuda.synchronize()
+        assert torch.equal(got, tk.gather_segment_sum_ref(*args))
+
+
+def test_segsum_kernel_follows_weight_changes(cuda):
+    """The plan's weights in plan order follow ``w``: after a change in
+    place, and for another tensor, the kernel sums the new weights."""
+    ids, seg, w, table = _segsum_inputs(20000, 300, 128, 40, cuda,
+                                        skew=True)
+    plan = tk.build_plan(ids, seg, 40, 300)
+    for step in range(3):
+        if step == 1:
+            w.mul_(3.0)
+        if step == 2:
+            w = torch.randint(0, 4, w.shape, device=cuda).float()
+        got = tk.gather_segment_sum_cuda(ids, seg, w, table, 40, plan)
+        torch.cuda.synchronize()
+        assert torch.equal(got, tk.gather_segment_sum_ref(ids, seg, w,
+                                                          table, 40))
 
 
 def test_segsum_dispatcher_gradient_through_the_kernel(cuda):

@@ -164,7 +164,7 @@ def _plan_order_sum(plan, w, table):
     ``split`` entries summed in plan order; a split segment summed item by
     item, then its item partials summed in item order; float32 products
     and sums throughout."""
-    order, ids = np_(plan.order), np_(plan.ids_sorted)
+    order, ids = np_(plan.order), np_(plan.sorted_ids())
     offsets, w, table = np_(plan.offsets), np_(w), np_(table)
     out = np.zeros((plan.n_segments, table.shape[1]), np.float32)
 
@@ -189,7 +189,8 @@ def _plan_order_sum(plan, w, table):
 def test_segment_plan_covers_every_entry_once(split):
     """The plan the kernel reads: a stable sort by segment, offsets, and
     items that cut each segment longer than ``split`` into consecutive
-    runs of at most ``split`` entries.  Summing in the plan's order (the
+    runs of at most ``split`` entries; its ids (the hot mark cleared) are
+    the ids in that order.  Summing in the plan's order (the
     kernel's arithmetic) gives the plain version's result, bitwise on
     integer-valued inputs.  Its transpose is the plan of (seg, ids)."""
     rng = np.random.default_rng(split)
@@ -204,7 +205,7 @@ def test_segment_plan_covers_every_entry_once(split):
     assert sorted(order) == list(range(n))
     np.testing.assert_array_equal(seg[order], np.sort(seg, kind="stable"))
     np.testing.assert_array_equal(order, np.argsort(seg, kind="stable"))
-    np.testing.assert_array_equal(np_(plan.ids_sorted), ids[order])
+    np.testing.assert_array_equal(np_(plan.sorted_ids()), ids[order])
     np.testing.assert_array_equal(np.diff(offsets), np.bincount(seg,
                                                                 minlength=s))
     counts = np.diff(offsets)
@@ -223,7 +224,7 @@ def test_segment_plan_covers_every_entry_once(split):
     assert (pt.n_segments, pt.n_rows) == (v, s)
     np.testing.assert_array_equal(np_(pt.order), np.argsort(ids,
                                                             kind="stable"))
-    np.testing.assert_array_equal(np_(pt.ids_sorted),
+    np.testing.assert_array_equal(np_(pt.sorted_ids()),
                                   seg[np.argsort(ids, kind="stable")])
 
 

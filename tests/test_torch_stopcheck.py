@@ -187,3 +187,39 @@ def test_check_stop_reads_the_same_bits_as_its_bounds(tau):
     assert float(max_f) == pytest.approx(float(jf), rel=RTOL)
     assert float(max_g) == pytest.approx(float(jg), rel=RTOL)
 
+
+
+def test_kernel_scratch_is_kept_per_device_and_stream():
+    """The wrapper's scratch (2 x blocks partial pairs and a zeroed
+    ticket) is made once per (device, stream) and handed back on every
+    later check on that stream; another stream gets its own.  The CPU
+    stands in for the device: the helper only allocates."""
+    from repro_torch.kernels.stopcheck import kernel as sk
+    cpu = torch.device("cpu")
+    keys = [(cpu.index, 101), (cpu.index, 102)]
+    try:
+        first = sk._scratch(cpu, 101, 8)
+        partial, ticket = first
+        assert partial.shape == (16,) and partial.dtype == torch.float32
+        assert ticket.dtype == torch.int32 and ticket.tolist() == [0]
+        assert sk._scratch(cpu, 101, 8) is first
+        other = sk._scratch(cpu, 102, 8)
+        assert other is not first and other[1] is not ticket
+        assert sk._scratch(cpu, 101, 8) is first
+    finally:
+        for key in keys:
+            sk._SCRATCH.pop(key, None)
+
+
+def test_kernel_takes_omega_as_it_is():
+    """A one-element float32 omega on the counts' device is used as it
+    is (no copy, no launch); anything else is copied to one."""
+    from repro_torch.kernels.stopcheck import kernel as sk
+    cpu = torch.device("cpu")
+    omega = torch.tensor(3000.0)
+    assert sk._device_omega(omega, cpu) is omega
+    for other in (3000.0, torch.tensor(3000.0, dtype=torch.float64)):
+        got = sk._device_omega(other, cpu)
+        assert got.dtype == torch.float32 and float(got) == 3000.0
+    with pytest.raises(ValueError, match="one value"):
+        sk._device_omega(torch.ones(2), cpu)
