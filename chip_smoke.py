@@ -92,7 +92,22 @@ any failed phase.  Phases:
    under the profiler;
    then the kernel route against the plain route end to end in float32
    on one 2048-token prompt; then the smoke config (float32, head dim
-   16) prefilled through K5 against the CPU's plain route.
+   16) prefilled through K5 against the CPU's plain route;
+13. the whole run's seconds (printed last);
+14. the sharded cooperative lane: R-MAT 2^20 x 30 partitioned into 8
+   shards (the reference's mesh) at the card's blocking, all on the card
+   (``ShardMesh``).  The node-blocked kernel in wide_state mode against
+   its plain version on every shard at one mid-BFS level (bitwise where
+   the sums are exact integers, else rtol 1e-6), the level's calls timed
+   beside their device time, the plain version, the byte bound,
+   ``torch.sparse.mm`` on each shard's local matrix and the replicated
+   node-blocked level; where a sharded level's time goes (exchange, wide
+   calls, the rest) beside the replicated flat level; one bidirectional
+   batch against the replicated flat route (dist, d and split bitwise);
+   ``run_kadabra`` on the partition (every level one wide launch and one
+   words pass a shard, no flat or replicated node-blocked launch), two
+   of its rounds under the profiler; hyperbolic(1000) in 8 shards within
+   eps 0.05 of exact Brandes.
 
 Every run resets the launch counts just before it and reads them just
 after: each kernel of the run must have carried all of its work.
@@ -189,6 +204,11 @@ LLAMA_F32_PROMPT, LLAMA_F32_RTOL = 2048, 1e-3
 # the ratio was 0.95 and 1.10; a stale KV tile in every layer made it
 # 40-55
 LLAMA_BF16_RATIO = 1.5
+# the sharded cooperative lane: the production graph in the reference's
+# own mesh of 8 shards at the card's blocking (block_v 2^14: shard_rows
+# 147,456, v_pad 1,179,648); hyperbolic(1000) in 8 shards of 128 rows
+SHARDS = 8
+HYPER_BLOCK_V = 128
 DEVICE = "cuda"
 
 
@@ -571,7 +591,7 @@ def phase_grid_kernel(grid) -> dict:
 
 def phase_profile(label: str, graph, rounds: int, batch: int,
                   metrics=("betweenness",), stream="bidir",
-                  vertex_diameter: int = 0):
+                  vertex_diameter: int = 0, mesh=None):
     """``rounds`` sampling rounds of ``batch`` under ``torch.profiler``:
     device time by kernel (the profiler's device-side entries only, so no
     kernel is counted twice), and the device's idle share of the wall
@@ -588,7 +608,7 @@ def phase_profile(label: str, graph, rounds: int, batch: int,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fold = draw_fold(graph, gen, rounds * batch, estimators=ests,
-                         ctx=ctx, stream=stream, batch_size=batch)
+                         ctx=ctx, stream=stream, batch_size=batch, mesh=mesh)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = [(evt.self_device_time_total / 1e3, evt.count, evt.key)
@@ -1519,6 +1539,287 @@ def phase_llama() -> dict:
     return {k: prefill[k] + decode[k] for k in prefill}
 
 
+# ---------------------------------------------------------------------------
+# [14] the sharded cooperative lane
+# ---------------------------------------------------------------------------
+
+def compare_cells(name: str, got, want) -> float:
+    """Bitwise where the plain value is an exact integer below 2^24,
+    within rtol elsewhere (atomics add in a varying order)."""
+    import torch
+    exact = (want < EXACT_LIMIT) & (want == torch.round(want))
+    err = float((got - want).abs().max()) if want.numel() else 0.0
+    if not torch.equal(got[exact], want[exact]):
+        raise AssertionError(f"{name}: not bitwise equal where the sums are "
+                             "exact integers")
+    rest = ~exact
+    gap = (got[rest] - want[rest]).abs()
+    if bool((gap > RTOL * want[rest].abs()).any()):
+        raise AssertionError(f"{name}: max |diff| {err} beyond rtol {RTOL} "
+                             "where the sums are not exact")
+    log(f"  {name}: bitwise on {int(exact.sum())} exact cells, within rtol "
+        f"{RTOL} on {int(rest.sum())} others (max |diff| {err})")
+    return err
+
+
+def shard_matrix(view, v_pad: int):
+    """The shard's local matrix (shard_rows x v_pad, ones at its real
+    edges) in CSR, for the library yardstick."""
+    import torch
+    real = view.src != view.n_nodes
+    at = torch.sparse_coo_tensor(
+        torch.stack([view.dst[real].long(), view.src[real].long()]),
+        torch.ones(int(real.sum()), device=view.src.device),
+        (view.v_pad, v_pad)).coalesce()
+    return at.to_sparse_csr()
+
+
+def check_wide(pg, rmat, dist, sigma, levels, replicated_ms: float) -> dict:
+    """K2 wide_state at one mid-BFS level on every shard: the gathered
+    masked frontier as the lane hands it over, each shard's call against
+    the plain version; the level's 8 calls timed with CUDA events, their
+    kernels' device time from the profiler, beside the plain version, the
+    byte bound and torch.sparse.mm on each shard's local matrix."""
+    import torch
+    from repro_torch.kernels.frontier import (
+        frontier_block_bitmap, frontier_expand_node_blocked,
+        frontier_expand_sharded_ref)
+    batch = dist.shape[1]
+    v1 = rmat.n_nodes + 1
+    fvals = torch.zeros((pg.v_pad, batch), device=dist.device)
+    fvals[:v1] = torch.where(dist == levels, sigma, 0.0)
+    fdist = torch.where(fvals > 0, levels, -1).to(torch.int32)
+    views = [pg.shards.shard(s) for s in range(pg.n_shards)]
+    err = 0.0
+    n_bytes = 0.0
+    n_ops = 0.0
+    words_bytes = pg.v_pad * (-(-batch // 32)) * 4
+    hit_rows = (fdist != -1).any(dim=1)
+    for s, view in enumerate(views):
+        got = frontier_expand_node_blocked(view, fdist, fvals, levels,
+                                           wide_state=True)
+        want = frontier_expand_sharded_ref(view, fdist, fvals, levels)
+        torch.cuda.synchronize()
+        err = max(err, compare_cells(f"frontier_node_blocked_wide shard {s}",
+                                     got, want))
+        active = int(frontier_block_bitmap(view, fdist, levels).sum())
+        real = view.src != rmat.n_nodes
+        srcs = torch.unique(view.src[real & hit_rows[view.src.long()]])
+        n_bytes += (active * view.block_e * 8 + words_bytes
+                    + srcs.numel() * batch * 4 + view.v_pad * batch * 4)
+        n_ops += 2.0 * active * view.block_e * batch
+        log(f"  shard {s}: {view.e_slots} edge slots, {int(real.sum())} "
+            f"real, padding {view.e_slots - int(real.sum())}; "
+            f"{active}/{view.n_edge_blocks} edge blocks active, "
+            f"{srcs.numel()} frontier source rows")
+        del got, want
+    level = lambda: [frontier_expand_node_blocked(v, fdist, fvals, levels,   # noqa: E731
+                                                  wide_state=True)
+                     for v in views]
+    ms = cuda_time_ms(level, 10) / pg.n_shards
+    device = kernel_device_ms(level, 10, ("frontier_words_kernel",
+                                          "frontier_nb_kernel"))
+    plain = cuda_time_ms(lambda: [frontier_expand_sharded_ref(
+        v, fdist, fvals, levels) for v in views], 2) / pg.n_shards
+    mats = [shard_matrix(v, pg.v_pad) for v in views]
+    torch.cuda.synchronize()
+    lib = cuda_time_ms(lambda: [torch.sparse.mm(a, fvals) for a in mats],
+                       10) / pg.n_shards
+    b_ms, b_by = bound(n_bytes / pg.n_shards, n_ops / pg.n_shards)
+    dist_ms = pg.v_pad * batch * 4 / HBM_BYTES_PER_S * 1e3
+    log(f"  frontier_node_blocked_wide: {ms:.3f} ms a call (a shard), "
+        f"{ms * pg.n_shards:.3f} ms the level's {pg.n_shards} calls; device "
+        f"time a call frontier_words_kernel "
+        f"{device['frontier_words_kernel'] / pg.n_shards:.4f} ms, "
+        f"frontier_nb_kernel {device['frontier_nb_kernel'] / pg.n_shards:.4f}"
+        f" ms; plain {plain:.3f} ms, bound {b_ms:.4f} ms ({b_by}; reading "
+        f"the wide dist once instead of the words would add {dist_ms:.4f} "
+        f"ms), torch.sparse.mm on the shard's matrix {lib:.3f} ms; the "
+        f"replicated K2 level on the same state {replicated_ms:.3f} ms")
+    return {"max_abs_err": err, "ms": ms, "level_ms": ms * pg.n_shards,
+            "words_device_ms": device["frontier_words_kernel"] / pg.n_shards,
+            "nb_device_ms": device["frontier_nb_kernel"] / pg.n_shards,
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib, "replicated_level_ms": replicated_ms}
+
+
+def level_breakdown(pg, mesh, dist, sigma, levels, flat_ms: float) -> None:
+    """Where a sharded level's time goes, CUDA events at the mid-BFS
+    state: the exchange, the shards' wide calls (words passes included),
+    and the rest of the level (frontier synthesis, stacking, the update
+    and its cross-shard reductions)."""
+    import torch
+    from repro_torch.core.bfs import (_expand_level_sharded,
+                                      _gather_frontier_sharded)
+    from repro_torch.kernels.frontier import frontier_expand
+    v1, batch = dist.shape
+    sd = torch.full((pg.v_pad, batch), -3, dtype=torch.int32,
+                    device=dist.device)
+    ss = torch.zeros((pg.v_pad, batch), device=dist.device)
+    sd[:v1], ss[:v1] = dist, sigma
+    sd = sd.view(pg.n_shards, pg.shard_rows, batch)
+    ss = ss.view(pg.n_shards, pg.shard_rows, batch)
+    active = torch.ones(batch, dtype=torch.bool, device=dist.device)
+    xch = cuda_time_ms(lambda: _gather_frontier_sharded(
+        pg, mesh, sd, ss, levels, active), 10)
+    fvals, _, took = _gather_frontier_sharded(pg, mesh, sd, ss, levels,
+                                              active)
+    fdist = torch.where(fvals > 0, levels, -1).to(torch.int32)
+    views = [pg.shards.shard(s) for s in range(pg.n_shards)]
+    wide = cuda_time_ms(lambda: [frontier_expand(
+        v.src, v.dst, fdist, fvals, levels, shard=v) for v in views], 10)
+    whole = cuda_time_ms(lambda: _expand_level_sharded(
+        pg, mesh, sd, ss, levels, active), 10)
+    log(f"  a sharded level at the mid-BFS state: {whole:.3f} ms = "
+        f"exchange {xch:.3f} ms (sparse taken: {int(took)}) + wide calls "
+        f"{wide:.3f} ms + the rest {whole - xch - wide:.3f} ms; the "
+        f"replicated flat level (K1) on the same state {flat_ms:.3f} ms")
+
+
+def read_sharded_counts(label: str, bfs_levels: int, stop_checks: int,
+                        n_shards: int) -> dict:
+    """Every level one wide launch and one words pass a shard; no flat or
+    replicated node-blocked launch; one stop check an epoch."""
+    from repro_torch.kernels import flashattn, frontier, segsum, stopcheck
+    counts = all_counts()
+    want = n_shards * bfs_levels
+    if counts[frontier.NODE_BLOCKED_WIDE] != want or want == 0 \
+            or counts[frontier.WORDS] != want \
+            or counts[frontier.FLAT] or counts[frontier.NODE_BLOCKED] \
+            or counts[segsum.SEGSUM] or counts[flashattn.FLASHATTN]:
+        raise AssertionError(f"{label}: expected {n_shards} x {bfs_levels} "
+                             f"wide launches and words passes and no other "
+                             f"frontier kernel, got {counts}")
+    if counts[stopcheck.STOPCHECK] != stop_checks or stop_checks == 0:
+        raise AssertionError(f"{label}: expected {stop_checks} stop checks, "
+                             f"got {counts}")
+    return counts
+
+
+def drive_sharded(label: str, pg, mesh, eps: float, delta: float, **cfg):
+    """run_kadabra on the partitioned graph, counts reset just before and
+    read just after."""
+    import numpy as np
+    from repro_torch.core import AdaptiveConfig, run_kadabra
+    config = AdaptiveConfig(eps=eps, delta=delta, **cfg)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = run_kadabra(pg, config=config, seed=SEED, mesh=mesh)
+    seconds = time.perf_counter() - t0
+    counts = read_sharded_counts(label, res.bfs_levels, res.n_epochs,
+                                 mesh.n_shards)
+    total = sum(s.exchange["levels_total"] for s in res.stats)
+    sparse = sum(s.exchange["levels_sparse"] for s in res.stats)
+    moved = sum(s.exchange["bytes"] for s in res.stats)
+    t_samp = res.phase_seconds["sampling"]
+    log(f"  {label}: {seconds:.1f} s, phases "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in res.phase_seconds.items())
+        + f"; samples {res.tau} ({res.tau / max(t_samp, 1e-9):.1f}/s), "
+        f"epochs {res.n_epochs}, converged {res.converged}, vertex "
+        f"diameter {res.vertex_diameter}, BFS levels {res.bfs_levels}; "
+        f"epochs' exchange: {total} levels, {sparse} sparse, "
+        f"{total - sparse} dense, {moved / 1e9:.3f} GB priced; launches "
+        f"{counts}")
+    b = res.btilde
+    if b.shape != (pg.n_nodes,) or not np.isfinite(b).all() \
+            or (b < 0).any() or (b > 1).any():
+        raise AssertionError(f"{label}: scores not finite in [0, 1]")
+    return res, counts
+
+
+def phase_sharded() -> tuple:
+    """[14]: the sharded cooperative lane on R-MAT 2^20 x 30 in SHARDS
+    shards (ShardMesh on the card), then hyperbolic(1000) in SHARDS
+    shards against exact Brandes.  Returns the kernel row's numbers and
+    the paths' launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (ShardMesh, bidirectional_bfs_batched,
+                                  bidirectional_bfs_batched_sharded,
+                                  brandes_numpy, build_csc_layout,
+                                  hyperbolic_graph, partition_graph,
+                                  rmat_graph, sample_pairs)
+    from repro_torch.kernels.frontier import (frontier_expand_flat,
+                                              frontier_expand_node_blocked)
+    paths = {}
+    rmat = rmat_graph(RMAT_SCALE, EDGE_FACTOR, seed=SEED, device=DEVICE)
+    t0 = time.perf_counter()
+    pg = partition_graph(rmat, SHARDS)
+    torch.cuda.synchronize()
+    log(f"  partitioned in {time.perf_counter() - t0:.2f} s: block_v "
+        f"{pg.shards.block_v}, block_e {pg.shards.block_e}, shard_rows "
+        f"{pg.shard_rows}, v_pad {pg.v_pad}, {pg.shards.n_edge_blocks} edge "
+        f"blocks a shard, exchange chunks of {pg.exchange_chunk_rows} rows, "
+        f"budget {pg.exchange_budget} of {pg.exchange_chunks_per_shard}")
+    mesh = ShardMesh(SHARDS, DEVICE)
+    dist, sigma, levels = mid_bfs_state(rmat, BATCH)
+    args = (rmat.src, rmat.dst, dist, sigma, levels, rmat.pull_plan())
+    flat_ms = cuda_time_ms(lambda: frontier_expand_flat(*args), 10)
+    csc = build_csc_layout(rmat)
+    pad = csc.v_pad - dist.shape[0]
+    d_pad = torch.cat([dist, dist.new_full((pad, BATCH), -3)]).contiguous()
+    s_pad = torch.cat([sigma, sigma.new_zeros((pad, BATCH))]).contiguous()
+    rep_ms = cuda_time_ms(lambda: frontier_expand_node_blocked(
+        csc, d_pad, s_pad, levels), 10)
+    del csc, d_pad, s_pad
+    row = check_wide(pg, rmat, dist, sigma, levels, rep_ms)
+    row["shape"] = (f"R-MAT 2^{RMAT_SCALE} x {EDGE_FACTOR}, B={BATCH}, "
+                    f"{SHARDS} shards of {pg.shard_rows} rows, block_v="
+                    f"{pg.shards.block_v} block_e={pg.shards.block_e}, a call "
+                    "is one shard")
+    level_breakdown(pg, mesh, dist, sigma, levels, flat_ms)
+    del dist, sigma
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=rmat.device).manual_seed(SEED + 3)
+    s, t = sample_pairs(gen, rmat.n_nodes, BATCH)
+    reset_counts()
+    got = bidirectional_bfs_batched_sharded(pg, s, t, mesh=mesh)
+    counts = all_counts()
+    want = bidirectional_bfs_batched(rmat, s, t)
+    torch.cuda.synchronize()
+    v1 = rmat.n_nodes + 1
+    for f in ("dist_s", "dist_t"):
+        if not torch.equal(mesh.all_gather(getattr(got, f))[:v1],
+                           getattr(want, f)):
+            raise AssertionError(f"sharded bidirectional {f} is not the "
+                                 "replicated flat route's")
+    if not (torch.equal(got.d, want.d) and torch.equal(got.split,
+                                                       want.split)):
+        raise AssertionError("sharded bidirectional d / split differ")
+    for f in ("sigma_s", "sigma_t"):
+        compare_cells(f"sharded bidirectional {f}",
+                      mesh.all_gather(getattr(got, f))[:v1],
+                      getattr(want, f))
+    log(f"  one bidirectional batch of {BATCH}: {got.n_iters} levels "
+        f"(replicated {want.n_iters}), exchange tally "
+        f"{got.exchange.tolist()}; dist, d and split bitwise; launches "
+        f"{counts}")
+    del got, want
+    torch.cuda.empty_cache()
+
+    res, paths["rmat_sharded"] = drive_sharded(
+        "rmat_sharded", pg, mesh, MAIN_EPS, MAIN_DELTA,
+        sample_batch_size=BATCH, max_epochs=MAIN_MAX_EPOCHS)
+    if not res.converged:
+        log(f"  the epoch cap {MAIN_MAX_EPOCHS} was hit: converged=False")
+    phase_profile("rmat_sharded", pg, 2, BATCH, mesh=mesh)
+    del rmat, pg
+    torch.cuda.empty_cache()
+
+    hyper = hyperbolic_graph(HYPER_N, seed=SEED, device=DEVICE)
+    hpg = partition_graph(hyper, SHARDS, block_v=HYPER_BLOCK_V)
+    res, paths["hyperbolic_sharded"] = drive_sharded(
+        "hyperbolic_sharded", hpg, mesh, HYPER_EPS, 0.1)
+    err = float(np.abs(res.btilde - brandes_numpy(hyper)).max())
+    log(f"  hyperbolic({HYPER_N}) in {SHARDS} shards: max |b~ - b| = "
+        f"{err:.5f} (eps {HYPER_EPS})")
+    if not err < HYPER_EPS:
+        raise AssertionError(f"hyperbolic sharded: max error {err} >= "
+                             f"{HYPER_EPS}")
+    return row, paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1535,7 +1836,8 @@ def main() -> int:
                                                       make_config)
     from repro_torch.data import graph_to_batch
     from repro_torch.kernels.flashattn import FLASHATTN
-    from repro_torch.kernels.frontier import FLAT, NODE_BLOCKED, WORDS
+    from repro_torch.kernels.frontier import (FLAT, NODE_BLOCKED,
+                                              NODE_BLOCKED_WIDE, WORDS)
     from repro_torch.kernels.segsum import SEGSUM
     from repro_torch.kernels.stopcheck import STOPCHECK
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1646,16 +1948,31 @@ def main() -> int:
         f"(prefill_32k's length, batch cut from 32), {LLAMA_GEN} decode "
         f"steps, bfloat16 at full width and depth")
     paths["llama_serve"] = phase_llama()
+    torch.cuda.empty_cache()
+
+    log(f"[14] sharded cooperative lane: R-MAT 2^{RMAT_SCALE} x "
+        f"{EDGE_FACTOR}, B={BATCH}, in {SHARDS} shards on one card "
+        f"(ShardMesh), eps={MAIN_EPS}; then hyperbolic({HYPER_N}) in "
+        f"{SHARDS} shards")
+    wide_row, sharded_paths = phase_sharded()
+    paths.update(sharded_paths)
+    rows.append({"name": NODE_BLOCKED_WIDE, "route": "cuda",
+                 "source": "src/repro_torch/kernels/frontier/csrc/"
+                           "frontier.cu",
+                 "replaces": "src/repro/kernels/frontier/kernel.py:405",
+                 "launches": 0, **wide_row})
 
     # each row's launches: the run of the path that row's kernel carries;
-    # the node-blocked row's words pass beside it
+    # the node-blocked rows' words pass beside it
     for row, main_path in zip(rows, ("rmat_bidir", "grid", "forward",
-                                     "graphsage", "llama_serve")):
+                                     "graphsage", "llama_serve",
+                                     "rmat_sharded")):
         row["launches"] = paths[main_path][row["name"]]
         row["launches_by_path"] = {k: c[row["name"]]
                                    for k, c in paths.items()}
     # beside the launches of each frontier route, its words passes
-    for row, main_path in zip(rows[:2], ("rmat_bidir", "grid")):
+    for row, main_path in zip(rows[:2] + rows[5:],
+                              ("rmat_bidir", "grid", "rmat_sharded")):
         row["words_launches"] = paths[main_path][WORDS]
         row["words_launches_by_path"] = {k: c[WORDS]
                                          for k, c in paths.items()}

@@ -3,9 +3,12 @@ statistics and the adaptive engine (mirrors ``repro.core``)."""
 from .adaptive import (BetweennessResult, EpochStats, run_fixed_sampling,
                        run_kadabra)
 from .bfs import (BFSResult, BidirResult, bfs_sssp, bfs_sssp_batched,
-                  bidirectional_bfs, bidirectional_bfs_batched)
+                  bfs_sssp_batched_sharded, bidirectional_bfs,
+                  bidirectional_bfs_batched,
+                  bidirectional_bfs_batched_sharded)
 from .brandes import brandes_numpy
-from .diameter import DiameterEstimate, estimate_diameter
+from .diameter import (DiameterEstimate, estimate_diameter,
+                       estimate_diameter_sharded)
 from .engine import (AdaptiveConfig, AdaptiveRunResult, draw_fold,
                      resolve_sample_batch_size, run_adaptive, run_fixed)
 from .estimators import available_metrics, get_estimator
@@ -15,22 +18,38 @@ from .graph import (CSCLayout, Graph, build_csc_layout, build_graph,
                     rmat_graph, with_csc_layout)
 from .kadabra import (KadabraParams, calibrate_deltas, check_stop,
                       compute_omega, f_term, g_term)
+from .partition import (ExchangePlan, PartitionedGraph, ShardedCSCLayout,
+                        auto_exchange_budget, default_exchange_budget,
+                        exchange_plan, gather_graph, global_row,
+                        max_active_source_chunks, partition_graph,
+                        partitioned_from_numpy, repartition,
+                        shard_vertex_range, vertex_owner)
 from .sampler import (ForwardSample, PathSample, sample_batch, sample_pairs,
                       sample_path, sample_path_batched,
-                      sample_path_forward_batched)
+                      sample_path_batched_sharded,
+                      sample_path_forward_batched,
+                      sample_path_forward_batched_sharded)
+from .shards import ShardMesh
 
 __all__ = [
     "AdaptiveConfig", "AdaptiveRunResult", "BFSResult", "BetweennessResult",
     "BidirResult", "CSCLayout", "DiameterEstimate", "EpochStats",
-    "ForwardSample", "Graph", "KadabraParams", "PathSample",
-    "available_metrics", "bfs_sssp", "bfs_sssp_batched",
-    "bidirectional_bfs", "bidirectional_bfs_batched", "brandes_numpy",
-    "build_csc_layout", "build_graph", "calibrate_deltas", "check_stop",
-    "choose_csc_blocks", "compute_omega", "draw_fold", "erdos_renyi_graph",
-    "estimate_diameter", "f_term", "from_edge_list", "g_term",
-    "get_estimator", "graph_from_numpy", "grid_graph", "hyperbolic_graph",
-    "rmat_graph", "resolve_sample_batch_size", "run_adaptive", "run_fixed",
-    "run_fixed_sampling", "run_kadabra", "sample_batch", "sample_pairs",
-    "sample_path", "sample_path_batched", "sample_path_forward_batched",
-    "with_csc_layout",
+    "ExchangePlan", "ForwardSample", "Graph", "KadabraParams", "PathSample",
+    "PartitionedGraph", "ShardMesh", "ShardedCSCLayout",
+    "auto_exchange_budget", "available_metrics", "bfs_sssp",
+    "bfs_sssp_batched", "bfs_sssp_batched_sharded", "bidirectional_bfs",
+    "bidirectional_bfs_batched", "bidirectional_bfs_batched_sharded",
+    "brandes_numpy", "build_csc_layout", "build_graph", "calibrate_deltas",
+    "check_stop", "choose_csc_blocks", "compute_omega",
+    "default_exchange_budget", "draw_fold", "erdos_renyi_graph",
+    "estimate_diameter", "estimate_diameter_sharded", "exchange_plan",
+    "f_term", "from_edge_list", "g_term", "gather_graph", "get_estimator",
+    "global_row", "graph_from_numpy", "grid_graph", "hyperbolic_graph",
+    "max_active_source_chunks", "partition_graph", "partitioned_from_numpy",
+    "repartition", "rmat_graph", "resolve_sample_batch_size",
+    "run_adaptive", "run_fixed", "run_fixed_sampling", "run_kadabra",
+    "sample_batch", "sample_pairs", "sample_path", "sample_path_batched",
+    "sample_path_batched_sharded", "sample_path_forward_batched",
+    "sample_path_forward_batched_sharded", "shard_vertex_range",
+    "vertex_owner", "with_csc_layout",
 ]

@@ -1,14 +1,13 @@
-"""``run_kadabra``: the paper's KADABRA on one device
-(``repro.core.adaptive``), a thin mapping of the engine's result onto
-:class:`BetweennessResult`; and ``run_fixed_sampling``, its fixed-count
-baseline."""
+"""``run_kadabra``: the paper's KADABRA on one device, or cooperatively
+over the shards of a :class:`PartitionedGraph` (``repro.core.adaptive``),
+a thin mapping of the engine's result onto :class:`BetweennessResult`;
+and ``run_fixed_sampling``, its fixed-count baseline."""
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
 import numpy as np
 
-from ..device import DEFAULT_DEVICE
 from .engine import (AdaptiveConfig, AdaptiveRunResult, run_adaptive,
                      run_fixed)
 
@@ -22,6 +21,7 @@ class EpochStats(NamedTuple):
     max_f: float
     max_g: float
     seconds: float
+    exchange: Optional[dict] = None   # sharded lane: the priced exchange
 
 
 class BetweennessResult(NamedTuple):
@@ -39,20 +39,22 @@ class BetweennessResult(NamedTuple):
 def run_kadabra(graph, *, eps: Optional[float] = None,
                 delta: Optional[float] = None, seed: int = 0,
                 config: Optional[AdaptiveConfig] = None,
-                device=DEFAULT_DEVICE) -> BetweennessResult:
+                device=None, mesh=None) -> BetweennessResult:
     """Approximate betweenness with adaptive sampling (KADABRA): the
     betweenness estimator on the bidirectional stream.
 
     Explicit ``eps``/``delta`` override ``config``'s (defaults 0.01 /
     0.1).  ``device`` defaults to ``"cuda"`` and raises without a card
-    unless ``device="cpu"`` is passed.
+    unless ``device="cpu"`` is passed.  A :class:`PartitionedGraph` runs
+    the sharded lane with ``mesh=ShardMesh(n_shards, device)``, on the
+    mesh's device.
     """
     res: AdaptiveRunResult = run_adaptive(
         graph, ("betweenness",), eps=eps, delta=delta, seed=seed,
-        config=config, stream="bidir", device=device)
+        config=config, stream="bidir", device=device, mesh=mesh)
     rep = res.reports[0]
-    stats = [EpochStats(s.epoch, s.tau, s.max_f[0], s.max_g[0], s.seconds)
-             for s in res.stats]
+    stats = [EpochStats(s.epoch, s.tau, s.max_f[0], s.max_g[0], s.seconds,
+                        s.exchange) for s in res.stats]
     return BetweennessResult(rep.scores, rep.tau, res.n_epochs,
                              rep.converged, rep.omega, res.vertex_diameter,
                              stats, res.phase_seconds, res.bfs_levels)
@@ -60,10 +62,11 @@ def run_kadabra(graph, *, eps: Optional[float] = None,
 
 def run_fixed_sampling(graph, n_samples: int, *, seed: int = 0,
                        batch_size: Optional[int] = None,
-                       device=DEFAULT_DEVICE) -> np.ndarray:
+                       device=None, mesh=None) -> np.ndarray:
     """Non-adaptive baseline (a fixed sample count, no stop rule): the
     betweenness estimates of :func:`run_fixed` on the bidirectional
     stream."""
     reports = run_fixed(graph, n_samples, metrics=("betweenness",),
-                        seed=seed, batch_size=batch_size, device=device)
+                        seed=seed, batch_size=batch_size, device=device,
+                        mesh=mesh)
     return reports[0].scores

@@ -15,18 +15,29 @@ the results carry ``n_iters``, the number of levels the loop expanded.
 Path counts grow combinatorially, so each sample's sigma column is
 rescaled by 1/max whenever its max passes 1e30; every consumer uses
 ratios within a column, so the rescale is exact in distribution.
+
+The ``*_sharded`` functions at the bottom run the same searches on a
+:class:`PartitionedGraph` over a :class:`ShardMesh`: the state is the
+stack (n_shards, shard_rows, B) of the shards' row slices, each level
+exchanges the masked frontier (dense, or bitmap-scheduled sparse) and
+each shard expands its own rows through the node-blocked kernel in
+wide_state mode.  On integer-valued sigma they give the replicated
+searches' bits, whichever protocol a level takes.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
-from ..kernels.frontier import frontier_expand
+from ..kernels.frontier import frontier_expand, frontier_source_block_bitmap
 from .graph import Graph
+from .partition import PartitionedGraph
+from .shards import ShardMesh
 
 __all__ = ["BFSResult", "BidirResult", "bfs_sssp", "bfs_sssp_batched",
-           "bidirectional_bfs", "bidirectional_bfs_batched"]
+           "bfs_sssp_batched_sharded", "bidirectional_bfs",
+           "bidirectional_bfs_batched", "bidirectional_bfs_batched_sharded"]
 
 _RESCALE_THRESHOLD = 1e30
 _SINK_DIST = -3
@@ -35,11 +46,15 @@ _INT32_MAX = torch.iinfo(torch.int32).max
 
 class BFSResult(NamedTuple):
     """``levels`` is the deepest settled distance per sample (the
-    eccentricity when the search ran to exhaustion)."""
+    eccentricity when the search ran to exhaustion).  The sharded search
+    returns dist/sigma as the (n_shards, shard_rows, B) stack and
+    ``exchange``, its (2,) int32 tally [levels exchanged, of which over
+    the sparse protocol], on the device; None on the replicated lanes."""
     dist: torch.Tensor    # (rows, B) | (rows,) int32; -1 unreached
     sigma: torch.Tensor   # (rows, B) | (rows,) float32
     levels: torch.Tensor  # (B,) | () int32
     n_iters: int          # levels expanded by the loop
+    exchange: Optional[torch.Tensor] = None
 
 
 class BidirResult(NamedTuple):
@@ -56,6 +71,7 @@ class BidirResult(NamedTuple):
     d: torch.Tensor       # (B,) | () int32
     split: torch.Tensor   # (B,) | () int32
     n_iters: int
+    exchange: Optional[torch.Tensor] = None   # as BFSResult.exchange
 
 
 def _state_rows(graph: Graph) -> int:
@@ -197,3 +213,242 @@ def bidirectional_bfs(graph: Graph, s, t, *,
     return BidirResult(res.dist_s[:, 0], res.dist_t[:, 0], res.sigma_s[:, 0],
                        res.sigma_t[:, 0], res.d[0], res.split[0],
                        res.n_iters)
+
+
+# ---------------------------------------------------------------------------
+# The sharded lane (a PartitionedGraph over a ShardMesh)
+# ---------------------------------------------------------------------------
+#
+# State is the stack (S, R, B) of the shards' row slices (R = shard_rows);
+# every cross-shard step goes through the mesh's collectives.  Max, min
+# and integer sums split exactly into a local reduce and a cross-shard
+# one, the sparse exchange rebuilds the dense gather bit for bit, and a
+# shard adds each destination's contributions in the replicated layout's
+# order, so the lane gives the replicated searches' bits on integer sigma.
+
+def _init_state_sharded(pg: PartitionedGraph, mesh: ShardMesh, sources):
+    """(S, R, B) dist/sigma; rows at or past ``n_nodes`` hold -3/0, and a
+    source lands only on its owner's slice."""
+    b = sources.shape[0]
+    rows = pg.shard_rows
+    dev = mesh.device
+    offset = mesh.axis_index() * rows                              # (S,)
+    grow = offset[:, None] + torch.arange(rows, device=dev)[None, :]
+    dist = torch.where(grow < pg.n_nodes, -1, _SINK_DIST).to(
+        torch.int32)[:, :, None].expand(-1, -1, b).contiguous()
+    src = sources.long()[None, :]
+    loc = (src - offset[:, None]).clamp(0, rows - 1)              # (S, B)
+    own = (src >= offset[:, None]) & (src < offset[:, None] + rows)
+    shard = mesh.axis_index()[:, None].expand_as(loc)
+    cols = torch.arange(b, device=dev)[None, :].expand_as(loc)
+    dist[shard, loc, cols] = torch.where(own, 0, dist[shard, loc, cols])
+    sigma = torch.zeros(dist.shape, dtype=torch.float32, device=dev)
+    sigma[shard, loc, cols] = own.to(torch.float32)
+    return dist, sigma
+
+
+def _read_rows_sharded(pg: PartitionedGraph, mesh: ShardMesh, state, idx):
+    """``state[idx[b], b]`` at global rows: the owner gives its value,
+    every other shard 0, one psum."""
+    rows = pg.shard_rows
+    offset = mesh.axis_index()[:, None] * rows
+    idx = idx.long()[None, :]
+    loc = (idx - offset).clamp(0, rows - 1)                        # (S, B)
+    own = (idx >= offset) & (idx < offset + rows)
+    shard = mesh.axis_index()[:, None].expand_as(loc)
+    cols = torch.arange(loc.shape[1], device=mesh.device)[None, :]
+    vals = torch.where(own, state[shard, loc, cols.expand_as(loc)], 0)
+    return mesh.psum(vals)
+
+
+def _gather_frontier_sharded(pg: PartitionedGraph, mesh: ShardMesh, dist,
+                             sigma, level, active):
+    """The level's exchange: ``(fvals, src_bits, took_sparse)``, with
+    fvals the (v_pad, B) masked frontier ``sigma * [dist == level]`` of
+    the active samples over the global rows, src_bits the (S * cps,)
+    int32 chunk occupancy that scheduled it, took_sparse a 0-d int32 (1
+    when the level went over the sparse protocol)."""
+    s, r, b = dist.shape
+    fmask = (dist == level[None, None, :]) & active[None, None, :]
+    fvals_local = torch.where(fmask, sigma, 0.0)
+    bits_local = frontier_source_block_bitmap(
+        dist.view(s * r, b), level, pg.exchange_chunk_rows, active
+    ).view(s, pg.exchange_chunks_per_shard)
+    return _exchange_masked_values(pg, mesh, fvals_local, bits_local)
+
+
+def _exchange_masked_values(pg: PartitionedGraph, mesh: ShardMesh,
+                            fvals_local, bits_local):
+    """The wire half of the exchange: (S, R, B) masked values, zero
+    outside the chunks their (S, cps) bits mark, to the (v_pad, B)
+    gathered view.
+
+    Dense: one tiled all_gather.  Sparse: each shard packs its active
+    chunks, in order, into ``exchange_budget`` slots, the slots and their
+    global chunk ids are gathered and scattered into a zeroed view, which
+    is the dense gather bit for bit.  The break-even guard at this run's
+    B can make the lane dense only; otherwise one pmax of the shards'
+    occupancy decides, for every shard at once, and on the device: both
+    protocols are built and the decision selects one, so the level needs
+    no host round trip.
+    """
+    s, r, b = fvals_local.shape
+    chunk = pg.exchange_chunk_rows
+    cps = pg.exchange_chunks_per_shard
+    budget = pg.exchange_budget
+    dev = mesh.device
+    src_bits = mesh.all_gather(bits_local)
+    dense = mesh.all_gather(fvals_local)
+    if budget <= 0 or budget * (chunk * b + 1) >= cps * chunk * b:
+        return dense, src_bits, torch.zeros((), dtype=torch.int32,
+                                            device=dev)
+    n_gchunks = s * cps
+    fits = mesh.pmax(bits_local.sum(dim=1, dtype=torch.int32)) <= budget
+    # pack: active chunk j -> slot cumsum(bits)[j] - 1; a chunk past the
+    # budget (the level does not fit) and every inactive one -> the
+    # dump slot, cut off below
+    pos = torch.cumsum(bits_local, dim=1) - 1
+    slot = torch.where((bits_local == 1) & (pos < budget), pos, budget)
+    chk_of_slot = torch.full((s, budget + 1), cps, dtype=torch.int64,
+                             device=dev)
+    chk_of_slot.scatter_(1, slot.long(),
+                         torch.arange(cps, device=dev).expand(s, cps))
+    chk_of_slot = chk_of_slot[:, :budget]
+    chunks = torch.cat([fvals_local.view(s, cps, chunk, b),
+                        fvals_local.new_zeros((s, 1, chunk, b))], dim=1)
+    shard = mesh.axis_index()[:, None]
+    send_vals = chunks[shard, chk_of_slot]             # (S, budget, chunk, B)
+    send_idx = torch.where(chk_of_slot < cps, shard * cps + chk_of_slot,
+                           n_gchunks)                  # sentinel: dump row
+    g_vals = mesh.all_gather(send_vals)
+    g_idx = mesh.all_gather(send_idx)
+    # padded slots carry zero chunks onto the sentinel row; the active
+    # chunks are unique across shards
+    view = fvals_local.new_zeros((n_gchunks + 1, chunk, b))
+    view[g_idx] = g_vals
+    sparse = view[:n_gchunks].view(n_gchunks * chunk, b)
+    return torch.where(fits, sparse, dense), src_bits, fits.to(torch.int32)
+
+
+def _expand_level_sharded(pg: PartitionedGraph, mesh: ShardMesh, dist,
+                          sigma, level, active):
+    """One sharded level: the exchange, then each shard's rows through
+    the dispatcher's ``shard=`` route from the gathered values (frontier
+    dist synthesized as ``fvals > 0``: a reached frontier vertex has
+    sigma > 0), then the replicated lane's update with a global rescale
+    guard.  Returns (dist, sigma, n_new (B,), took_sparse)."""
+    fvals, _src_bits, took = _gather_frontier_sharded(pg, mesh, dist, sigma,
+                                                      level, active)
+    fdist = torch.where(fvals > 0.0, level[None, :], -1).to(torch.int32)
+    contrib = torch.stack([
+        frontier_expand(view.src, view.dst, fdist, fvals, level, shard=view)
+        for view in (pg.shards.shard(i) for i in range(pg.n_shards))])
+    new = (contrib > 0) & (dist == -1) & active[None, None, :]
+    dist = torch.where(new, level[None, None, :] + 1, dist)
+    sigma = torch.where(new, contrib, sigma)
+    m = mesh.pmax(torch.where(new, sigma, 0.0).amax(dim=1))        # (B,)
+    scale = torch.where(m > _RESCALE_THRESHOLD, 1.0 / m, 1.0)
+    sigma = sigma * scale[None, None, :]
+    n_new = mesh.psum(new.sum(dim=1, dtype=torch.int32))
+    return dist, sigma, n_new, took
+
+
+def _check_mesh(pg: PartitionedGraph, mesh: ShardMesh) -> None:
+    if not isinstance(mesh, ShardMesh):
+        raise TypeError(f"mesh must be a ShardMesh, got {type(mesh)}")
+    mesh.check(pg)
+
+
+def bfs_sssp_batched_sharded(pg: PartitionedGraph, sources, *,
+                             mesh: ShardMesh, stop_nodes=None) -> BFSResult:
+    """The sharded :func:`bfs_sssp_batched`: dist/sigma come back as the
+    (S, shard_rows, B) stack (``mesh.all_gather`` gives the (v_pad, B)
+    view), ``levels`` once, ``exchange`` the level tally."""
+    _check_mesh(pg, mesh)
+    dev = mesh.device
+    sources = torch.as_tensor(sources, dtype=torch.int32,
+                              device=dev).reshape(-1)
+    b = sources.shape[0]
+    dist, sigma = _init_state_sharded(pg, mesh, sources)
+    stops = None if stop_nodes is None else torch.as_tensor(
+        stop_nodes, dtype=torch.int32, device=dev).reshape(-1)
+    stop_open = torch.ones(b, dtype=torch.bool, device=dev)
+    if stops is not None:
+        stop_open = _read_rows_sharded(pg, mesh, dist, stops) < 0
+    level = torch.zeros(b, dtype=torch.int32, device=dev)
+    n_new = torch.ones(b, dtype=torch.int32, device=dev)
+    xch = torch.zeros(2, dtype=torch.int32, device=dev)
+    n_iters = 0
+    while True:
+        go = (n_new > 0) & (level < pg.n_nodes) & stop_open
+        if not bool(go.any()):
+            break
+        dist, sigma, n_new2, took = _expand_level_sharded(pg, mesh, dist,
+                                                          sigma, level, go)
+        xch[0] += 1
+        xch[1] += took
+        level = torch.where(go, level + 1, level)
+        n_new = torch.where(go, n_new2, n_new)
+        if stops is not None:
+            stop_open = _read_rows_sharded(pg, mesh, dist, stops) < 0
+        n_iters += 1
+    settled = mesh.pmax(torch.where(dist >= 0, dist, 0).amax(dim=1))
+    return BFSResult(dist, sigma, settled, n_iters, xch)
+
+
+def bidirectional_bfs_batched_sharded(pg: PartitionedGraph, s, t, *,
+                                      mesh: ShardMesh,
+                                      max_levels: int | None = None
+                                      ) -> BidirResult:
+    """The sharded :func:`bidirectional_bfs_batched`: global frontier
+    sizes (psum) pick each sample's side, the meeting test is a psum,
+    ``d`` a pmin; both sides come back as (S, shard_rows, B) stacks."""
+    _check_mesh(pg, mesh)
+    dev = mesh.device
+    max_levels = pg.n_nodes if max_levels is None else max_levels
+    s = torch.as_tensor(s, dtype=torch.int32, device=dev).reshape(-1)
+    t = torch.as_tensor(t, dtype=torch.int32, device=dev).reshape(-1)
+    b = s.shape[0]
+    dist_s, sigma_s = _init_state_sharded(pg, mesh, s)
+    dist_t, sigma_t = _init_state_sharded(pg, mesh, t)
+    rad_s = torch.zeros(b, dtype=torch.int32, device=dev)
+    rad_t = torch.zeros(b, dtype=torch.int32, device=dev)
+    alive = torch.ones(b, dtype=torch.bool, device=dev)
+    xch = torch.zeros(2, dtype=torch.int32, device=dev)
+    n_iters = 0
+    while True:
+        met = mesh.psum(((dist_s >= 0) & (dist_t >= 0)).sum(
+            dim=1, dtype=torch.int32)) > 0
+        active = (~met) & alive & (rad_s + rad_t < max_levels)
+        if not bool(active.any()):
+            break
+        fs = mesh.psum((dist_s == rad_s).sum(dim=1, dtype=torch.int32))
+        ft = mesh.psum((dist_t == rad_t).sum(dim=1, dtype=torch.int32))
+        pick_s = fs <= ft
+        exp_dist = torch.where(pick_s, dist_s, dist_t)
+        exp_sigma = torch.where(pick_s, sigma_s, sigma_t)
+        exp_level = torch.where(pick_s, rad_s, rad_t)
+        nd, ns, n_new, took = _expand_level_sharded(
+            pg, mesh, exp_dist, exp_sigma, exp_level, active)
+        xch[0] += 1
+        xch[1] += took
+        upd_s = pick_s & active
+        upd_t = ~pick_s & active
+        dist_s = torch.where(upd_s, nd, dist_s)
+        sigma_s = torch.where(upd_s, ns, sigma_s)
+        rad_s = torch.where(upd_s, rad_s + 1, rad_s)
+        dist_t = torch.where(upd_t, nd, dist_t)
+        sigma_t = torch.where(upd_t, ns, sigma_t)
+        rad_t = torch.where(upd_t, rad_t + 1, rad_t)
+        alive = torch.where(active, n_new > 0, alive)
+        n_iters += 1
+
+    both = (dist_s >= 0) & (dist_t >= 0)
+    dsum = torch.where(both, dist_s + dist_t, _INT32_MAX)
+    d = mesh.pmin(dsum.amin(dim=1))
+    connected = d < _INT32_MAX
+    d = torch.where(connected, d, -1)
+    split = torch.minimum(torch.clamp(d - rad_t, min=0), rad_s)
+    split = torch.where(connected, split, 0)
+    return BidirResult(dist_s, dist_t, sigma_s, sigma_t, d, split, n_iters,
+                       xch)

@@ -1,5 +1,5 @@
-"""The adaptive sampling engine, single-device lane
-(``repro.core.engine``).
+"""The adaptive sampling engine: the single-device lane and the sharded
+cooperative lane (``repro.core.engine``).
 
 Phases, as in the JAX package:
 
@@ -24,15 +24,24 @@ epoch evaluates every estimator's stop rule, stopped or not, as the JAX
 engine does; on the card each evaluation is one launch of the stop-check
 kernel.
 
-Not in this slice (each raises ``NotImplementedError`` naming the
-ROADMAP §1 item that adds it): the weighted stream (item 13),
-checkpointing (10), meshes (11, 12), and the supervision hook and
-telemetry (14).
+The sharded lane takes a :class:`PartitionedGraph` with
+``mesh=ShardMesh(n_shards)``: every search is sharded over the mesh
+(which holds all shards on one device), the mesh draws one stream of
+samples cooperatively, and each epoch's stats carry the priced frontier
+exchange.  Its diameter phase resolves an ``"auto"`` exchange budget;
+calibration draws ``calib_samples_per_device * n_shards`` samples, as in
+the reference.
+
+Not ported yet (each raises ``NotImplementedError`` naming the ROADMAP
+§1 item that adds it): the weighted stream (item 13), checkpointing
+(10), a mesh over a replicated graph, the SPMD lane (11), and the
+supervision hook and telemetry (14), on either lane.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+from functools import partial
 from types import SimpleNamespace
 from typing import NamedTuple, Optional
 
@@ -40,12 +49,17 @@ import numpy as np
 import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
-from .diameter import estimate_diameter
+from .diameter import estimate_diameter, estimate_diameter_sharded
 from .epoch import epoch_length
 from .estimators import get_estimator
 from .estimators.base import DrawBatch, Estimator, MetricReport, RunContext
 from .graph import Graph
-from .sampler import sample_path_batched, sample_path_forward_batched
+from .partition import (PartitionedGraph, auto_exchange_budget,
+                        exchange_plan, max_active_source_chunks)
+from .sampler import (sample_path_batched, sample_path_batched_sharded,
+                      sample_path_forward_batched,
+                      sample_path_forward_batched_sharded)
+from .shards import ShardMesh, canonical_device
 
 __all__ = ["DEFAULT_SAMPLE_BATCH_SIZE", "AdaptiveConfig",
            "AdaptiveRunResult", "EngineEpochStats", "FoldResult",
@@ -93,6 +107,9 @@ class EngineEpochStats(NamedTuple):
     max_g: tuple
     seconds: float
     samples: int      # samples drawn this epoch
+    # sharded lane: ExchangePlan.epoch_accounting of the epoch's draws
+    # (levels dense and sparse, bytes); None on the single lane
+    exchange: Optional[dict] = None
 
 
 class AdaptiveRunResult(NamedTuple):
@@ -160,11 +177,14 @@ class FoldResult(NamedTuple):
     sur_counts: torch.Tensor  # (C, V+1) float32
     sur_tau: int
     n_levels: int             # BFS levels the rounds expanded
+    # (2,) int32 [levels exchanged, of which sparse] summed over the
+    # rounds, on the device (sharded draws); None otherwise
+    exchange: Optional[torch.Tensor] = None
 
 
-def draw_fold(graph: Graph, gen: torch.Generator, n_samples: int, *,
+def draw_fold(graph, gen: torch.Generator, n_samples: int, *,
               estimators, ctx: RunContext, stream: str = "bidir",
-              batch_size: int = 1, carry=None) -> FoldResult:
+              batch_size: int = 1, carry=None, mesh=None) -> FoldResult:
     """Take exactly ``n_samples`` new samples in rounds of ``batch_size``
     from ``stream`` (``"bidir"`` or ``"forward"``) and fold them through
     every estimator's ``accumulate``.
@@ -173,15 +193,26 @@ def draw_fold(graph: Graph, gen: torch.Generator, n_samples: int, *,
     samples of the last round (valid i.i.d. draws) are folded into a
     separate frame, which the engine carries into the next epoch.
     ``carry`` ((C, V+1) counts, tau) is added to the returned frame.
+    With ``mesh`` (a :class:`ShardMesh`) ``graph`` is a
+    :class:`PartitionedGraph`, every round's search is sharded, and the
+    result carries the rounds' exchange tally.
     """
-    draw = {"bidir": sample_path_batched,
-            "forward": sample_path_forward_batched}.get(stream)
+    if mesh is None:
+        draws = {"bidir": sample_path_batched,
+                 "forward": sample_path_forward_batched}
+    else:
+        draws = {"bidir": partial(sample_path_batched_sharded, mesh=mesh),
+                 "forward": partial(sample_path_forward_batched_sharded,
+                                    mesh=mesh)}
+    draw = draws.get(stream)
     if draw is None:
         raise ValueError(f"unknown stream {stream!r} (expected 'bidir' or "
                          "'forward')")
     batch_size = max(1, min(int(batch_size), int(n_samples)))
     rounds = -(-n_samples // batch_size)
     dev = graph.device
+    xch = None if mesh is None else torch.zeros(2, dtype=torch.int32,
+                                                device=dev)
     n_ch = sum(e.n_channels for e in estimators)
     counts = torch.zeros((n_ch, ctx.n_nodes + 1), dtype=torch.float32,
                          device=dev)
@@ -194,6 +225,8 @@ def draw_fold(graph: Graph, gen: torch.Generator, n_samples: int, *,
     for r in range(rounds):
         ps = draw(graph, gen, batch_size)
         n_levels += ps.n_levels
+        if xch is not None:
+            xch += ps.exchange
         batch = DrawBatch(ps.internal, ps.valid, ps.length,
                           getattr(ps, "dist", None),
                           getattr(ps, "sources", None))
@@ -206,7 +239,7 @@ def draw_fold(graph: Graph, gen: torch.Generator, n_samples: int, *,
             sur_counts = sur_counts + torch.cat(
                 [e.accumulate(batch, ~keep, ctx) for e in estimators])
     return FoldResult(counts, tau, sur_counts,
-                      rounds * batch_size - n_samples, n_levels)
+                      rounds * batch_size - n_samples, n_levels, xch)
 
 
 def _check_all(estimators, offsets, agg_counts, agg_tau, params, ctx):
@@ -229,21 +262,49 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _single_lane(graph: Graph, cfg: AdaptiveConfig, estimators, stream,
-                 gen, offsets):
-    """Phase 1 and the per-epoch pieces of the single-device lane."""
+def _sharded_diameter(pg: PartitionedGraph, mesh, gen, n_sweeps: int):
+    """The double sweep on the sharded BFS -> (DiameterEstimate, pg).
+    With ``exchange_budget="auto"`` the second sweeps' levels are the
+    occupancy sample: the returned pg carries the derived budget."""
+    if not pg.exchange_budget_auto:
+        return estimate_diameter_sharded(pg, mesh, gen, n_sweeps), pg
+    est, dist = estimate_diameter_sharded(pg, mesh, gen, n_sweeps,
+                                          return_dist=True)
+    dist = dist.cpu().numpy()
+    occupancies = []
+    for lvl in range(int(dist.max(initial=-1)) + 1):
+        rows = (dist == lvl).any(axis=1)
+        if rows.any():
+            occupancies.append(max_active_source_chunks(pg, rows))
+    return est, dataclasses.replace(
+        pg, exchange_budget=auto_exchange_budget(pg, occupancies),
+        exchange_budget_auto=False)
+
+
+def _lane(graph, mesh, cfg: AdaptiveConfig, estimators, stream, gen,
+          offsets):
+    """Phase 1 and the per-epoch pieces of a lane: the single-device lane
+    (``mesh`` None) or the sharded cooperative lane, where the mesh is
+    one sampler: an epoch draws ``n0`` samples for the whole mesh, and
+    calibration what ``n_shards`` devices would."""
     ns = SimpleNamespace()
     dev = graph.device
     t0 = time.perf_counter()
-    diam = estimate_diameter(graph, gen, n_sweeps=cfg.diameter_sweeps)
+    if mesh is None:
+        diam = estimate_diameter(graph, gen, n_sweeps=cfg.diameter_sweeps)
+        n_cal = cfg.calib_samples_per_device
+    else:
+        diam, graph = _sharded_diameter(graph, mesh, gen,
+                                        cfg.diameter_sweeps)
+        n_cal = cfg.calib_samples_per_device * graph.n_shards
     _sync(dev)
+    ns.graph = graph
     ns.vd, ns.diam_levels = int(diam.vertex_diameter), diam.n_levels
     ns.t_diam = time.perf_counter() - t0
 
     def calibrate(bsz, ctx):
-        return draw_fold(graph, gen, cfg.calib_samples_per_device,
-                         estimators=estimators, ctx=ctx, stream=stream,
-                         batch_size=bsz)
+        return draw_fold(graph, gen, n_cal, estimators=estimators, ctx=ctx,
+                         stream=stream, batch_size=bsz, mesh=mesh)
 
     def make_epoch(params, ctx, n0, bsz):
         def epoch_step(state):
@@ -252,11 +313,11 @@ def _single_lane(graph: Graph, cfg: AdaptiveConfig, estimators, stream,
             agg_t = agg_t + fr_t
             fold = draw_fold(graph, gen, n0, estimators=estimators,
                              ctx=ctx, stream=stream, batch_size=bsz,
-                             carry=(sur_c, sur_t))
+                             carry=(sur_c, sur_t), mesh=mesh)
             checks = _check_all(estimators, offsets, agg_c, agg_t, params,
                                 ctx)
             return ((agg_c, agg_t, fold.counts, fold.tau, fold.sur_counts,
-                     fold.sur_tau), checks, fold.n_levels)
+                     fold.sur_tau), checks, fold.n_levels, fold.exchange)
         return epoch_step
 
     def flush(state):
@@ -273,50 +334,86 @@ def _single_lane(graph: Graph, cfg: AdaptiveConfig, estimators, stream,
     return ns
 
 
+def _not_ported(**args) -> None:
+    """Raise ``NotImplementedError`` for the first argument given that a
+    later ROADMAP §1 item adds."""
+    items = {"checkpoint_dir": "item 10 (checkpointing)",
+             "on_epoch": "item 14 (runtime)",
+             "telemetry": "item 14 (runtime)"}
+    for name, value in args.items():
+        if value is not None:
+            raise NotImplementedError(f"{name}= is not ported yet: ROADMAP "
+                                      f"§1 {items[name]}")
+
+
+def _resolve_lane(graph, mesh, device):
+    """(graph on the run's device, mesh or None, device).  A
+    PartitionedGraph needs a ShardMesh with its shard count on its own
+    device; a mesh with a plain Graph is the SPMD lane, not ported."""
+    if isinstance(graph, PartitionedGraph):
+        if mesh is None:
+            raise ValueError(
+                "a PartitionedGraph needs the mesh its shards map onto "
+                "(mesh=ShardMesh(...)); use a plain Graph for the "
+                "single-device lane")
+        if not isinstance(mesh, ShardMesh):
+            raise TypeError(f"mesh must be a ShardMesh, got {type(mesh)}")
+        if device is not None and canonical_device(device) != mesh.device:
+            raise ValueError(f"device={device!r} differs from the mesh's "
+                             f"{mesh.device}")
+        mesh.check(graph)
+        return graph, mesh, mesh.device
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= with a replicated Graph is the SPMD lane, not ported "
+            "yet: ROADMAP §1 item 11")
+    dev = resolve_device(DEFAULT_DEVICE if device is None else device)
+    return graph.to(dev), None, dev
+
+
 # ---------------------------------------------------------------------------
 # The driver
 # ---------------------------------------------------------------------------
 
-def run_adaptive(graph: Graph, metrics=("betweenness",), *,
+def run_adaptive(graph, metrics=("betweenness",), *,
                  eps: Optional[float] = None, delta: Optional[float] = None,
                  seed: int = 0, config: Optional[AdaptiveConfig] = None,
-                 stream: Optional[str] = None, device=DEFAULT_DEVICE,
+                 stream: Optional[str] = None, device=None,
                  mesh=None, checkpoint_dir: Optional[str] = None,
                  on_epoch=None, telemetry=None) -> AdaptiveRunResult:
-    """Adaptive sampling for the estimators named by ``metrics`` on one
-    device.
+    """Adaptive sampling for the estimators named by ``metrics``.
 
-    ``graph`` is moved to ``device`` (default ``"cuda"``; raises without
-    a card unless ``device="cpu"``).  Explicit ``eps``/``delta`` override
+    ``graph`` is a :class:`Graph`, moved to ``device`` (``None`` means
+    ``"cuda"``, which raises without a card; pass ``device="cpu"`` for
+    the CPU), or a :class:`PartitionedGraph` with
+    ``mesh=ShardMesh(n_shards, device)``: the sharded lane, on the
+    mesh's device, where the graph must already lie (``device``, if
+    given, must name it).  Explicit ``eps``/``delta`` override
     ``config``'s.  ``seed`` seeds the run's one ``torch.Generator``.
     ``stream`` is resolved by :func:`resolve_stream`.
     """
-    for value, item in ((mesh, "items 11-12 (SPMD and sharded lanes)"),
-                        (checkpoint_dir, "item 10 (checkpointing)"),
-                        (on_epoch, "item 14 (runtime)"),
-                        (telemetry, "item 14 (runtime)")):
-        if value is not None:
-            raise NotImplementedError(
-                f"this argument is not ported yet: ROADMAP §1 {item}")
+    _not_ported(checkpoint_dir=checkpoint_dir, on_epoch=on_epoch,
+                telemetry=telemetry)
     cfg = config if config is not None else AdaptiveConfig()
     overrides = {k: v for k, v in (("eps", eps), ("delta", delta))
                  if v is not None}
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
-    dev = resolve_device(device)
-    graph = graph.to(dev)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(int(seed))
     estimators = resolve_estimators(metrics)
     stream = resolve_stream(estimators, stream)
+    graph, mesh, dev = _resolve_lane(graph, mesh, device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
     offsets = _channel_offsets(estimators)
     n_est = len(estimators)
 
     # ---- phase 1: diameter ---------------------------------------------
-    lane = _single_lane(graph, cfg, estimators, stream, gen, offsets)
+    lane = _lane(graph, mesh, cfg, estimators, stream, gen, offsets)
+    graph = lane.graph
     ctx = RunContext(graph.n_nodes, lane.vd)
     bsz = resolve_sample_batch_size(cfg.sample_batch_size, ctx.n_nodes,
                                     ctx.vertex_diameter)
+    xplan = None if mesh is None else exchange_plan(graph, bsz)
     bfs_levels = lane.diam_levels
 
     # ---- phase 2: calibration ------------------------------------------
@@ -343,7 +440,7 @@ def run_adaptive(graph: Graph, metrics=("betweenness",), *,
     t0 = time.perf_counter()
     while not stopped.all() and epoch < cfg.max_epochs:
         te = time.perf_counter()
-        state, (done, mf, mg), n_levels = epoch_step(state)
+        state, (done, mf, mg), n_levels, xch = epoch_step(state)
         bfs_levels += n_levels
         epoch += 1
         newly = done & ~stopped
@@ -358,10 +455,14 @@ def run_adaptive(graph: Graph, metrics=("betweenness",), *,
                                            .n_channels], last_flush[1])
                 stop_epoch[i] = epoch
             stopped |= newly
+        xacct = None
+        if xch is not None:
+            xch = xch.tolist()
+            xacct = xplan.epoch_accounting(xch[0], xch[1])
         stats.append(EngineEpochStats(
             epoch, int(state[1]), tuple(float(x) for x in mf),
             tuple(float(x) for x in mg), time.perf_counter() - te,
-            int(state[3])))
+            int(state[3]), xacct))
     converged = stopped.copy()
     if not stopped.all():
         # max_epochs reached: freeze what never converged
@@ -388,9 +489,9 @@ def run_adaptive(graph: Graph, metrics=("betweenness",), *,
          "sampling": t_samp}, bfs_levels)
 
 
-def run_fixed(graph: Graph, n_samples: int, *, metrics=("betweenness",),
+def run_fixed(graph, n_samples: int, *, metrics=("betweenness",),
               seed: int = 0, batch_size: Optional[int] = None,
-              stream: Optional[str] = None, device=DEFAULT_DEVICE,
+              stream: Optional[str] = None, device=None,
               mesh=None) -> tuple:
     """Non-adaptive baseline: exactly ``n_samples`` samples of one shared
     draw stream, folded through every requested metric, with no stop
@@ -399,27 +500,28 @@ def run_fixed(graph: Graph, n_samples: int, *, metrics=("betweenness",),
     run), ``omega`` NaN and ``stop_epoch`` 0.
 
     ``batch_size=None`` takes ``DEFAULT_SAMPLE_BATCH_SIZE``.  The
-    diameter is swept only when a metric normalizes by it (closeness).
-    Single lane only: ``mesh=`` raises ``NotImplementedError``.
+    diameter is swept only when a metric normalizes by it (closeness),
+    and always on a :class:`PartitionedGraph` (with ``mesh=``, as in
+    :func:`run_adaptive`), where it also resolves an ``"auto"`` budget.
     """
-    if mesh is not None:
-        raise NotImplementedError("this argument is not ported yet: "
-                                  "ROADMAP §1 items 11-12 (SPMD and sharded "
-                                  "lanes)")
     estimators = resolve_estimators(metrics)
     stream = resolve_stream(estimators, stream)
-    dev = resolve_device(device)
-    graph = graph.to(dev)
+    graph, mesh, dev = _resolve_lane(graph, mesh, device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
+    needs_vd = stream == "forward" and any(e.needs_diameter
+                                           for e in estimators)
     vd = 0
-    if stream == "forward" and any(e.needs_diameter for e in estimators):
+    if mesh is not None:
+        diam, graph = _sharded_diameter(graph, mesh, gen, 2)
+        vd = int(diam.vertex_diameter) if needs_vd else 0
+    elif needs_vd:
         vd = int(estimate_diameter(graph, gen, n_sweeps=2).vertex_diameter)
     ctx = RunContext(graph.n_nodes, vd)
     fold = draw_fold(graph, gen, n_samples, estimators=estimators, ctx=ctx,
                      stream=stream,
                      batch_size=(DEFAULT_SAMPLE_BATCH_SIZE if batch_size is None
-                                 else batch_size))
+                                 else batch_size), mesh=mesh)
     reports = []
     for est, off in zip(estimators, _channel_offsets(estimators)):
         sl = fold.counts[off: off + est.n_channels]

@@ -1,0 +1,414 @@
+"""Vertex-partitioned graph shards (``repro.core.partition``).
+
+The sharded cooperative lane cuts the vertices into ``n_shards``
+contiguous ranges of ``shard_rows = blocks_per_shard * block_v`` rows
+(whole node blocks of the node-blocked CSC layout).  Every directed edge
+lives in the shard that owns its destination, so a shard expands a BFS
+level into its own rows from its own edges and the gathered frontier.
+
+Sharding contract, as in the JAX package:
+
+* the global padded row space is ``v_pad = n_shards * shard_rows``;
+  global row == vertex id, rows at or past ``n_nodes`` (the sink and the
+  tile padding) are inert;
+* :class:`ShardedCSCLayout` holds each shard's buckets (built by
+  :func:`repro_torch.core.graph.bucket_layout` over the shard's local
+  node blocks) stacked on a leading shard axis, padded with inert edge
+  blocks to one ``n_edge_blocks``;
+* ``src`` ids are GLOBAL (they index the gathered frontier), ``dst`` ids
+  are LOCAL shard rows; padding slots are ``src = n_nodes`` (the sink,
+  never on a frontier) and ``dst = shard_rows`` (one row past the local
+  tile).
+
+:class:`PartitionedGraph` carries the shards and the replicated CSR
+arrays (``indptr``/``indices``/``degree``) that the backward path walk
+reads on the gathered state.  On the card all shards lie on one device:
+the mesh is an axis of the state (``repro_torch.core.shards``).
+
+The frontier exchange of the sharded BFS comes in two protocols, dense
+(the whole masked slice) and bitmap-scheduled sparse (only the source
+chunks that hold frontier rows, at most ``exchange_budget`` a shard);
+:class:`ExchangePlan` prices them.  The schedule's chunk is
+``gcd(block_v, 128)`` rows.
+
+Departure from the JAX package, as in ``core/graph.py``: blocking left
+to the default comes from the card's :func:`choose_csc_blocks`, not the
+TPU's VMEM heuristic.  At an explicit blocking every array equals the
+JAX package's.  The weighted lane (ROADMAP §1 item 13) is not ported: a
+weighted graph raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from ..device import DEFAULT_DEVICE, resolve_device
+from .graph import CSCLayout, Graph, bucket_layout, build_graph, \
+    choose_csc_blocks
+
+__all__ = [
+    "ExchangePlan", "PartitionedGraph", "ShardedCSCLayout",
+    "auto_exchange_budget", "default_exchange_budget", "exchange_plan",
+    "gather_graph", "global_row", "max_active_source_chunks",
+    "partition_graph", "partitioned_from_numpy", "repartition",
+    "shard_vertex_range", "vertex_owner",
+]
+
+_WEIGHTED = ("weighted graphs are not ported yet: ROADMAP §1 item 13 "
+             "(weighted lane)")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedCSCLayout:
+    """Per-shard destination-bucketed edge arrays, leading shard axis."""
+
+    src: torch.Tensor          # (S, n_edge_blocks * block_e) int32 GLOBAL
+    dst: torch.Tensor          # (S, n_edge_blocks * block_e) int32 LOCAL
+    block_nb: torch.Tensor     # (S, n_edge_blocks) int32 local node block
+    block_sb: torch.Tensor     # (S, n_edge_blocks) int32 GLOBAL source block
+    block_first: torch.Tensor  # (S, n_edge_blocks) int32
+    block_v: int
+    block_e: int
+    blocks_per_shard: int
+    n_edge_blocks: int
+    n_shards: int
+    n_nodes: int
+
+    @property
+    def shard_rows(self) -> int:
+        return self.blocks_per_shard * self.block_v
+
+    @property
+    def v_pad(self) -> int:
+        return self.n_shards * self.shard_rows
+
+    @property
+    def e_slots_per_shard(self) -> int:
+        return self.n_edge_blocks * self.block_e
+
+    def shard(self, s: int) -> CSCLayout:
+        """Shard ``s`` as a :class:`CSCLayout` of views (no copy): its
+        vertex space is the LOCAL row range (``v_pad == shard_rows``),
+        ``src`` stays global, ``n_nodes`` global (the sink the padding
+        slots point at) and ``n_src_blocks`` tiles the global rows.  The
+        operand of the dispatcher's ``shard=`` route; the counterpart of
+        the JAX layout's ``local()`` on the device at position ``s``."""
+        return CSCLayout(
+            src=self.src[s], dst=self.dst[s], block_nb=self.block_nb[s],
+            block_sb=self.block_sb[s], block_first=self.block_first[s],
+            block_v=self.block_v, block_e=self.block_e,
+            n_node_blocks=self.blocks_per_shard,
+            n_edge_blocks=self.n_edge_blocks, n_nodes=self.n_nodes,
+            n_src_blocks=self.n_shards * self.blocks_per_shard)
+
+    def to(self, device) -> "ShardedCSCLayout":
+        dev = resolve_device(device)
+        return dataclasses.replace(
+            self, src=self.src.to(dev), dst=self.dst.to(dev),
+            block_nb=self.block_nb.to(dev), block_sb=self.block_sb.to(dev),
+            block_first=self.block_first.to(dev))
+
+
+@dataclasses.dataclass(frozen=True)
+class PartitionedGraph:
+    """A graph whose frontier lane is sharded.  Duck-types the ``Graph``
+    attributes the path walk reads (``n_nodes``, ``indptr``, ``indices``,
+    ``degree``)."""
+
+    indptr: torch.Tensor   # (V+1,) int32, replicated CSR
+    indices: torch.Tensor  # (E_pad,) int32
+    degree: torch.Tensor   # (V,) int32
+    shards: ShardedCSCLayout
+    n_nodes: int
+    n_edges: int
+    max_degree: int
+    # sparse-exchange chunk slots a shard (0: dense protocol only)
+    exchange_budget: int = 0
+    # built with exchange_budget="auto": the sharded lane derives the
+    # budget from the diameter sweeps' chunk occupancy before calibration
+    exchange_budget_auto: bool = False
+
+    @property
+    def device(self) -> torch.device:
+        return self.indptr.device
+
+    @property
+    def n_shards(self) -> int:
+        return self.shards.n_shards
+
+    @property
+    def shard_rows(self) -> int:
+        return self.shards.shard_rows
+
+    @property
+    def v_pad(self) -> int:
+        return self.shards.v_pad
+
+    @property
+    def n_edges_undirected(self) -> int:
+        return self.n_edges // 2
+
+    @property
+    def exchange_chunk_rows(self) -> int:
+        """Rows of one exchange-schedule chunk: ``gcd(block_v, 128)``,
+        which divides the node block."""
+        return math.gcd(self.shards.block_v, 128)
+
+    @property
+    def exchange_chunks_per_shard(self) -> int:
+        return self.shard_rows // self.exchange_chunk_rows
+
+    def to(self, device) -> "PartitionedGraph":
+        dev = resolve_device(device)
+        return dataclasses.replace(
+            self, indptr=self.indptr.to(dev), indices=self.indices.to(dev),
+            degree=self.degree.to(dev), shards=self.shards.to(dev))
+
+
+def vertex_owner(pg, v):
+    """Shard owning vertex / global row ``v`` (an int, numpy or torch)."""
+    return v // pg.shard_rows
+
+
+def global_row(pg, shard, local_row):
+    """(shard, local row) -> global row."""
+    return shard * pg.shard_rows + local_row
+
+
+def shard_vertex_range(pg, s: int):
+    """Global rows [start, stop) owned by shard ``s``."""
+    return s * pg.shard_rows, (s + 1) * pg.shard_rows
+
+
+def _resolve_exchange_budget(shard_rows: int, block_v: int,
+                             exchange_budget) -> int:
+    """``None`` -> the default policy; any value clamped into [0,
+    chunks_per_shard - 1].  The batch-width break-even lives in
+    :attr:`ExchangePlan.sparse_available` and the sharded BFS."""
+    cps = shard_rows // math.gcd(int(block_v), 128)
+    if exchange_budget is None:
+        exchange_budget = default_exchange_budget(cps)
+    return max(0, min(int(exchange_budget), cps - 1))
+
+
+def default_exchange_budget(chunks_per_shard: int) -> int:
+    """ceil(chunks_per_shard / 4), clamped to [0, chunks_per_shard - 1]
+    (a one-chunk shard is dense only)."""
+    return max(0, min(chunks_per_shard - 1, -(-chunks_per_shard // 4)))
+
+
+def auto_exchange_budget(pg: PartitionedGraph, level_occupancies,
+                         quantile: float = 0.9) -> int:
+    """The ``"auto"`` rule: the ``quantile``-th of the observed
+    worst-shard chunk occupancies (one a level), clamped as an explicit
+    budget; no observation gives the default policy."""
+    occ = sorted(int(o) for o in level_occupancies)
+    if not occ:
+        return _resolve_exchange_budget(pg.shard_rows, pg.shards.block_v,
+                                        None)
+    q = min(max(float(quantile), 0.0), 1.0)
+    pick = occ[min(len(occ) - 1, int(q * (len(occ) - 1) + 0.5))]
+    return _resolve_exchange_budget(pg.shard_rows, pg.shards.block_v, pick)
+
+
+@dataclasses.dataclass(frozen=True)
+class ExchangePlan:
+    """What one cooperative BFS level exchanges, in bytes summed over the
+    shards (each shard's send counted once); both protocols include the
+    occupancy bits, which always travel."""
+
+    n_shards: int
+    chunks_per_shard: int
+    chunk_rows: int
+    budget: int       # sparse chunk slots a shard; 0 = dense only
+    batch: int        # B
+
+    @property
+    def bitmap_bytes(self) -> int:
+        return 4 * self.n_shards * self.chunks_per_shard
+
+    @property
+    def dense_bytes(self) -> int:
+        return (4 * self.n_shards * self.chunks_per_shard * self.chunk_rows
+                * self.batch) + self.bitmap_bytes
+
+    @property
+    def sparse_bytes(self) -> int:
+        return (self.n_shards * self.budget
+                * (4 * self.chunk_rows * self.batch + 4)) + self.bitmap_bytes
+
+    @property
+    def sparse_available(self) -> bool:
+        """A nonzero budget whose sparse send undercuts the dense one at
+        this batch width."""
+        return (self.budget > 0
+                and self.budget * (self.chunk_rows * self.batch + 1)
+                < self.chunks_per_shard * self.chunk_rows * self.batch)
+
+    def sparse_taken(self, max_active_chunks: int) -> bool:
+        return self.sparse_available and max_active_chunks <= self.budget
+
+    def level_bytes(self, max_active_chunks: int) -> int:
+        if self.sparse_taken(max_active_chunks):
+            return self.sparse_bytes
+        return self.dense_bytes
+
+    def epoch_accounting(self, levels_total: int, levels_sparse: int) -> dict:
+        """Price an exchange tally ``[levels, of which sparse]``: a dense
+        level is a fallback when the sparse protocol was reachable at
+        this width, else dense-only."""
+        levels_total = int(levels_total)
+        levels_sparse = int(levels_sparse)
+        dense = levels_total - levels_sparse
+        fallback = dense if self.sparse_available else 0
+        return {
+            "levels_total": levels_total,
+            "levels_sparse": levels_sparse,
+            "levels_dense_fallback": fallback,
+            "levels_dense_only": dense - fallback,
+            "bytes": (levels_sparse * self.sparse_bytes
+                      + dense * self.dense_bytes),
+        }
+
+
+def exchange_plan(pg: PartitionedGraph, batch: int) -> ExchangePlan:
+    return ExchangePlan(
+        n_shards=pg.n_shards, chunks_per_shard=pg.exchange_chunks_per_shard,
+        chunk_rows=pg.exchange_chunk_rows, budget=pg.exchange_budget,
+        batch=int(batch))
+
+
+def max_active_source_chunks(pg: PartitionedGraph, frontier_rows) -> int:
+    """Worst-shard count of active source chunks of one level, from a
+    host-side bool array over global rows (numpy)."""
+    bits = np.zeros(pg.v_pad, bool)
+    bits[: len(frontier_rows)] = np.asarray(frontier_rows, bool)
+    per_chunk = bits.reshape(-1, pg.exchange_chunk_rows).any(axis=1)
+    per_shard = per_chunk.reshape(pg.n_shards, pg.exchange_chunks_per_shard)
+    return int(per_shard.sum(axis=1).max())
+
+
+def partition_graph(graph: Graph, n_shards: int, *,
+                    block_v: int | None = None, block_e: int | None = None,
+                    exchange_budget: "int | str | None" = None
+                    ) -> PartitionedGraph:
+    """Split ``graph`` into ``n_shards`` destination-owned vertex shards,
+    on the graph's device.
+
+    One stable sort groups the edges by owner; each shard is bucketed by
+    :func:`bucket_layout` over its local node blocks, with global source
+    blocks, and padded to the largest shard's edge blocks.  Blocking left
+    as ``None`` comes from :func:`choose_csc_blocks` (the JAX package's
+    ``batch`` argument is dropped: the card's blocking does not depend on
+    B).  ``exchange_budget``: ``None`` the default policy, ``0`` dense only,
+    an int clamped to ``chunks_per_shard - 1``, ``"auto"`` the default
+    now and flagged for the sharded lane to derive after the diameter
+    sweeps.
+    """
+    if n_shards < 1:
+        raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+    if getattr(graph, "weight", None) is not None:
+        raise NotImplementedError(_WEIGHTED)
+    budget_auto = isinstance(exchange_budget, str) and exchange_budget == "auto"
+    if budget_auto:
+        exchange_budget = None
+    auto_v, auto_e = choose_csc_blocks(graph.n_nodes)
+    block_v = auto_v if block_v is None else int(block_v)
+    block_e = auto_e if block_e is None else int(block_e)
+    dev = graph.device
+    n = graph.n_nodes
+    n_nb = -(-(n + 1) // block_v)
+    bps = -(-n_nb // n_shards)
+    shard_rows = bps * block_v
+    src = graph.src[: graph.n_edges].long()
+    dst = graph.dst[: graph.n_edges].long()
+    owner = dst // shard_rows
+    order = torch.sort(owner, stable=True).indices
+    src_o, dst_o = src[order], dst[order]
+    bounds = torch.searchsorted(
+        owner[order], torch.arange(n_shards + 1, device=dev)).tolist()
+    sink_sb = n // block_v
+    per_shard = []
+    for s in range(n_shards):
+        lo, hi = bounds[s], bounds[s + 1]
+        s_dst = dst_o[lo:hi] - s * shard_rows
+        per_shard.append(bucket_layout(
+            src_o[lo:hi], s_dst, s_dst // block_v, bps, block_e,
+            sink_src=n, sink_dst=shard_rows, src_block=src_o[lo:hi] // block_v,
+            sink_src_block=sink_sb))
+    eb_max = max(p[2].shape[0] for p in per_shard)
+    i32 = dict(dtype=torch.int32, device=dev)
+    out = {"src": torch.full((n_shards, eb_max * block_e), n, **i32),
+           "dst": torch.full((n_shards, eb_max * block_e), shard_rows, **i32),
+           # inert padding blocks add zeros into the last local tile
+           "block_nb": torch.full((n_shards, eb_max), bps - 1, **i32),
+           "block_sb": torch.full((n_shards, eb_max), sink_sb, **i32),
+           "block_first": torch.zeros((n_shards, eb_max), **i32)}
+    for s, arrays in enumerate(per_shard):
+        for name, a in zip(("src", "dst", "block_nb", "block_sb",
+                            "block_first"), arrays):
+            out[name][s, : a.shape[0]] = a
+    shards = ShardedCSCLayout(
+        **out, block_v=block_v, block_e=block_e, blocks_per_shard=int(bps),
+        n_edge_blocks=int(eb_max), n_shards=int(n_shards), n_nodes=int(n))
+    return PartitionedGraph(
+        indptr=graph.indptr, indices=graph.indices, degree=graph.degree,
+        shards=shards, n_nodes=int(n), n_edges=int(graph.n_edges),
+        max_degree=int(graph.max_degree),
+        exchange_budget=_resolve_exchange_budget(shard_rows, block_v,
+                                                 exchange_budget),
+        exchange_budget_auto=budget_auto)
+
+
+def gather_graph(pg: PartitionedGraph) -> Graph:
+    """The replicated :class:`Graph` a partition was built from, rebuilt
+    from its CSR arrays (bit-identical to the original)."""
+    counts = torch.diff(pg.indptr.long())[: pg.n_nodes]
+    src = torch.repeat_interleave(
+        torch.arange(pg.n_nodes, device=pg.device), counts)
+    dst = pg.indices[: pg.n_edges].long()
+    return build_graph(src, dst, pg.n_nodes, device=pg.device)
+
+
+def repartition(pg: PartitionedGraph, n_shards: int) -> PartitionedGraph:
+    """Re-split onto ``n_shards`` shards at the default blocking; an
+    ``"auto"`` budget stays auto."""
+    return partition_graph(
+        gather_graph(pg), n_shards,
+        exchange_budget="auto" if pg.exchange_budget_auto else None)
+
+
+_SHARD_ARRAYS = ("src", "dst", "block_nb", "block_sb", "block_first")
+_SHARD_INTS = ("block_v", "block_e", "blocks_per_shard", "n_edge_blocks",
+               "n_shards", "n_nodes")
+
+
+def _tensor(a, dev) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.int32)).to(dev)
+
+
+def partitioned_from_numpy(arrays: dict, shards: dict, n_nodes: int,
+                           n_edges: int, max_degree: int, *,
+                           exchange_budget: int = 0,
+                           exchange_budget_auto: bool = False,
+                           weight=None,
+                           device=DEFAULT_DEVICE) -> PartitionedGraph:
+    """A :class:`PartitionedGraph` from numpy arrays, e.g. the leaves of a
+    JAX partition: ``arrays`` holds ``indptr``, ``indices`` and
+    ``degree``; ``shards`` the layout's five (S, ...) arrays and its
+    static ints.  ``weight`` other than None raises (item 13)."""
+    if weight is not None:
+        raise NotImplementedError(_WEIGHTED)
+    dev = resolve_device(device)
+    layout = ShardedCSCLayout(
+        **{k: _tensor(shards[k], dev) for k in _SHARD_ARRAYS},
+        **{k: int(shards[k]) for k in _SHARD_INTS})
+    return PartitionedGraph(
+        **{k: _tensor(arrays[k], dev) for k in ("indptr", "indices",
+                                                 "degree")},
+        shards=layout, n_nodes=int(n_nodes), n_edges=int(n_edges),
+        max_degree=int(max_degree), exchange_budget=int(exchange_budget),
+        exchange_budget_auto=bool(exchange_budget_auto))

@@ -30,19 +30,28 @@ uniform per walker: an exact weighted draw for any degree, hubs included.
 Randomness comes from one ``torch.Generator`` on the graph's device; the
 streams do not equal ``jax.random``'s, so the two packages agree in
 distribution, not draw for draw.
+
+The ``*_sharded`` samplers run the search on a :class:`PartitionedGraph`
+over a :class:`ShardMesh` (the sharded BFS), then gather the state once
+and draw and walk over the replicated CSR exactly as the replicated
+samplers do: on the same generator state, and BFS state of the same
+bits, the two lanes draw the same samples.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
-from .bfs import BidirResult, bfs_sssp_batched, bidirectional_bfs_batched
+from .bfs import (BidirResult, bfs_sssp_batched, bfs_sssp_batched_sharded,
+                  bidirectional_bfs_batched,
+                  bidirectional_bfs_batched_sharded)
 from .graph import Graph
 
 __all__ = ["ForwardSample", "PathSample", "sample_batch", "sample_pairs",
            "sample_path", "sample_path_batched",
-           "sample_path_forward_batched"]
+           "sample_path_batched_sharded", "sample_path_forward_batched",
+           "sample_path_forward_batched_sharded"]
 
 _NEG_INF = -1e30
 
@@ -55,6 +64,8 @@ class PathSample(NamedTuple):
     valid: torch.Tensor     # (B,) bool, False when s, t are disconnected
     length: torch.Tensor    # (B,) int32 path length, -1 if invalid
     n_levels: int           # BFS levels the round's search expanded
+    # (2,) int32 exchange tally of the sharded search; None otherwise
+    exchange: Optional[torch.Tensor] = None
 
 
 class ForwardSample(NamedTuple):
@@ -68,6 +79,7 @@ class ForwardSample(NamedTuple):
     dist: torch.Tensor      # (rows, B) int32 distance from s, -1 unreached
     sources: torch.Tensor   # (B,) int32
     n_levels: int
+    exchange: Optional[torch.Tensor] = None   # as PathSample.exchange
 
 
 def sample_pairs(gen: torch.Generator, n_nodes: int, batch: int):
@@ -172,6 +184,18 @@ def sample_path_batched(graph: Graph, gen: torch.Generator,
     return _finish_paths(graph, gen, res)
 
 
+def sample_path_batched_sharded(pg, gen: torch.Generator, batch: int, *,
+                                mesh) -> PathSample:
+    """:func:`sample_path_batched` on a :class:`PartitionedGraph`: the
+    bidirectional search sharded over ``mesh``, its state gathered once,
+    then the replicated lane's draws and walks."""
+    s, t = sample_pairs(gen, pg.n_nodes, batch)
+    res = bidirectional_bfs_batched_sharded(pg, s, t, mesh=mesh)
+    full = res._replace(**{k: mesh.all_gather(getattr(res, k)) for k in
+                           ("dist_s", "dist_t", "sigma_s", "sigma_t")})
+    return _finish_paths(pg, gen, full)._replace(exchange=res.exchange)
+
+
 def _finish_forward_paths(graph: Graph, gen, s, t, res) -> ForwardSample:
     """The backward walk from t over a finished forward search.
 
@@ -202,6 +226,20 @@ def sample_path_forward_batched(graph: Graph, gen: torch.Generator,
     return _finish_forward_paths(graph, gen, s, t, res)
 
 
+def sample_path_forward_batched_sharded(pg, gen: torch.Generator,
+                                        batch: int, *, mesh
+                                        ) -> ForwardSample:
+    """:func:`sample_path_forward_batched` on a :class:`PartitionedGraph`:
+    the forward search sharded over ``mesh``, its state gathered once;
+    ``dist`` is the gathered (v_pad, B) one."""
+    s, t = sample_pairs(gen, pg.n_nodes, batch)
+    res = bfs_sssp_batched_sharded(pg, s, mesh=mesh)
+    full = res._replace(dist=mesh.all_gather(res.dist),
+                        sigma=mesh.all_gather(res.sigma))
+    return _finish_forward_paths(pg, gen, s, t, full)._replace(
+        exchange=res.exchange)
+
+
 def sample_path(graph: Graph, gen: torch.Generator) -> PathSample:
     """One KADABRA sample: the B=1 case of :func:`sample_path_batched`,
     with the batch row squeezed (``internal`` is (L,), -1 padded)."""
@@ -210,15 +248,18 @@ def sample_path(graph: Graph, gen: torch.Generator) -> PathSample:
                       ps.n_levels)
 
 
-def sample_batch(graph: Graph, gen: torch.Generator, n_samples: int, *,
-                 batch_size: int = 1, carry=None, return_carry: bool = False):
+def sample_batch(graph, gen: torch.Generator, n_samples: int, *,
+                 batch_size: int = 1, carry=None, return_carry: bool = False,
+                 mesh=None):
     """Exactly ``n_samples`` new bidirectional samples in rounds of
     ``batch_size``, folded into path counts.
 
     Returns ``(counts (V+1,) float32, tau)``; with ``return_carry=True``
     also the surplus frame ``(counts, tau)`` of the last round's samples
     past ``n_samples``, which a later call folds in through ``carry``.
-    The betweenness fold of the engine's :func:`draw_fold`.
+    The betweenness fold of the engine's :func:`draw_fold`.  With
+    ``mesh`` (a :class:`ShardMesh`), ``graph`` is a
+    :class:`PartitionedGraph` and every round's search is sharded.
     """
     # the engine imports this module: import it at call time
     from .engine import draw_fold
@@ -227,7 +268,8 @@ def sample_batch(graph: Graph, gen: torch.Generator, n_samples: int, *,
                      estimators=(get_estimator("betweenness"),),
                      ctx=RunContext(graph.n_nodes, 0), batch_size=batch_size,
                      carry=None if carry is None else (carry[0][None],
-                                                       carry[1]))
+                                                       carry[1]),
+                     mesh=mesh)
     out = (fold.counts[0], fold.tau)
     if return_carry:
         return out, (fold.sur_counts[0], fold.sur_tau)

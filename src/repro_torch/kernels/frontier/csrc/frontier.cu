@@ -42,8 +42,8 @@
 //
 // frontier_nb_kernel replaces the TPU kernel
 //   src/repro/kernels/frontier/kernel.py: frontier_expand_node_blocked_pallas
-// (body _nb_kernel) on its replicated route (not wide_state).  A level is
-// two launches:
+// (body _nb_kernel), on both its routes: the replicated one and
+// wide_state, the sharded lane's.  A level is two launches:
 //
 // 1. the words pass, which also writes the zeros of `out`;
 // 2. frontier_nb_kernel: one thread block per edge block of the
@@ -66,6 +66,19 @@
 //    hub row, and one atomic an edge put them all on that row's L2
 //    lines.  On a graph without hubs the sort costs more than it saves
 //    (tools/frontier_nb_probe.py times the variants).
+//
+// wide_state (frontier_nb_wide_launch) takes one vertex shard's layout:
+// global source ids, destination ids local to the shard, block_nb counted
+// in the shard's local node blocks.  Two row counts then differ: the
+// state (dist, sigma and the words) covers the gathered global rows,
+// `state_rows`, and the output only the shard's tile, `out_rows`.  The
+// words pass runs over the global rows and zeroes `out_rows` rows of
+// `out`, no more.  The sort's key is the destination's offset in its
+// local node block, as on the replicated route.  Padding slots carry
+// dst == out_rows (one row past the tile) and the global sink as source,
+// which is on no frontier; even so an edge counts as a hit only when its
+// destination lies inside its node block and below out_rows, so a wrong
+// layout cannot write outside `out`.
 //
 // The TPU's DMA double-buffering, staged source tiles and one-hot matmuls
 // are fast-memory devices the card does not need: the output is zeroed by
@@ -97,13 +110,15 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxGrid = 132 * 64;  // SMs x resident blocks, grid-stride
 
-// `out` may be null: then the pass writes only the words.
+// `out` may be null: then the pass writes only the words.  Else it writes
+// the zeros of out's first `out_cells` cells (at most rows * batch).
 __global__ void frontier_words_kernel(const int* __restrict__ dist,
                                       const int* __restrict__ levels,
                                       unsigned* __restrict__ words,
                                       float* __restrict__ out,
                                       long long rows, int batch,
-                                      int n_words, int by_warp) {
+                                      int n_words, int by_warp,
+                                      long long out_cells) {
   const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long stride = (long long)gridDim.x * blockDim.x;
   if (by_warp) {
@@ -123,7 +138,7 @@ __global__ void frontier_words_kernel(const int* __restrict__ dist,
       bool hit = false;
       if (i < n) {
         hit = dist[i] == __ldg(levels + b);
-        if (out != nullptr) out[i] = 0.0f;
+        if (out != nullptr && i < out_cells) out[i] = 0.0f;
       }
       const unsigned ballot = __ballot_sync(0xffffffffu, hit);
       if (batch >= 32) {
@@ -143,7 +158,8 @@ __global__ void frontier_words_kernel(const int* __restrict__ dist,
     unsigned bits = 0u;
     for (int c = 0; c < nb; ++c) {
       bits |= (unsigned)(d[c] == __ldg(levels + b0 + c)) << c;
-      if (out != nullptr) out[v * batch + b0 + c] = 0.0f;
+      const long long cell = v * batch + b0 + c;
+      if (out != nullptr && cell < out_cells) out[cell] = 0.0f;
     }
     words[i] = bits;
   }
@@ -265,16 +281,19 @@ frontier_nb_kernel(const int* __restrict__ csc_src,
                    const int* __restrict__ block_nb,
                    const float* __restrict__ sigma, float* __restrict__ out,
                    int block_e, int block_v, int batch, int n_words,
-                   int vec_ids, int vec_cols) {
-  // this edge block's ids; an edge whose source is on no frontier gets
+                   int vec_ids, int vec_cols, long long out_rows) {
+  // this edge block's ids; an edge whose source is on no frontier, or
+  // whose destination lies outside its node block or past out_rows, gets
   // the key INT_MAX, which sorts it past every hit
   extern __shared__ int stage[];
   int* s_src = stage;
   int* s_dst = stage + block_e;
   const long long base = (long long)blockIdx.x * block_e;
+  const long long v0 = (long long)block_nb[blockIdx.x] * block_v;
   int any = 0;
   auto put = [&](int e, int u, int v) {
-    const bool hit = on_frontier(words, u, n_words);
+    const bool hit = (unsigned long long)(v - v0) < (unsigned)block_v
+        && v < out_rows && on_frontier(words, u, n_words);
     any |= hit;
     s_src[e] = u;
     s_dst[e] = hit ? v : 0x7fffffff;
@@ -310,14 +329,13 @@ frontier_nb_kernel(const int* __restrict__ csc_src,
   // which fits an int below node blocks of 2^21 rows (the card's are
   // 2^14); wider ones walk their edges unsorted
   const bool sorted = block_v < (1 << (31 - kSlotBits));
-  const int v0 = block_nb[blockIdx.x] * block_v;
   for (int c0 = 0; c0 < block_e; c0 += kSortSlots) {
     const int n = min(kSortSlots, block_e - c0);
     int n_walk = n;
     if (sorted) {
       for (int i = threadIdx.x; i < n; i += kThreads) {
         const int v = s_dst[c0 + i];
-        if (v != 0x7fffffff) s_dst[c0 + i] = (v - v0) << kSlotBits | i;
+        if (v != 0x7fffffff) s_dst[c0 + i] = (int)(v - v0) << kSlotBits | i;
       }
       __syncthreads();
       sort_block(s_dst + c0, n);
@@ -339,7 +357,7 @@ frontier_nb_kernel(const int* __restrict__ csc_src,
       for (int e = lo; e < hi; ++e) {
         const int key = s_dst[e];
         if (key == 0x7fffffff) continue;
-        const int v = sorted ? v0 + (key >> kSlotBits) : key;
+        const int v = sorted ? (int)v0 + (key >> kSlotBits) : key;
         const long long u = sorted ? s_src[c0 + (key & (kSortSlots - 1))]
                                    : s_src[e];
         if (v != cur) {
@@ -535,9 +553,12 @@ int pull_launch(const long long* offsets, const int* src_sorted,
   return (int)cudaGetLastError();
 }
 
+// `out_rows`: the rows of `out` to zero (-1: as many as the state's)
 int words_launch(const void* dist, const void* levels, void* words,
-                 void* out, long long rows, int batch, cudaStream_t stream) {
+                 void* out, long long rows, int batch, cudaStream_t stream,
+                 long long out_rows = -1) {
   if (rows > 0 && batch > 0) {
+    const long long out_cells = (out_rows < 0 ? rows : out_rows) * batch;
     const int n_words = (batch + 31) / 32;
     // the ballot route's 32-bit word arithmetic holds below 2^37 cells
     const int by_warp = (batch % 32 == 0 || 32 % batch == 0)
@@ -547,7 +568,7 @@ int words_launch(const void* dist, const void* levels, void* words,
     const int grid = (int)(blocks < kMaxGrid ? blocks : kMaxGrid);
     frontier_words_kernel<<<grid, kThreads, 0, stream>>>(
         (const int*)dist, (const int*)levels, (unsigned*)words, (float*)out,
-        rows, batch, n_words, by_warp);
+        rows, batch, n_words, by_warp, out_cells);
   }
   return (int)cudaGetLastError();
 }
@@ -555,7 +576,7 @@ int words_launch(const void* dist, const void* levels, void* words,
 int nb_launch(const void* csc_src, const void* csc_dst,
               const void* block_nb, const void* words, const void* sigma,
               void* out, int n_edge_blocks, int block_e, int block_v,
-              int batch, cudaStream_t stream) {
+              int batch, long long out_rows, cudaStream_t stream) {
   const size_t smem = 2 * (size_t)block_e * sizeof(int);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -573,7 +594,7 @@ int nb_launch(const void* csc_src, const void* csc_dst,
   frontier_nb_kernel<<<n_edge_blocks, kThreads, smem, stream>>>(
       (const int*)csc_src, (const int*)csc_dst, (const unsigned*)words,
       (const int*)block_nb, (const float*)sigma, (float*)out, block_e,
-      block_v, batch, (batch + 31) / 32, vec_ids, vec_cols);
+      block_v, batch, (batch + 31) / 32, vec_ids, vec_cols, out_rows);
   return (int)cudaGetLastError();
 }
 
@@ -636,5 +657,24 @@ extern "C" int frontier_nb_launch(const void* csc_src, const void* csc_dst,
   const int err = words_launch(dist, levels, words, out, rows, batch, s);
   if (err != 0 || n_edge_blocks <= 0 || batch <= 0) return err;
   return nb_launch(csc_src, csc_dst, block_nb, words, sigma, out,
-                   n_edge_blocks, block_e, block_v, batch, s);
+                   n_edge_blocks, block_e, block_v, batch, rows, s);
+}
+
+// One shard's node-blocked level in wide_state: the words pass over the
+// gathered state's `state_rows` rows (which zeroes the first `out_rows`
+// rows of out), then frontier_nb_kernel over the shard's layout into its
+// (out_rows, B) tile; both on `stream`.  The caller keeps out_rows <=
+// state_rows.
+extern "C" int frontier_nb_wide_launch(
+    const void* csc_src, const void* csc_dst, const void* block_nb,
+    const void* dist, const void* levels, const void* sigma, void* words,
+    void* out, long long state_rows, long long out_rows, int n_edge_blocks,
+    int block_e, int block_v, int batch, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (out_rows > state_rows) return (int)cudaErrorInvalidValue;
+  const int err = words_launch(dist, levels, words, out, state_rows, batch,
+                               s, out_rows);
+  if (err != 0 || n_edge_blocks <= 0 || batch <= 0) return err;
+  return nb_launch(csc_src, csc_dst, block_nb, words, sigma, out,
+                   n_edge_blocks, block_e, block_v, batch, out_rows, s);
 }

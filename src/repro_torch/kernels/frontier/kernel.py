@@ -13,20 +13,26 @@ design answers that bound).  Both routes run a level in one C call:
 * :func:`frontier_expand_node_blocked`: the words pass, then
   ``frontier_nb_kernel`` over a ``CSCLayout``, which skips edge blocks
   without a frontier source by itself (replaces
-  ``frontier_expand_node_blocked_pallas``).
+  ``frontier_expand_node_blocked_pallas``); with ``wide_state=True`` it
+  takes one vertex shard's layout and the gathered global state, and
+  writes the shard's tile (the sharded lane's mode of the same TPU
+  kernel).
 
 :func:`frontier_words` launches the words pass alone: the (rows, W)
 frontier bit-words of a level and the zeroed (rows, B) output.  Besides
 their launches the wrappers allocate with ``torch.empty`` and run no
-other PyTorch op.  :func:`frontier_row_mask` and
-:func:`frontier_block_bitmap` are the JAX package's helpers (its parity
-tests and the sharded lane use them); no kernel path calls them.
+other PyTorch op.  :func:`frontier_row_mask`,
+:func:`frontier_block_bitmap`, :func:`frontier_source_block_bitmap` and
+:func:`edge_bitmap_from_source_bits` are the JAX package's helpers (the
+sharded lane's exchange schedule and the parity tests use them); no
+kernel path calls them.
 
 On a CUDA tensor a wrapper launches its kernel or raises; it runs the
 plain version in ``ref.py`` only because the tensor it was given lies on
 the CPU.  Each launch adds one to ``launch_counts[<kernel>]``, a plain
 int that a run resets and reads to show which kernels it went through:
-a level adds one to its route's count and one to ``WORDS``.
+a level adds one to its route's count and one to ``WORDS``; a shard's
+wide level counts under ``NODE_BLOCKED_WIDE``.
 """
 from __future__ import annotations
 
@@ -37,18 +43,22 @@ import torch
 
 from .. import _build
 from ..segsum.kernel import SegmentPlan, build_plan
-from .ref import (frontier_expand_node_blocked_ref, frontier_pull_ref,
+from .ref import (frontier_expand_node_blocked_ref,
+                  frontier_expand_sharded_ref, frontier_pull_ref,
                   frontier_words_ref)
 
-__all__ = ["FLAT", "NODE_BLOCKED", "PULL_SPLIT", "SOURCE", "WORDS",
-           "build_pull_plan", "frontier_block_bitmap", "frontier_expand_flat",
-           "frontier_expand_node_blocked", "frontier_row_mask",
+__all__ = ["FLAT", "NODE_BLOCKED", "NODE_BLOCKED_WIDE", "PULL_SPLIT",
+           "SOURCE", "WORDS", "build_pull_plan",
+           "edge_bitmap_from_source_bits", "frontier_block_bitmap",
+           "frontier_expand_flat", "frontier_expand_node_blocked",
+           "frontier_row_mask", "frontier_source_block_bitmap",
            "frontier_words", "launch_counts", "library",
            "node_blocked_smem_bytes", "reset_launch_counts",
            "MAX_SMEM_BYTES"]
 
 FLAT = "frontier_flat"
 NODE_BLOCKED = "frontier_node_blocked"
+NODE_BLOCKED_WIDE = "frontier_node_blocked_wide"
 WORDS = "frontier_words"
 SOURCE = Path(__file__).resolve().parent / "csrc" / "frontier.cu"
 # dynamic shared memory one block may use on an H100 (227 KB)
@@ -56,7 +66,7 @@ MAX_SMEM_BYTES = 232_448
 # in-edges one lane group of the pull sums before a row is cut into items
 PULL_SPLIT = 512
 
-launch_counts = {FLAT: 0, NODE_BLOCKED: 0, WORDS: 0}
+launch_counts = {FLAT: 0, NODE_BLOCKED: 0, NODE_BLOCKED_WIDE: 0, WORDS: 0}
 
 
 def reset_launch_counts() -> None:
@@ -74,6 +84,9 @@ def _declare(lib) -> None:
     lib.frontier_nb_launch.argtypes = [p, p, p, p, p, p, p, p, i64, i32,
                                        i32, i32, i32, p]
     lib.frontier_nb_launch.restype = i32
+    lib.frontier_nb_wide_launch.argtypes = [p, p, p, p, p, p, p, p, i64,
+                                            i64, i32, i32, i32, i32, p]
+    lib.frontier_nb_wide_launch.restype = i32
 
 
 def library() -> ctypes.CDLL:
@@ -105,6 +118,24 @@ def frontier_block_bitmap(csc, dist, levels):
     hit = frontier_row_mask(dist, levels)[csc.src.long()]
     return (hit.view(csc.n_edge_blocks, csc.block_e).any(dim=1)
             .to(torch.int32))
+
+
+def frontier_source_block_bitmap(dist, levels, block_rows: int,
+                                 active=None):
+    """(rows // block_rows,) int32: 1 iff the ``block_rows``-row block
+    holds a frontier row (the sharded lane's exchange schedule, at the
+    partition's chunk rows; ``rows`` a multiple of ``block_rows``)."""
+    mask = frontier_row_mask(dist, levels, active)
+    return mask.view(-1, block_rows).any(dim=1).to(torch.int32)
+
+
+def edge_bitmap_from_source_bits(csc, src_bits, chunk_rows: int):
+    """(n_edge_blocks,) int32 from per-source-chunk bits over the global
+    rows: 1 when some source of the edge block lies in an active chunk (a
+    superset of :func:`frontier_block_bitmap`)."""
+    hit = src_bits[torch.div(csc.src.long(), chunk_rows,
+                             rounding_mode="floor")]
+    return hit.view(csc.n_edge_blocks, csc.block_e).amax(dim=1)
 
 
 def _check_state(dist, sigma, levels):
@@ -186,14 +217,15 @@ def frontier_expand_flat(src, dst, dist, sigma, levels, plan=None):
     return out
 
 
-def _level_buffers(dist):
-    """Uninitialised (rows, ceil(B / 32)) int32 words and (rows, B)
-    float32 output on ``dist``'s device."""
+def _level_buffers(dist, out_rows=None):
+    """Uninitialised (rows, ceil(B / 32)) int32 words and (out_rows, B)
+    float32 output (``out_rows`` defaults to the state's rows) on
+    ``dist``'s device."""
     rows, batch = dist.shape
     return (torch.empty((rows, -(-batch // 32)), dtype=torch.int32,
                         device=dist.device),
-            torch.empty((rows, batch), dtype=torch.float32,
-                        device=dist.device))
+            torch.empty((rows if out_rows is None else out_rows, batch),
+                        dtype=torch.float32, device=dist.device))
 
 
 def frontier_words(dist, levels):
@@ -214,36 +246,58 @@ def frontier_words(dist, levels):
     return words, out
 
 
-def frontier_expand_node_blocked(csc, dist, sigma, levels):
+def frontier_expand_node_blocked(csc, dist, sigma, levels, *,
+                                 wide_state: bool = False):
     """One batched level over a CSC layout: the words pass, then
     ``frontier_nb_kernel``, which skips every edge block without a
     frontier source.
 
     ``dist``/``sigma`` are (V+1, B) or (csc.v_pad, B); the output keeps
-    that row count.
+    that row count.  With ``wide_state=True``, ``csc`` is one shard's
+    view (``ShardedCSCLayout.shard(s)``: global ``src``, local ``dst``)
+    and ``dist``/``sigma`` the gathered state over at least the global
+    rows its sources tile; the output is the shard's (csc.v_pad, B) tile.
     """
     levels = _levels(levels, dist.shape[1], dist.device)
     _check_state(dist, sigma, levels)
+    rows = dist.shape[0]
+    if wide_state:
+        need = max(csc.v_pad, csc.n_src_blocks * csc.block_v)
+        if rows < need:
+            raise ValueError(f"wide_state expects >= {need} gathered rows, "
+                             f"got {rows}")
     if not dist.is_cuda:
+        if wide_state:
+            return frontier_expand_sharded_ref(csc, dist, sigma, levels)
         return frontier_expand_node_blocked_ref(csc, dist, sigma, levels)
     if csc.src.device != dist.device:
         raise ValueError("the CSC layout must live on the state's device")
-    if dist.shape[0] < csc.n_nodes + 1:
-        raise ValueError(f"state rows {dist.shape[0]} do not cover the "
-                         f"sink row {csc.n_nodes}")
+    if rows < csc.n_nodes + 1:
+        raise ValueError(f"state rows {rows} do not cover the sink row "
+                         f"{csc.n_nodes}")
     smem = node_blocked_smem_bytes(csc.block_e)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"block_e={csc.block_e} stages {smem} bytes of "
                          f"shared memory, over the card's {MAX_SMEM_BYTES}")
-    words, out = _level_buffers(dist)
+    words, out = _level_buffers(dist, csc.v_pad if wide_state else rows)
+    ids = (csc.src.data_ptr(), csc.dst.data_ptr(), csc.block_nb.data_ptr(),
+           dist.data_ptr(), levels.data_ptr(), sigma.data_ptr(),
+           words.data_ptr(), out.data_ptr())
+    stream = _build.raw_stream(dist.device)
     # one C call launches both kernels
-    code = library().frontier_nb_launch(
-        csc.src.data_ptr(), csc.dst.data_ptr(), csc.block_nb.data_ptr(),
-        dist.data_ptr(), levels.data_ptr(), sigma.data_ptr(),
-        words.data_ptr(), out.data_ptr(), dist.shape[0], csc.n_edge_blocks,
-        csc.block_e, csc.block_v, dist.shape[1],
-        _build.raw_stream(dist.device))
-    _build.check(code, "frontier_words_kernel / frontier_nb_kernel launch")
+    if wide_state:
+        code = library().frontier_nb_wide_launch(
+            *ids, rows, csc.v_pad, csc.n_edge_blocks, csc.block_e,
+            csc.block_v, dist.shape[1], stream)
+        _build.check(code, "frontier_words_kernel / frontier_nb_kernel "
+                     "(wide_state) launch")
+        launch_counts[NODE_BLOCKED_WIDE] += 1
+    else:
+        code = library().frontier_nb_launch(
+            *ids, rows, csc.n_edge_blocks, csc.block_e, csc.block_v,
+            dist.shape[1], stream)
+        _build.check(code, "frontier_words_kernel / frontier_nb_kernel "
+                     "launch")
+        launch_counts[NODE_BLOCKED] += 1
     launch_counts[WORDS] += 1
-    launch_counts[NODE_BLOCKED] += 1
     return out

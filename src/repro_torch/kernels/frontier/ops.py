@@ -7,7 +7,15 @@ lane; the decision is the pure function :func:`select_route`:
 * ``"node_blocked"`` the node-blocked CUDA kernel, for CUDA tensors of a
   graph that carries a ``CSCLayout``;
 * ``"flat"``         the pull over the COO edges' in-edge plan (words
-  pass and ``frontier_pull_kernel``), for CUDA tensors otherwise.
+  pass and ``frontier_pull_kernel``), for CUDA tensors otherwise;
+* ``"sharded_nb"``   with ``shard=`` (one vertex shard's layout view, the
+  state the gathered global rows): the node-blocked kernel in wide_state
+  mode, for CUDA tensors, writing the shard's (shard_rows, B) tile;
+* ``"sharded_ref"``  its plain version, for CPU tensors.
+
+A forced ``lane`` with a shard maps as in the JAX package:
+``"node_blocked"`` to ``"sharded_nb"``, ``"ref"`` to ``"sharded_ref"``,
+and ``"flat"`` raises (its output rows are the state's).
 
 On the card both routes keep their state in device memory, so unlike the
 TPU kernels the pull has no fit limit; the node-blocked kernel's only
@@ -18,8 +26,8 @@ route runs, so a CPU or node-blocked level builds none.  Without one the
 flat route builds it from ``src``/``dst`` at each call.
 A forced lane that cannot be honoured raises: a kernel forced on a CPU
 tensor, ``"node_blocked"`` without a layout, an edge block over the
-card's shared memory, or the plain version forced on a CUDA tensor.
-Nothing falls back quietly.
+card's shared memory, the plain version forced on a CUDA tensor, or
+both ``csc=`` and ``shard=``.  Nothing falls back quietly.
 """
 from __future__ import annotations
 
@@ -27,20 +35,54 @@ import torch
 
 from .kernel import (MAX_SMEM_BYTES, frontier_expand_flat,
                      frontier_expand_node_blocked, node_blocked_smem_bytes)
-from .ref import frontier_expand_batched_ref
+from .ref import frontier_expand_batched_ref, frontier_expand_sharded_ref
 
 __all__ = ["LANES", "frontier_expand", "select_route"]
 
 LANES = ("flat", "node_blocked", "ref")
 
 
-def select_route(*, cuda: bool, csc=None, lane=None) -> str:
+def _check_smem(layout, what: str) -> None:
+    smem = node_blocked_smem_bytes(layout.block_e)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"{what} edge block block_e={layout.block_e} needs {smem} "
+            f"bytes of shared memory, over the card's {MAX_SMEM_BYTES}; "
+            "shrink the blocking")
+
+
+def _select_sharded(cuda: bool, shard, lane) -> str:
+    if lane == "flat":
+        raise ValueError("the flat kernel cannot serve the sharded lane "
+                         "(local output rows != gathered input rows); use "
+                         "lane=None, 'node_blocked' or 'ref'")
+    if lane is None:
+        lane = "node_blocked" if cuda else "ref"
+    if lane == "ref":
+        if cuda:
+            raise ValueError("the plain version runs only on CPU tensors; "
+                             "a CUDA state goes through a kernel")
+        return "sharded_ref"
+    if not cuda:
+        raise ValueError("lane 'node_blocked' (sharded) is a CUDA kernel but "
+                         "the state lies on the CPU; use lane=None or 'ref'")
+    _check_smem(shard, "sharded node-blocked")
+    return "sharded_nb"
+
+
+def select_route(*, cuda: bool, csc=None, shard=None, lane=None) -> str:
     """The lane :func:`frontier_expand` takes for a state on a CUDA
-    device (``cuda=True``) or the CPU, with an optional layout and an
-    optional forced ``lane``.  Raises ``ValueError`` when a forced lane
-    cannot be honoured."""
+    device (``cuda=True``) or the CPU, with an optional layout (``csc``
+    or one shard's view ``shard``, not both) and an optional forced
+    ``lane``.  Raises ``ValueError`` when a forced lane cannot be
+    honoured."""
     if lane is not None and lane not in LANES:
         raise ValueError(f"unknown lane {lane!r} (expected one of {LANES})")
+    if shard is not None:
+        if csc is not None:
+            raise ValueError("pass csc= (the replicated layout) or shard= "
+                             "(one shard's view), not both")
+        return _select_sharded(cuda, shard, lane)
     if lane is None:
         if not cuda:
             return "ref"
@@ -57,29 +99,32 @@ def select_route(*, cuda: bool, csc=None, lane=None) -> str:
         if csc is None:
             raise ValueError("lane='node_blocked' requires a CSCLayout "
                              "(csc=...)")
-        smem = node_blocked_smem_bytes(csc.block_e)
-        if smem > MAX_SMEM_BYTES:
-            raise ValueError(
-                f"node-blocked edge block block_e={csc.block_e} needs "
-                f"{smem} bytes of shared memory, over the card's "
-                f"{MAX_SMEM_BYTES}; shrink the blocking")
+        _check_smem(csc, "node-blocked")
     return lane
 
 
-def frontier_expand(src, dst, dist, sigma, level, *, csc=None, lane=None,
-                    plan=None):
+def frontier_expand(src, dst, dist, sigma, level, *, csc=None, shard=None,
+                    lane=None, plan=None):
     """Route one frontier expansion (module docstring).
 
     Batched state is (rows, B) with ``level`` (B,); unbatched state is
-    (rows,) with a scalar ``level``.
+    (rows,) with a scalar ``level``.  With ``shard=`` the state covers the
+    gathered global rows and the result is the shard's tile
+    (``src``/``dst`` are not read).
     """
     batched = dist.dim() == 2
     d2 = dist if batched else dist[:, None]
     s2 = sigma if batched else sigma[:, None]
     lv = torch.as_tensor(level, dtype=torch.int32,
                          device=dist.device).reshape(d2.shape[1])
-    route = select_route(cuda=dist.is_cuda, csc=csc, lane=lane)
-    if route == "node_blocked":
+    route = select_route(cuda=dist.is_cuda, csc=csc, shard=shard, lane=lane)
+    if route == "sharded_nb":
+        out = frontier_expand_node_blocked(shard, d2.contiguous(),
+                                           s2.contiguous(), lv,
+                                           wide_state=True)
+    elif route == "sharded_ref":
+        out = frontier_expand_sharded_ref(shard, d2, s2, lv)
+    elif route == "node_blocked":
         out = frontier_expand_node_blocked(csc, d2.contiguous(),
                                            s2.contiguous(), lv)
     elif route == "flat":

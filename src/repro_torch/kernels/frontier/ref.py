@@ -13,7 +13,9 @@ vertex-major state), the same as ``repro.kernels.frontier.ref``:
   contrib  : (rows, B) float32
 
 The node-blocked version runs the same sum over a ``CSCLayout``'s edge
-order and keeps the row count it was handed.  ``frontier_pull_ref`` runs
+order and keeps the row count it was handed.  The sharded version runs
+it over one shard's local view (global ``src``, local ``dst``) from the
+gathered global state and returns the shard's (shard_rows, B) tile.  ``frontier_pull_ref`` runs
 it over a pull plan (``kernel.build_pull_plan``) in the pull kernel's
 order of additions.  ``frontier_words_ref`` is the plain version of the
 words pass both routes start with: the frontier packed 32 samples to an
@@ -26,7 +28,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["frontier_expand_batched_ref", "frontier_expand_node_blocked_ref",
-           "frontier_pull_ref", "frontier_words_ref"]
+           "frontier_expand_sharded_ref", "frontier_pull_ref",
+           "frontier_words_ref"]
 
 
 # (edge, sample) cells gathered at once; bounds the temporaries at full
@@ -56,6 +59,19 @@ def frontier_expand_node_blocked_ref(csc, dist, sigma, levels):
     out = _expand(csc.src, csc.dst, dist, sigma, levels,
                   max(csc.v_pad, rows))
     return out if rows >= csc.v_pad else out[:rows]
+
+
+def frontier_expand_sharded_ref(shard, dist, sigma, levels):
+    """One shard's rows of the level, from the gathered state.
+
+    ``shard`` is one shard's :class:`CSCLayout` view
+    (``ShardedCSCLayout.shard(s)``: global ``src``, local ``dst``,
+    ``v_pad == shard_rows``); ``dist``/``sigma`` cover the global padded
+    rows.  Returns the (shard_rows, B) tile; padding slots (``dst ==
+    shard_rows``) land on a scratch row that is cut off.
+    """
+    return _expand(shard.src, shard.dst, dist, sigma, levels,
+                   shard.v_pad + 1)[: shard.v_pad]
 
 
 def frontier_pull_ref(plan, dist, sigma, levels):

@@ -1,10 +1,10 @@
 """Helpers of the parity tests between the JAX package and the PyTorch
-port: carry a JAX graph or GraphBatch across as numpy arrays, and pull
-tensors back."""
+port: carry a JAX graph, partition or GraphBatch across as numpy arrays,
+and pull tensors back."""
 import numpy as np
 import torch
 
-from repro_torch.core import graph_from_numpy
+from repro_torch.core import graph_from_numpy, partitioned_from_numpy
 from repro_torch.models.gnn import GraphBatch
 
 _GRAPH_ARRAYS = ("indptr", "indices", "src", "dst", "degree")
@@ -22,6 +22,26 @@ def to_port(jgraph, device="cpu"):
         csc.update({k: getattr(jgraph.csc, k) for k in _CSC_INTS})
     return graph_from_numpy(arrays, jgraph.n_nodes, jgraph.n_edges,
                             jgraph.max_degree, csc, device=device)
+
+
+_SHARD_ARRAYS = ("src", "dst", "block_nb", "block_sb", "block_first")
+_SHARD_INTS = ("block_v", "block_e", "blocks_per_shard", "n_edge_blocks",
+               "n_shards", "n_nodes")
+
+
+def partitioned_to_port(jpg, device="cpu"):
+    """The port's ``PartitionedGraph`` over exactly the JAX partition's
+    arrays (a weighted one raises in the port)."""
+    shards = {k: np.asarray(getattr(jpg.shards, k)) for k in _SHARD_ARRAYS}
+    shards.update({k: getattr(jpg.shards, k) for k in _SHARD_INTS})
+    return partitioned_from_numpy(
+        {k: np.asarray(getattr(jpg, k)) for k in ("indptr", "indices",
+                                                  "degree")},
+        shards, jpg.n_nodes, jpg.n_edges, jpg.max_degree,
+        exchange_budget=jpg.exchange_budget,
+        exchange_budget_auto=jpg.exchange_budget_auto,
+        weight=None if jpg.weight is None else np.asarray(jpg.weight),
+        device=device)
 
 
 def np_(x):

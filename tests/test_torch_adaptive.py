@@ -161,11 +161,11 @@ def test_explicit_eps_delta_override_config():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"mesh": object()}, "items 11-12"),
+    ({"mesh": object()}, "item 11"),
     ({"checkpoint_dir": "ckpt"}, "item 10"),
     ({"on_epoch": print}, "item 14"),
     ({"telemetry": "trace.jsonl"}, "item 14"),
-    ({"metrics": ("closeness",), "mesh": object()}, "items 11-12"),
+    ({"metrics": ("closeness",), "mesh": object()}, "item 11"),
     ({"stream": "weighted"}, "item 13"),
     ({"metrics": ("harmonic",), "stream": "weighted"}, "item 13"),
 ])

@@ -163,7 +163,8 @@ def test_node_blocked_kernel_matches_plain_at_every_width(cuda, batch):
     got = tf.frontier_expand_node_blocked(csc, dist, sigma, levels)
     want = tf.frontier_expand_node_blocked_ref(csc, dist, sigma, levels)
     torch.cuda.synchronize()
-    assert tf.launch_counts == {tf.FLAT: 0, tf.NODE_BLOCKED: 1, tf.WORDS: 1}
+    assert tf.launch_counts == {tf.FLAT: 0, tf.NODE_BLOCKED: 1,
+                                tf.NODE_BLOCKED_WIDE: 0, tf.WORDS: 1}
     assert want.max() < 2 ** 24 and torch.equal(got, want)
 
 
@@ -268,7 +269,8 @@ def test_dispatcher_routes_cuda_state_to_kernels(cuda):
     csc = tc.build_csc_layout(graph, block_v=128, block_e=256)
     tf.frontier_expand(graph.src, graph.dst, dist, sigma, levels, csc=csc)
     # each route's level starts with a words pass
-    assert tf.launch_counts == {tf.FLAT: 1, tf.NODE_BLOCKED: 1, tf.WORDS: 2}
+    assert tf.launch_counts == {tf.FLAT: 1, tf.NODE_BLOCKED: 1,
+                                tf.NODE_BLOCKED_WIDE: 0, tf.WORDS: 2}
     with pytest.raises(ValueError, match="CPU tensors"):
         tf.frontier_expand(graph.src, graph.dst, dist, sigma, levels,
                            lane="ref")
@@ -285,6 +287,124 @@ def test_run_kadabra_on_the_card(cuda):
     assert ts.launch_counts[ts.STOPCHECK] == res.n_epochs > 0
     import numpy as np
     assert np.abs(res.btilde - tc.brandes_numpy(graph)).max() < 0.05
+
+
+# ---------------------------------------------------------------------------
+# K2's wide_state mode (the sharded lane)
+# ---------------------------------------------------------------------------
+
+_SHARDED = {
+    # name: (graph, n_shards, block_v, block_e)
+    "rmat": (lambda dev: tc.rmat_graph(14, 16, seed=3, device=dev), 8, 1024,
+             1024),
+    "grid": (lambda dev: tc.grid_graph(64, 8, device=dev), 8, 64, 128),
+}
+
+
+def _wide_state(graph, pg, batch, seed):
+    """A mid-BFS level as the sharded lane hands it to each shard: the
+    masked frontier values over the global rows and their synthesized
+    dist."""
+    dist, sigma, levels = _state(graph, batch, seed=seed)
+    fvals = torch.zeros((pg.v_pad, batch), device=dist.device)
+    fvals[: dist.shape[0]] = torch.where(dist == levels, sigma, 0.0)
+    fdist = torch.where(fvals > 0, levels, -1).to(torch.int32)
+    return fdist, fvals, levels
+
+
+@pytest.mark.parametrize("name,batch", [("rmat", 64), ("rmat", 5),
+                                        ("grid", 8), ("grid", 65)])
+def test_wide_kernel_matches_plain_on_every_shard(cuda, name, batch):
+    """Every shard's wide call against the plain version, bitwise on
+    integer sigma, one wide launch and one words pass a shard; the
+    shards' tiles together are the replicated level's rows."""
+    make, n_shards, block_v, block_e = _SHARDED[name]
+    graph = make(cuda)
+    pg = tc.partition_graph(graph, n_shards, block_v=block_v,
+                            block_e=block_e)
+    fdist, fvals, levels = _wide_state(graph, pg, batch, seed=batch)
+    tf.reset_launch_counts()
+    tiles = []
+    for s in range(n_shards):
+        view = pg.shards.shard(s)
+        got = tf.frontier_expand_node_blocked(view, fdist, fvals, levels,
+                                              wide_state=True)
+        want = tf.frontier_expand_sharded_ref(view, fdist, fvals, levels)
+        torch.cuda.synchronize()
+        assert got.shape == (pg.shard_rows, batch)
+        assert want.max() < 2 ** 24 and torch.equal(got, want)
+        tiles.append(got)
+    assert tf.launch_counts == {tf.FLAT: 0, tf.NODE_BLOCKED: 0,
+                                tf.NODE_BLOCKED_WIDE: n_shards,
+                                tf.WORDS: n_shards}
+    whole = tf.frontier_expand_batched_ref(graph.src, graph.dst, fdist,
+                                           fvals, levels)
+    assert torch.equal(torch.cat(tiles), whole)
+
+
+def test_wide_kernel_leaves_canary_rows(cuda):
+    """A layout whose destinations point past the tile (frontier sources
+    included) writes nothing there: canary rows past out_rows keep their
+    value, and the tile is the plain sum without those edges."""
+    graph = tc.grid_graph(64, 8, device=cuda)
+    pg = tc.partition_graph(graph, 4, block_v=64, block_e=128)
+    fdist, fvals, levels = _wide_state(graph, pg, 8, seed=2)
+    view = pg.shards.shard(1)
+    rows = view.v_pad
+    hit = (fdist[view.src.long()] == levels).any(dim=1)
+    bad = torch.nonzero(hit)[:, 0][::3]
+    assert bad.numel() > 4
+    dst = view.dst.clone()
+    dst[bad] = (rows + torch.arange(bad.numel(), device=cuda) % 4).to(
+        torch.int32)
+    broken = tc.CSCLayout(**{**view.__dict__, "dst": dst})
+    kept = tc.CSCLayout(**{**view.__dict__, "src": view.src.clone()})
+    kept.src[bad] = graph.n_nodes
+    canary = 7.0
+    out = torch.full((rows + 4, 8), canary, device=cuda)
+    words = torch.empty((fdist.shape[0], 1), dtype=torch.int32, device=cuda)
+    code = tf.kernel.library().frontier_nb_wide_launch(
+        broken.src.data_ptr(), broken.dst.data_ptr(),
+        broken.block_nb.data_ptr(), fdist.data_ptr(), levels.data_ptr(),
+        fvals.data_ptr(), words.data_ptr(), out.data_ptr(), fdist.shape[0],
+        rows, broken.n_edge_blocks, broken.block_e, broken.block_v, 8,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert code == 0
+    assert bool((out[rows:] == canary).all())
+    want = tf.frontier_expand_sharded_ref(kept, fdist, fvals, levels)
+    assert torch.equal(out[:rows], want)
+
+
+def test_sharded_lane_launches_the_wide_kernel_once_a_shard_a_level(cuda):
+    """The sharded BFS, bidirectional search and run_kadabra on the card:
+    every level one wide launch (and one words pass) a shard, no flat or
+    replicated node-blocked launch; the BFS gives the replicated bits."""
+    graph = tc.grid_graph(32, 16, device=cuda)
+    pg = tc.partition_graph(graph, 4, block_v=64, block_e=128)
+    mesh = tc.ShardMesh(4, cuda)
+    sources = torch.tensor([0, 100, 511], dtype=torch.int32, device=cuda)
+    tf.reset_launch_counts()
+    res = tc.bfs_sssp_batched_sharded(pg, sources, mesh=mesh)
+    want = tc.bfs_sssp_batched(graph.to("cpu"), sources.cpu())
+    v1 = graph.n_nodes + 1
+    assert torch.equal(mesh.all_gather(res.dist)[:v1].cpu(), want.dist)
+    assert torch.equal(mesh.all_gather(res.sigma)[:v1].cpu(), want.sigma)
+    assert tf.launch_counts == {tf.FLAT: 0, tf.NODE_BLOCKED: 0,
+                                tf.NODE_BLOCKED_WIDE: 4 * res.n_iters,
+                                tf.WORDS: 4 * res.n_iters}
+    hyper = tc.hyperbolic_graph(300, 20.0, seed=1, device=cuda)
+    hpg = tc.partition_graph(hyper, 4, block_v=128, block_e=256)
+    tf.reset_launch_counts()
+    ts.reset_launch_counts()
+    run = tc.run_kadabra(hpg, eps=0.05, mesh=tc.ShardMesh(4, cuda))
+    assert tf.launch_counts[tf.NODE_BLOCKED_WIDE] \
+        == tf.launch_counts[tf.WORDS] == 4 * run.bfs_levels > 0
+    assert tf.launch_counts[tf.FLAT] == tf.launch_counts[tf.NODE_BLOCKED] \
+        == 0
+    assert ts.launch_counts[ts.STOPCHECK] == run.n_epochs > 0
+    import numpy as np
+    assert np.abs(run.btilde - tc.brandes_numpy(hyper)).max() < 0.05
 
 
 def _stop_inputs(v, device, seed=0):
