@@ -37,7 +37,8 @@ any failed phase.  Phases:
    then the stop-check kernel against its plain version at V = 2^20
    with the budgets of this graph's own calibration (bitwise, a NaN case
    and V = 1, 5000, 40000 included), and its device time a check and
-   its launches a check (one) from the profiler, beside the byte bound;
+   its launches a check (one) from the profiler (one trace of up to
+   TRACE_TRIES with all 50, none with more), beside the byte bound;
 5. a second path through the node-blocked route: a 256 x 256 grid with
    a CSC layout.  Its two kernels were held against their plain versions
    and timed at the grid's own shapes at the start of [3] (one mid-BFS
@@ -96,17 +97,23 @@ any failed phase.  Phases:
 13. the whole run's seconds (printed last);
 14. the sharded cooperative lane: R-MAT 2^20 x 30 partitioned into 8
    shards (the reference's mesh) at the card's blocking, all on the card
-   (``ShardMesh``).  The node-blocked kernel in wide_state mode against
-   its plain version on every shard at one mid-BFS level (bitwise where
-   the sums are exact integers, else rtol 1e-6), the level's calls timed
-   beside their device time, the plain version, the byte bound,
-   ``torch.sparse.mm`` on each shard's local matrix and the replicated
-   node-blocked level; where a sharded level's time goes (exchange, wide
-   calls, the rest) beside the replicated flat level; one bidirectional
+   (``ShardMesh``).  At one mid-BFS level: the node-blocked kernel in
+   wide_state mode against its plain version on every shard (the
+   per-shard route), and the sharded level call (one words pass over
+   the gathered values, one node-blocked launch over the layout's real
+   edge blocks, all 8 shards) against the stacked plain version
+   (bitwise where the sums are exact integers, else rtol 1e-6); the
+   level call timed beside its two kernels' device time and launches
+   from the profiler (one each a level), the plain version, the
+   whole-level byte bound, ``torch.sparse.mm`` on the stacked matrix and
+   on each shard's, the per-shard route's 8 calls and the replicated
+   node-blocked level, and the real blocks launched against 8 x
+   n_edge_blocks; where a sharded level's time goes (exchange, the level
+   call, the rest) beside the replicated flat level; one bidirectional
    batch against the replicated flat route (dist, d and split bitwise);
-   ``run_kadabra`` on the partition (every level one wide launch and one
-   words pass a shard, no flat or replicated node-blocked launch), two
-   of its rounds under the profiler; hyperbolic(1000) in 8 shards within
+   ``run_kadabra`` on the partition (every level one level launch and
+   one words pass, no flat or replicated node-blocked launch), two of
+   its rounds under the profiler; hyperbolic(1000) in 8 shards within
    eps 0.05 of exact Brandes.
 
 Every run resets the launch counts just before it and reads them just
@@ -148,6 +155,7 @@ ER_N, ER_DEGREE, ER_EPS = 1500, 8.0, 0.05
 STOPCHECK_SHAPES = (1, 5000, 40000)   # besides the full V
 STOPCHECK_OPS = 20                    # float operations per vertex
 STOPCHECK_CALLS = 1000                # back-to-back calls timed a call
+TRACE_TRIES = 20      # traces taken at most for a launch count to show
 # GraphSAGE: R-MAT at the scale of ogbn-products (2,449,029 nodes,
 # 61,859,140 edges): 2^21 nodes, ~6e7 directed edges
 GNN_SCALE, GNN_EDGE_FACTOR, GNN_CELL, GNN_STEPS = 21, 15, "ogb_products", 3
@@ -745,7 +753,9 @@ def phase_stopcheck(rmat, vertex_diameter: int, tau: int) -> dict:
     import torch
     from repro_torch.core.engine import draw_fold, resolve_estimators
     from repro_torch.core.estimators.base import RunContext
-    from repro_torch.kernels.stopcheck import stopcheck_fused, stopcheck_ref
+    from repro_torch.kernels import stopcheck
+    from repro_torch.kernels.stopcheck import (STOPCHECK, stopcheck_fused,
+                                               stopcheck_ref)
     v = rmat.n_nodes
     est = resolve_estimators("betweenness")
     ctx = RunContext(v, vertex_diameter)
@@ -773,20 +783,35 @@ def phase_stopcheck(rmat, vertex_diameter: int, tau: int) -> dict:
     args = (counts, tau, lil, liu, omega)
     b_ms, b_by = bound(3 * 4 * v + 2 * 4, STOPCHECK_OPS * v)
     # the kernel's own device time, without the host's enqueue, and the
-    # launches a check (the second of two traced runs: a trace can miss
-    # the first launches of a session)
+    # launches a check: a trace that saw all 50 checks' launches, and
+    # only the stop-check kernel's, in any trace no more than 50; the
+    # wrapper counts 50 in every traced run
     calls = 50
-    rows, _ = profile_twice(
-        lambda: [stopcheck_fused(*args) for _ in range(calls)])
+    counted = []
+
+    def checks():
+        stopcheck.reset_launch_counts()
+        for _ in range(calls):
+            stopcheck_fused(*args)
+        counted.append(stopcheck.launch_counts[STOPCHECK])
+
+    traces = padded_traces(checks,
+                           lambda rows: sum(r[1] for r in rows) == calls)
+    rows = traces[-1]
     launches = sum(r[1] for r in rows)
     device_ms = sum(r[0] for r in rows) / max(launches, 1)
-    if launches != calls or not all("stopcheck_kernel" in r[2]
-                                    for r in rows):
-        raise AssertionError(f"stopcheck: {launches} device launches in "
-                             f"{calls} checks: "
-                             f"{[(r[2], r[1]) for r in rows]}")
+    if (launches != calls or set(counted) != {calls}
+            or any(sum(r[1] for r in t) > calls
+                   or not all("stopcheck_kernel" in r[2] for r in t)
+                   for t in traces)):
+        raise AssertionError(
+            f"stopcheck: device launches in {calls} checks, trace by "
+            f"trace: {[[(r[2], r[1]) for r in t] for t in traces]}; "
+            f"counted {counted}")
     log(f"  stopcheck: {device_ms * 1e3:.2f} us of device time a check, "
-        f"one launch a check ({launches} in {calls} checks), bound "
+        f"one launch a check ({launches} in {calls} checks, trace "
+        f"{len(traces)} of at most {TRACE_TRIES}; launches traced "
+        f"{[sum(r[1] for r in t) for t in traces]}), bound "
         f"{b_ms * 1e3:.2f} us ({b_by}); no single PyTorch call computes "
         "[max f, max g]")
     return {"max_abs_err": err, "device_ms": device_ms,
@@ -1044,6 +1069,31 @@ def profile_twice(fn) -> tuple:
             if evt.device_type == torch.autograd.DeviceType.CUDA
             and not evt.key.startswith("ProfilerStep")]
     return rows, wall_ms
+
+
+def padded_traces(fn, done) -> list:
+    """The device-side rows of the second of two traced runs of ``fn``,
+    the run sitting 0.25 s inside its traced step at both ends, away
+    from the edges of the trace's window; traced again until ``done``
+    holds of a trace's rows, at most TRACE_TRIES times.  The rows of
+    every trace, in order.  Late in a long process a trace loses the
+    records of launches that ran, up to a whole session's (none of 50
+    stop checks, once), and never adds one: so a caller asks for its
+    exact count in one trace and for no more than it in any."""
+    import torch
+
+    def padded():
+        time.sleep(0.25)
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(0.25)
+
+    traces = []
+    while len(traces) < TRACE_TRIES:
+        traces.append(profile_twice(padded)[0])
+        if done(traces[-1]):
+            break
+    return traces
 
 
 def clone_tree(tree):
@@ -1574,27 +1624,65 @@ def shard_matrix(view, v_pad: int):
     return at.to_sparse_csr()
 
 
+def stacked_matrix(pg):
+    """Every shard's edges in one v_pad x v_pad CSR matrix, shard s's
+    destinations at rows s * shard_rows + dst: one torch.sparse.mm with
+    it computes the whole sharded level."""
+    import torch
+    parts = []
+    for s in range(pg.n_shards):
+        view = pg.shards.shard(s)
+        real = view.src != view.n_nodes
+        parts.append(torch.stack([view.dst[real].long() + s * pg.shard_rows,
+                                  view.src[real].long()]))
+    idx = torch.cat(parts, dim=1)
+    at = torch.sparse_coo_tensor(
+        idx, torch.ones(idx.shape[1], device=idx.device),
+        (pg.v_pad, pg.v_pad)).coalesce()
+    return at.to_sparse_csr()
+
+
+def traced_kernels(fn, names, done=None) -> list:
+    """Device ms and launches of each kernel whose name holds one of
+    ``names``, a dict for each trace of ``padded_traces(fn, ...)``,
+    traced until ``done`` holds of the launches (a tuple in the order of
+    ``names``); one trace without ``done``."""
+    def sums(rows):
+        found = {name: [0.0, 0] for name in names}
+        for ms, count, key in rows:
+            for name in names:
+                if name in key:
+                    found[name][0] += ms
+                    found[name][1] += count
+        return found
+
+    want = done or (lambda launches: True)
+    return [sums(rows) for rows in padded_traces(
+        fn, lambda rows: want(tuple(n for _, n in sums(rows).values())))]
+
+
 def check_wide(pg, rmat, dist, sigma, levels, replicated_ms: float) -> dict:
-    """K2 wide_state at one mid-BFS level on every shard: the gathered
-    masked frontier as the lane hands it over, each shard's call against
-    the plain version; the level's 8 calls timed with CUDA events, their
-    kernels' device time from the profiler, beside the plain version, the
-    byte bound and torch.sparse.mm on each shard's local matrix."""
+    """K2 wide_state at one mid-BFS level: the gathered masked frontier
+    as the lane hands it over.  Every shard's per-shard call against its
+    plain version, and the level call (every shard at once: one words
+    pass, one node-blocked launch over the layout's real blocks) against
+    the stacked plain version.  The level call timed with CUDA events,
+    its two kernels' device time and launches from the profiler, beside
+    the plain version, the whole-level byte bound, torch.sparse.mm on
+    each shard's matrix and on the stacked matrix, and the per-shard
+    calls it replaces."""
     import torch
     from repro_torch.kernels.frontier import (
-        frontier_block_bitmap, frontier_expand_node_blocked,
-        frontier_expand_sharded_ref)
+        frontier_expand_node_blocked, frontier_expand_sharded_level,
+        frontier_expand_sharded_level_ref, frontier_expand_sharded_ref)
     batch = dist.shape[1]
     v1 = rmat.n_nodes + 1
     fvals = torch.zeros((pg.v_pad, batch), device=dist.device)
     fvals[:v1] = torch.where(dist == levels, sigma, 0.0)
     fdist = torch.where(fvals > 0, levels, -1).to(torch.int32)
-    views = [pg.shards.shard(s) for s in range(pg.n_shards)]
+    shards = pg.shards
+    views = [shards.shard(s) for s in range(pg.n_shards)]
     err = 0.0
-    n_bytes = 0.0
-    n_ops = 0.0
-    words_bytes = pg.v_pad * (-(-batch // 32)) * 4
-    hit_rows = (fdist != -1).any(dim=1)
     for s, view in enumerate(views):
         got = frontier_expand_node_blocked(view, fdist, fvals, levels,
                                            wide_state=True)
@@ -1602,52 +1690,120 @@ def check_wide(pg, rmat, dist, sigma, levels, replicated_ms: float) -> dict:
         torch.cuda.synchronize()
         err = max(err, compare_cells(f"frontier_node_blocked_wide shard {s}",
                                      got, want))
-        active = int(frontier_block_bitmap(view, fdist, levels).sum())
-        real = view.src != rmat.n_nodes
-        srcs = torch.unique(view.src[real & hit_rows[view.src.long()]])
-        n_bytes += (active * view.block_e * 8 + words_bytes
-                    + srcs.numel() * batch * 4 + view.v_pad * batch * 4)
-        n_ops += 2.0 * active * view.block_e * batch
-        log(f"  shard {s}: {view.e_slots} edge slots, {int(real.sum())} "
-            f"real, padding {view.e_slots - int(real.sum())}; "
-            f"{active}/{view.n_edge_blocks} edge blocks active, "
-            f"{srcs.numel()} frontier source rows")
         del got, want
-    level = lambda: [frontier_expand_node_blocked(v, fdist, fvals, levels,   # noqa: E731
-                                                  wide_state=True)
-                     for v in views]
-    ms = cuda_time_ms(level, 10) / pg.n_shards
-    device = kernel_device_ms(level, 10, ("frontier_words_kernel",
-                                          "frontier_nb_kernel"))
-    plain = cuda_time_ms(lambda: [frontier_expand_sharded_ref(
-        v, fdist, fvals, levels) for v in views], 2) / pg.n_shards
-    mats = [shard_matrix(v, pg.v_pad) for v in views]
+    got = frontier_expand_sharded_level(shards, fvals, levels)
+    want = frontier_expand_sharded_level_ref(shards, fvals, levels)
     torch.cuda.synchronize()
-    lib = cuda_time_ms(lambda: [torch.sparse.mm(a, fvals) for a in mats],
-                       10) / pg.n_shards
-    b_ms, b_by = bound(n_bytes / pg.n_shards, n_ops / pg.n_shards)
-    dist_ms = pg.v_pad * batch * 4 / HBM_BYTES_PER_S * 1e3
-    log(f"  frontier_node_blocked_wide: {ms:.3f} ms a call (a shard), "
-        f"{ms * pg.n_shards:.3f} ms the level's {pg.n_shards} calls; device "
-        f"time a call frontier_words_kernel "
-        f"{device['frontier_words_kernel'] / pg.n_shards:.4f} ms, "
-        f"frontier_nb_kernel {device['frontier_nb_kernel'] / pg.n_shards:.4f}"
-        f" ms; plain {plain:.3f} ms, bound {b_ms:.4f} ms ({b_by}; reading "
-        f"the wide dist once instead of the words would add {dist_ms:.4f} "
-        f"ms), torch.sparse.mm on the shard's matrix {lib:.3f} ms; the "
+    err = max(err, compare_cells("frontier_nb_sharded_level (8 shards)",
+                                 got, want))
+    del got, want
+    # what the level reads: the real blocks, the active ones among them
+    hit_rows = (fvals > 0).any(dim=1)
+    blocks = shards.src.view(-1, shards.block_e)
+    real = shards.real_blocks()
+    n_blocks = blocks.shape[0]
+    active = int(hit_rows[blocks[real.long()].long()].any(dim=1).sum())
+    srcs = torch.unique(shards.src[(shards.src != rmat.n_nodes)
+                                   & hit_rows[shards.src.long()]])
+    per_shard_real = torch.bincount(real.long() // shards.n_edge_blocks,
+                                    minlength=pg.n_shards).tolist()
+    log(f"  real edge blocks launched: {real.shape[0]} of {pg.n_shards} x "
+        f"{shards.n_edge_blocks} = {n_blocks} ({per_shard_real} a shard); "
+        f"{active} of them active, {srcs.numel()} frontier source rows")
+    ids_bytes = active * shards.block_e * 8
+    cells = pg.v_pad * batch * 4
+    words_bytes = pg.v_pad * (-(-batch // 32)) * 4
+    # the bound: the active blocks' ids, fvals read once (the level's
+    # state), the stack written once
+    b_ms, b_by = bound(ids_bytes + 2 * cells,
+                       2.0 * active * shards.block_e * batch)
+    # the same with the words in place of fvals and only the frontier
+    # sources' rows read
+    w_ms, _ = bound(ids_bytes + words_bytes + srcs.numel() * batch * 4
+                    + cells, 0.0)
+    def level():
+        return frontier_expand_sharded_level(shards, fvals, levels)
+
+    def per_shard():
+        return [frontier_expand_node_blocked(v, fdist, fvals, levels,
+                                             wide_state=True) for v in views]
+
+    ms = cuda_time_ms(level, 20)
+    shard_ms = cuda_time_ms(per_shard, 10)
+    # The profiler's launches a level: single levels, each traced alone,
+    # until one trace holds one launch of each kernel.  Late in a long
+    # process a trace loses the records of launches that ran, whole
+    # levels at a time, padded or not (of 10 level calls it saw 6 words
+    # passes and 7 node-blocked launches; single levels (0, 0), (1, 1),
+    # (0, 0)); it never adds one, so no trace may show more than one
+    # launch of either.
+    names = ("frontier_words_kernel", "frontier_nb_kernel")
+    seen = [tuple(n for _, n in d.values()) for d in traced_kernels(
+        level, names, lambda launches: launches == (1, 1))]
+    if (1, 1) not in seen or max(max(t) for t in seen) > 1:
+        raise AssertionError(f"sharded level: the profiler saw {seen} "
+                             "(words, node-blocked) launches in single "
+                             "traced levels, not one of each")
+    # device time a launch, from 10 traced calls of each route: traced
+    # until a trace holds launches of both kernels, none more than ran
+    calls = 10
+    device = traced_kernels(lambda: [level() for _ in range(calls)], names,
+                            all)
+    shard_dev = traced_kernels(lambda: [per_shard() for _ in range(calls)],
+                               names, all)
+    if any(n > k for traces, k in ((device, calls),
+                                   (shard_dev, calls * pg.n_shards))
+           for dev in traces for _, n in dev.values()) or not all(
+               n for dev in (device[-1], shard_dev[-1])
+               for _, n in dev.values()):
+        raise AssertionError(f"sharded level: traced launches {device} in "
+                             f"{calls} level calls, {shard_dev} in "
+                             f"{calls} x {pg.n_shards} per-shard calls")
+    device, shard_dev = device[-1], shard_dev[-1]
+    words_dev, nb_dev = (device[k][0] / device[k][1] for k in names)
+    # the per-shard route's kernels a level (8 launches each)
+    shard_words, shard_nb = (shard_dev[k][0] / shard_dev[k][1] * pg.n_shards
+                             for k in names)
+    plain = cuda_time_ms(lambda: frontier_expand_sharded_level_ref(
+        shards, fvals, levels), 2)
+    mats = [shard_matrix(v, pg.v_pad) for v in views]
+    stacked = stacked_matrix(pg)
+    torch.cuda.synchronize()
+    lib_err = float((torch.sparse.mm(stacked, fvals).view(
+        pg.n_shards, pg.shard_rows, batch) - level()).abs().max())
+    lib_shards = cuda_time_ms(lambda: [torch.sparse.mm(a, fvals)
+                                       for a in mats], 10)
+    lib = cuda_time_ms(lambda: torch.sparse.mm(stacked, fvals), 10)
+    del mats, stacked
+    log(f"  frontier_nb_sharded_level: {ms:.3f} ms a call (one level, all "
+        f"{pg.n_shards} shards); device time frontier_words_kernel "
+        f"{words_dev:.4f} ms, frontier_nb_kernel {nb_dev:.4f} ms a launch "
+        f"({device['frontier_words_kernel'][1]} and "
+        f"{device['frontier_nb_kernel'][1]} launches traced in {calls} "
+        f"calls); launches in single traced levels {seen}; "
+        f"plain {plain:.3f} ms; bound {b_ms:.4f} ms ({b_by}: active ids, "
+        f"fvals read once, the stack written once; with the words and the "
+        f"frontier source rows in place of fvals {w_ms:.4f} ms); "
+        f"torch.sparse.mm on the stacked v_pad x v_pad matrix {lib:.3f} ms "
+        f"(max |diff| {lib_err}), on the {pg.n_shards} shards' matrices "
+        f"{lib_shards:.3f} ms; the per-shard route's {pg.n_shards} calls "
+        f"{shard_ms:.3f} ms (device a level: frontier_words_kernel "
+        f"{shard_words:.4f} ms, frontier_nb_kernel {shard_nb:.4f} ms); the "
         f"replicated K2 level on the same state {replicated_ms:.3f} ms")
-    return {"max_abs_err": err, "ms": ms, "level_ms": ms * pg.n_shards,
-            "words_device_ms": device["frontier_words_kernel"] / pg.n_shards,
-            "nb_device_ms": device["frontier_nb_kernel"] / pg.n_shards,
-            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib, "replicated_level_ms": replicated_ms}
+    return {"max_abs_err": err, "ms": ms, "words_device_ms": words_dev,
+            "nb_device_ms": nb_dev, "plain_ms": plain, "bound_ms": b_ms,
+            "bound_by": b_by, "bound_words_ms": w_ms, "library_ms": lib,
+            "library_shards_ms": lib_shards, "per_shard_calls_ms": shard_ms,
+            "per_shard_words_device_ms": shard_words,
+            "per_shard_nb_device_ms": shard_nb,
+            "real_blocks": int(real.shape[0]), "edge_blocks": n_blocks,
+            "active_blocks": active, "replicated_level_ms": replicated_ms}
 
 
-def level_breakdown(pg, mesh, dist, sigma, levels, flat_ms: float) -> None:
+def level_breakdown(pg, mesh, dist, sigma, levels, flat_ms: float) -> dict:
     """Where a sharded level's time goes, CUDA events at the mid-BFS
-    state: the exchange, the shards' wide calls (words passes included),
-    and the rest of the level (frontier synthesis, stacking, the update
-    and its cross-shard reductions)."""
+    state: the exchange, the level call (words pass included), and the
+    rest of the level (the update and its cross-shard reductions)."""
     import torch
     from repro_torch.core.bfs import (_expand_level_sharded,
                                       _gather_frontier_sharded)
@@ -1664,31 +1820,31 @@ def level_breakdown(pg, mesh, dist, sigma, levels, flat_ms: float) -> None:
         pg, mesh, sd, ss, levels, active), 10)
     fvals, _, took = _gather_frontier_sharded(pg, mesh, sd, ss, levels,
                                               active)
-    fdist = torch.where(fvals > 0, levels, -1).to(torch.int32)
-    views = [pg.shards.shard(s) for s in range(pg.n_shards)]
-    wide = cuda_time_ms(lambda: [frontier_expand(
-        v.src, v.dst, fdist, fvals, levels, shard=v) for v in views], 10)
+    wide = cuda_time_ms(lambda: frontier_expand(
+        None, None, None, fvals, levels, shards=pg.shards), 10)
     whole = cuda_time_ms(lambda: _expand_level_sharded(
         pg, mesh, sd, ss, levels, active), 10)
     log(f"  a sharded level at the mid-BFS state: {whole:.3f} ms = "
-        f"exchange {xch:.3f} ms (sparse taken: {int(took)}) + wide calls "
-        f"{wide:.3f} ms + the rest {whole - xch - wide:.3f} ms; the "
-        f"replicated flat level (K1) on the same state {flat_ms:.3f} ms")
+        f"exchange {xch:.3f} ms (sparse taken: {int(took)}) + wide "
+        f"(the level call) {wide:.3f} ms + the rest "
+        f"{whole - xch - wide:.3f} ms; the replicated flat level (K1) on "
+        f"the same state {flat_ms:.3f} ms")
+    return {"sharded_level_ms": whole, "exchange_ms": xch, "wide_ms": wide}
 
 
-def read_sharded_counts(label: str, bfs_levels: int, stop_checks: int,
-                        n_shards: int) -> dict:
-    """Every level one wide launch and one words pass a shard; no flat or
-    replicated node-blocked launch; one stop check an epoch."""
+def read_sharded_counts(label: str, bfs_levels: int,
+                        stop_checks: int) -> dict:
+    """Every level one sharded level launch and one words pass for all
+    shards; no flat or replicated node-blocked launch; one stop check an
+    epoch."""
     from repro_torch.kernels import flashattn, frontier, segsum, stopcheck
     counts = all_counts()
-    want = n_shards * bfs_levels
-    if counts[frontier.NODE_BLOCKED_WIDE] != want or want == 0 \
-            or counts[frontier.WORDS] != want \
+    if counts[frontier.NODE_BLOCKED_WIDE] != bfs_levels or bfs_levels == 0 \
+            or counts[frontier.WORDS] != bfs_levels \
             or counts[frontier.FLAT] or counts[frontier.NODE_BLOCKED] \
             or counts[segsum.SEGSUM] or counts[flashattn.FLASHATTN]:
-        raise AssertionError(f"{label}: expected {n_shards} x {bfs_levels} "
-                             f"wide launches and words passes and no other "
+        raise AssertionError(f"{label}: expected {bfs_levels} level "
+                             f"launches and words passes and no other "
                              f"frontier kernel, got {counts}")
     if counts[stopcheck.STOPCHECK] != stop_checks or stop_checks == 0:
         raise AssertionError(f"{label}: expected {stop_checks} stop checks, "
@@ -1706,8 +1862,7 @@ def drive_sharded(label: str, pg, mesh, eps: float, delta: float, **cfg):
     t0 = time.perf_counter()
     res = run_kadabra(pg, config=config, seed=SEED, mesh=mesh)
     seconds = time.perf_counter() - t0
-    counts = read_sharded_counts(label, res.bfs_levels, res.n_epochs,
-                                 mesh.n_shards)
+    counts = read_sharded_counts(label, res.bfs_levels, res.n_epochs)
     total = sum(s.exchange["levels_total"] for s in res.stats)
     sparse = sum(s.exchange["levels_sparse"] for s in res.stats)
     moved = sum(s.exchange["bytes"] for s in res.stats)
@@ -1766,8 +1921,8 @@ def phase_sharded() -> tuple:
     row["shape"] = (f"R-MAT 2^{RMAT_SCALE} x {EDGE_FACTOR}, B={BATCH}, "
                     f"{SHARDS} shards of {pg.shard_rows} rows, block_v="
                     f"{pg.shards.block_v} block_e={pg.shards.block_e}, a call "
-                    "is one shard")
-    level_breakdown(pg, mesh, dist, sigma, levels, flat_ms)
+                    f"is one level of all {SHARDS} shards")
+    row.update(level_breakdown(pg, mesh, dist, sigma, levels, flat_ms))
     del dist, sigma
     torch.cuda.empty_cache()
 

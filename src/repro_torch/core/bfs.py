@@ -20,8 +20,10 @@ The ``*_sharded`` functions at the bottom run the same searches on a
 :class:`PartitionedGraph` over a :class:`ShardMesh`: the state is the
 stack (n_shards, shard_rows, B) of the shards' row slices, each level
 exchanges the masked frontier (dense, or bitmap-scheduled sparse) and
-each shard expands its own rows through the node-blocked kernel in
-wide_state mode.  On integer-valued sigma they give the replicated
+every shard expands its own rows through the node-blocked kernel in
+wide_state mode, all shards in one level call (one words pass, one
+launch over the layout's real edge blocks).  On integer-valued sigma
+they give the replicated
 searches' bits, whichever protocol a level takes.
 """
 from __future__ import annotations
@@ -332,17 +334,15 @@ def _exchange_masked_values(pg: PartitionedGraph, mesh: ShardMesh,
 
 def _expand_level_sharded(pg: PartitionedGraph, mesh: ShardMesh, dist,
                           sigma, level, active):
-    """One sharded level: the exchange, then each shard's rows through
-    the dispatcher's ``shard=`` route from the gathered values (frontier
-    dist synthesized as ``fvals > 0``: a reached frontier vertex has
-    sigma > 0), then the replicated lane's update with a global rescale
-    guard.  Returns (dist, sigma, n_new (B,), took_sparse)."""
+    """One sharded level: the exchange, then every shard's rows at once
+    through the dispatcher's ``shards=`` route from the gathered values
+    (the frontier is where a value is above +0: a reached frontier vertex
+    has sigma > 0), then the replicated lane's update with a global
+    rescale guard.  Returns (dist, sigma, n_new (B,), took_sparse)."""
     fvals, _src_bits, took = _gather_frontier_sharded(pg, mesh, dist, sigma,
                                                       level, active)
-    fdist = torch.where(fvals > 0.0, level[None, :], -1).to(torch.int32)
-    contrib = torch.stack([
-        frontier_expand(view.src, view.dst, fdist, fvals, level, shard=view)
-        for view in (pg.shards.shard(i) for i in range(pg.n_shards))])
+    contrib = frontier_expand(None, None, None, fvals, level,
+                              shards=pg.shards)
     new = (contrib > 0) & (dist == -1) & active[None, None, :]
     dist = torch.where(new, level[None, None, :] + 1, dist)
     sigma = torch.where(new, contrib, sigma)

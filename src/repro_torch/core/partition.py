@@ -76,6 +76,8 @@ class ShardedCSCLayout:
     n_edge_blocks: int
     n_shards: int
     n_nodes: int
+    _cache: dict = dataclasses.field(default_factory=dict, repr=False,
+                                     compare=False)
 
     @property
     def shard_rows(self) -> int:
@@ -104,12 +106,29 @@ class ShardedCSCLayout:
             n_edge_blocks=self.n_edge_blocks, n_nodes=self.n_nodes,
             n_src_blocks=self.n_shards * self.blocks_per_shard)
 
+    def real_blocks(self) -> torch.Tensor:
+        """(n_real,) int32, ascending: the flat indices ``s *
+        n_edge_blocks + j`` of the edge blocks holding a slot whose source
+        is not the sink.  Every other block (a shard's padding to
+        ``n_edge_blocks``, a bucket's all-pad block) adds nothing, since
+        sink slots also point their destination past the tile.  The grid
+        of the sharded level launch.  Built on the layout's device on
+        first use, then kept while ``src`` is this layout's (a
+        ``dataclasses.replace`` copy shares the cache)."""
+        hit = self._cache.get("real_blocks")
+        if hit is None or hit[0] is not self.src:
+            real = (self.src.view(-1, self.block_e) != self.n_nodes).any(
+                dim=1)
+            hit = (self.src, torch.nonzero(real)[:, 0].to(torch.int32))
+            self._cache["real_blocks"] = hit
+        return hit[1]
+
     def to(self, device) -> "ShardedCSCLayout":
         dev = resolve_device(device)
         return dataclasses.replace(
             self, src=self.src.to(dev), dst=self.dst.to(dev),
             block_nb=self.block_nb.to(dev), block_sb=self.block_sb.to(dev),
-            block_first=self.block_first.to(dev))
+            block_first=self.block_first.to(dev), _cache={})
 
 
 @dataclasses.dataclass(frozen=True)

@@ -67,7 +67,8 @@
 //    lines.  On a graph without hubs the sort costs more than it saves
 //    (tools/frontier_nb_probe.py times the variants).
 //
-// wide_state (frontier_nb_wide_launch) takes one vertex shard's layout:
+// wide_state (frontier_nb_wide_launch) takes one vertex shard's layout
+// (the reference's per-device call; one shard a process would use it):
 // global source ids, destination ids local to the shard, block_nb counted
 // in the shard's local node blocks.  Two row counts then differ: the
 // state (dist, sigma and the words) covers the gathered global rows,
@@ -79,6 +80,24 @@
 // which is on no frontier; even so an edge counts as a hit only when its
 // destination lies inside its node block and below out_rows, so a wrong
 // layout cannot write outside `out`.
+//
+// The sharded level (frontier_nb_sharded_level_launch) runs one BFS level
+// of all shards of a one-card mesh in two launches, where the reference
+// runs one wide_state call a device.  Calling the per-shard route once a
+// shard would build the same words from the same gathered rows S times,
+// and walk every shard's padding to the largest shard's edge blocks (at
+// R-MAT 2^20 in 8 shards, 27,057 blocks a shard, about 3/4 of them
+// padding, each staging its ids only to find no hit).  So the words pass
+// runs once, over the gathered masked values themselves (a bit where a
+// value is above +0: no dist is built), and zeroes the whole
+// (S, shard_rows, B) stack; then one frontier_nb_kernel launch takes the
+// layout's table of real blocks (the flat indices s * n_edge_blocks + j
+// of the blocks with a non-sink source, built once per layout) as its
+// grid.  A block reads its flat index from the table; its ids and node
+// block are those of the stacked arrays at that index, and it writes the
+// tile of shard s = index / n_edge_blocks, the block body and the range
+// check (inside its node block and below shard_rows) unchanged, so one
+// shard's edges cannot reach the next shard's tile.
 //
 // The TPU's DMA double-buffering, staged source tiles and one-hot matmuls
 // are fast-memory devices the card does not need: the output is zeroed by
@@ -110,9 +129,25 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxGrid = 132 * 64;  // SMs x resident blocks, grid-stride
 
+// Is state cell i (column b) on its sample's frontier?  A dist cell when
+// it equals its column's level; a cell of the sharded lane's gathered
+// masked values when it is above +0 (the reference's fdist == level on
+// fdist = where(fvals > 0, level, -1): NaN and +0 give no bit).
+__device__ __forceinline__ bool on_level(const int* __restrict__ dist,
+                                         long long i,
+                                         const int* __restrict__ levels,
+                                         int b) {
+  return dist[i] == __ldg(levels + b);
+}
+__device__ __forceinline__ bool on_level(const float* __restrict__ vals,
+                                         long long i, const int*, int) {
+  return vals[i] > 0.0f;
+}
+
 // `out` may be null: then the pass writes only the words.  Else it writes
 // the zeros of out's first `out_cells` cells (at most rows * batch).
-__global__ void frontier_words_kernel(const int* __restrict__ dist,
+template <typename T>
+__global__ void frontier_words_kernel(const T* __restrict__ state,
                                       const int* __restrict__ levels,
                                       unsigned* __restrict__ words,
                                       float* __restrict__ out,
@@ -137,7 +172,7 @@ __global__ void frontier_words_kernel(const int* __restrict__ dist,
       }
       bool hit = false;
       if (i < n) {
-        hit = dist[i] == __ldg(levels + b);
+        hit = on_level(state, i, levels, b);
         if (out != nullptr && i < out_cells) out[i] = 0.0f;
       }
       const unsigned ballot = __ballot_sync(0xffffffffu, hit);
@@ -154,11 +189,10 @@ __global__ void frontier_words_kernel(const int* __restrict__ dist,
     const long long v = i / n_words;
     const int b0 = (int)(i - v * n_words) * 32;
     const int nb = min(32, batch - b0);
-    const int* d = dist + v * batch + b0;
     unsigned bits = 0u;
     for (int c = 0; c < nb; ++c) {
-      bits |= (unsigned)(d[c] == __ldg(levels + b0 + c)) << c;
       const long long cell = v * batch + b0 + c;
+      bits |= (unsigned)on_level(state, cell, levels, b0 + c) << c;
       if (out != nullptr && cell < out_cells) out[cell] = 0.0f;
     }
     words[i] = bits;
@@ -274,22 +308,36 @@ __device__ __forceinline__ void add_row(float* out, long long dst_row, int b,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// One thread block an edge block.  Its flat index f is blocks[blockIdx.x]
+// (the sharded level's table of real blocks) or, with blocks null,
+// blockIdx.x itself; its ids start at f * block_e, its node block is
+// block_nb[f], and it writes the (out_rows, B) tile f / shard_blocks of
+// `out` (shard_blocks: edge blocks a shard; the replicated and per-shard
+// routes pass n_edge_blocks, so every block writes tile 0).  The index
+// arithmetic is 32-bit (a layout has fewer than 2^31 edge blocks): with
+// a 64-bit index and division the kernel took 40 registers, 6 resident
+// blocks an SM in place of 8.  The launch bound keeps it at 8.
+__global__ void __launch_bounds__(kThreads, 8)
 frontier_nb_kernel(const int* __restrict__ csc_src,
                    const int* __restrict__ csc_dst,
                    const unsigned* __restrict__ words,
                    const int* __restrict__ block_nb,
+                   const int* __restrict__ blocks,
                    const float* __restrict__ sigma, float* __restrict__ out,
                    int block_e, int block_v, int batch, int n_words,
-                   int vec_ids, int vec_cols, long long out_rows) {
+                   int vec_ids, int vec_cols, long long out_rows,
+                   int shard_blocks) {
   // this edge block's ids; an edge whose source is on no frontier, or
   // whose destination lies outside its node block or past out_rows, gets
   // the key INT_MAX, which sorts it past every hit
   extern __shared__ int stage[];
   int* s_src = stage;
   int* s_dst = stage + block_e;
-  const long long base = (long long)blockIdx.x * block_e;
-  const long long v0 = (long long)block_nb[blockIdx.x] * block_v;
+  const int f = blocks != nullptr ? __ldg(blocks + blockIdx.x)
+                                  : (int)blockIdx.x;
+  const long long base = (long long)f * block_e;
+  const long long v0 = (long long)block_nb[f] * block_v;
+  out += (long long)((unsigned)f / (unsigned)shard_blocks) * out_rows * batch;
   int any = 0;
   auto put = [&](int e, int u, int v) {
     const bool hit = (unsigned long long)(v - v0) < (unsigned)block_v
@@ -553,8 +601,10 @@ int pull_launch(const long long* offsets, const int* src_sorted,
   return (int)cudaGetLastError();
 }
 
-// `out_rows`: the rows of `out` to zero (-1: as many as the state's)
-int words_launch(const void* dist, const void* levels, void* words,
+// `out_rows`: the rows of `out` to zero (-1: as many as the state's).
+// T is int for a dist state, float for the sharded lane's masked values.
+template <typename T>
+int words_launch(const void* state, const void* levels, void* words,
                  void* out, long long rows, int batch, cudaStream_t stream,
                  long long out_rows = -1) {
   if (rows > 0 && batch > 0) {
@@ -566,17 +616,20 @@ int words_launch(const void* dist, const void* levels, void* words,
     const long long work = by_warp ? rows * batch : rows * n_words;
     long long blocks = (work + kThreads - 1) / kThreads;
     const int grid = (int)(blocks < kMaxGrid ? blocks : kMaxGrid);
-    frontier_words_kernel<<<grid, kThreads, 0, stream>>>(
-        (const int*)dist, (const int*)levels, (unsigned*)words, (float*)out,
+    frontier_words_kernel<T><<<grid, kThreads, 0, stream>>>(
+        (const T*)state, (const int*)levels, (unsigned*)words, (float*)out,
         rows, batch, n_words, by_warp, out_cells);
   }
   return (int)cudaGetLastError();
 }
 
+// `n_blocks` thread blocks, over the table `blocks` (null: edge blocks
+// 0 .. n_blocks - 1), each writing the tile of its shard
 int nb_launch(const void* csc_src, const void* csc_dst,
-              const void* block_nb, const void* words, const void* sigma,
-              void* out, int n_edge_blocks, int block_e, int block_v,
-              int batch, long long out_rows, cudaStream_t stream) {
+              const void* block_nb, const void* blocks, int n_blocks,
+              int shard_blocks, const void* words, const void* sigma,
+              void* out, int block_e, int block_v, int batch,
+              long long out_rows, cudaStream_t stream) {
   const size_t smem = 2 * (size_t)block_e * sizeof(int);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -591,10 +644,11 @@ int nb_launch(const void* csc_src, const void* csc_dst,
   // float4 columns need B % 4 == 0 and 16-byte aligned rows
   const int vec_cols = batch % 4 == 0
       && (((unsigned long long)sigma | (unsigned long long)out) & 15ull) == 0;
-  frontier_nb_kernel<<<n_edge_blocks, kThreads, smem, stream>>>(
+  frontier_nb_kernel<<<n_blocks, kThreads, smem, stream>>>(
       (const int*)csc_src, (const int*)csc_dst, (const unsigned*)words,
-      (const int*)block_nb, (const float*)sigma, (float*)out, block_e,
-      block_v, batch, (batch + 31) / 32, vec_ids, vec_cols, out_rows);
+      (const int*)block_nb, (const int*)blocks, (const float*)sigma,
+      (float*)out, block_e, block_v, batch, (batch + 31) / 32, vec_ids,
+      vec_cols, out_rows, shard_blocks);
   return (int)cudaGetLastError();
 }
 
@@ -614,7 +668,8 @@ extern "C" int frontier_pull_launch(
     long long n_split, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (rows <= 0 || batch <= 0) return (int)cudaGetLastError();
-  const int err = words_launch(dist, levels, words, nullptr, rows, batch, s);
+  const int err = words_launch<int>(dist, levels, words, nullptr, rows,
+                                    batch, s);
   if (err != 0) return err;
   // float4 columns need B % 4 == 0 and 16-byte aligned rows
   const int vec = batch % 4 == 0
@@ -641,8 +696,8 @@ extern "C" int frontier_pull_launch(
 extern "C" int frontier_words_launch(const void* dist, const void* levels,
                                      void* words, void* out, long long rows,
                                      int batch, void* stream) {
-  return words_launch(dist, levels, words, out, rows, batch,
-                      (cudaStream_t)stream);
+  return words_launch<int>(dist, levels, words, out, rows, batch,
+                           (cudaStream_t)stream);
 }
 
 // One node-blocked level: the words pass (which zeroes out), then
@@ -654,10 +709,12 @@ extern "C" int frontier_nb_launch(const void* csc_src, const void* csc_dst,
                                   int n_edge_blocks, int block_e,
                                   int block_v, int batch, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int err = words_launch(dist, levels, words, out, rows, batch, s);
+  const int err = words_launch<int>(dist, levels, words, out, rows, batch,
+                                    s);
   if (err != 0 || n_edge_blocks <= 0 || batch <= 0) return err;
-  return nb_launch(csc_src, csc_dst, block_nb, words, sigma, out,
-                   n_edge_blocks, block_e, block_v, batch, rows, s);
+  return nb_launch(csc_src, csc_dst, block_nb, nullptr, n_edge_blocks,
+                   n_edge_blocks, words, sigma, out, block_e, block_v, batch,
+                   rows, s);
 }
 
 // One shard's node-blocked level in wide_state: the words pass over the
@@ -672,9 +729,34 @@ extern "C" int frontier_nb_wide_launch(
     int block_e, int block_v, int batch, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (out_rows > state_rows) return (int)cudaErrorInvalidValue;
-  const int err = words_launch(dist, levels, words, out, state_rows, batch,
-                               s, out_rows);
+  const int err = words_launch<int>(dist, levels, words, out, state_rows,
+                                    batch, s, out_rows);
   if (err != 0 || n_edge_blocks <= 0 || batch <= 0) return err;
-  return nb_launch(csc_src, csc_dst, block_nb, words, sigma, out,
-                   n_edge_blocks, block_e, block_v, batch, out_rows, s);
+  return nb_launch(csc_src, csc_dst, block_nb, nullptr, n_edge_blocks,
+                   n_edge_blocks, words, sigma, out, block_e, block_v, batch,
+                   out_rows, s);
+}
+
+// One level of every shard of a sharded layout, from the gathered masked
+// frontier values `fvals` ((state_rows, B) float32, the state's sigma
+// too): the words pass over fvals (a bit where a value is above +0),
+// which zeroes the whole (n_shards, shard_rows, B) stack `out`, then one
+// frontier_nb_kernel launch over the n_real blocks of the table
+// `real_blocks` (flat indices s * n_edge_blocks + j, ascending), each
+// writing its shard's tile.  The layout's arrays are the stacked
+// (n_shards, n_edge_blocks * block_e) ids and (n_shards, n_edge_blocks)
+// block_nb.  The caller keeps n_shards * shard_rows <= state_rows.
+extern "C" int frontier_nb_sharded_level_launch(
+    const void* csc_src, const void* csc_dst, const void* block_nb,
+    const void* real_blocks, int n_real, const void* fvals, void* words,
+    void* out, long long state_rows, long long shard_rows, int n_shards,
+    int n_edge_blocks, int block_e, int block_v, int batch, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n_shards * shard_rows > state_rows) return (int)cudaErrorInvalidValue;
+  const int err = words_launch<float>(fvals, nullptr, words, out, state_rows,
+                                      batch, s, n_shards * shard_rows);
+  if (err != 0 || n_real <= 0 || batch <= 0) return err;
+  return nb_launch(csc_src, csc_dst, block_nb, real_blocks, n_real,
+                   n_edge_blocks, words, fvals, out, block_e, block_v, batch,
+                   shard_rows, s);
 }

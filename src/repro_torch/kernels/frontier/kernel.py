@@ -16,7 +16,12 @@ design answers that bound).  Both routes run a level in one C call:
   ``frontier_expand_node_blocked_pallas``); with ``wide_state=True`` it
   takes one vertex shard's layout and the gathered global state, and
   writes the shard's tile (the sharded lane's mode of the same TPU
-  kernel).
+  kernel, one call a shard as the reference makes it on each device);
+* :func:`frontier_expand_sharded_level`: the same mode for every shard
+  of a one-card mesh at once: one words pass over the gathered masked
+  values, then one ``frontier_nb_kernel`` launch over the layout's real
+  edge blocks (``ShardedCSCLayout.real_blocks``), into the
+  (S, shard_rows, B) stack.
 
 :func:`frontier_words` launches the words pass alone: the (rows, W)
 frontier bit-words of a level and the zeroed (rows, B) output.  Besides
@@ -32,7 +37,8 @@ plain version in ``ref.py`` only because the tensor it was given lies on
 the CPU.  Each launch adds one to ``launch_counts[<kernel>]``, a plain
 int that a run resets and reads to show which kernels it went through:
 a level adds one to its route's count and one to ``WORDS``; a shard's
-wide level counts under ``NODE_BLOCKED_WIDE``.
+wide level, and a sharded level of all shards, count under
+``NODE_BLOCKED_WIDE``.
 """
 from __future__ import annotations
 
@@ -44,6 +50,7 @@ import torch
 from .. import _build
 from ..segsum.kernel import SegmentPlan, build_plan
 from .ref import (frontier_expand_node_blocked_ref,
+                  frontier_expand_sharded_level_ref,
                   frontier_expand_sharded_ref, frontier_pull_ref,
                   frontier_words_ref)
 
@@ -51,7 +58,8 @@ __all__ = ["FLAT", "NODE_BLOCKED", "NODE_BLOCKED_WIDE", "PULL_SPLIT",
            "SOURCE", "WORDS", "build_pull_plan",
            "edge_bitmap_from_source_bits", "frontier_block_bitmap",
            "frontier_expand_flat", "frontier_expand_node_blocked",
-           "frontier_row_mask", "frontier_source_block_bitmap",
+           "frontier_expand_sharded_level", "frontier_row_mask",
+           "frontier_source_block_bitmap",
            "frontier_words", "launch_counts", "library",
            "node_blocked_smem_bytes", "reset_launch_counts",
            "MAX_SMEM_BYTES"]
@@ -87,6 +95,9 @@ def _declare(lib) -> None:
     lib.frontier_nb_wide_launch.argtypes = [p, p, p, p, p, p, p, p, i64,
                                             i64, i32, i32, i32, i32, p]
     lib.frontier_nb_wide_launch.restype = i32
+    lib.frontier_nb_sharded_level_launch.argtypes = [
+        p, p, p, p, i32, p, p, p, i64, i64, i32, i32, i32, i32, i32, p]
+    lib.frontier_nb_sharded_level_launch.restype = i32
 
 
 def library() -> ctypes.CDLL:
@@ -301,3 +312,51 @@ def frontier_expand_node_blocked(csc, dist, sigma, levels, *,
         launch_counts[NODE_BLOCKED] += 1
     launch_counts[WORDS] += 1
     return out
+
+
+def frontier_expand_sharded_level(shards, fvals, levels):
+    """One BFS level of every shard of ``shards`` (a ``ShardedCSCLayout``)
+    from the gathered masked frontier values: the (S, shard_rows, B)
+    stack of the shards' tiles, each the sum over the shard's edges of
+    ``fvals[src]`` where it is above +0.
+
+    ``fvals`` is (>= v_pad, B) float32, the lane's gathered values (zero
+    off the frontier); ``levels`` (B,) only shapes the plain version's
+    synthesized dist (``where(fvals > 0, levels, -1)``), on which the
+    result does not depend.  On the card: one C call, the words pass over
+    ``fvals`` (which zeroes the stack), then ``frontier_nb_kernel`` over
+    the layout's real edge blocks.
+    """
+    rows, batch = fvals.shape
+    levels = _levels(levels, batch, fvals.device)
+    if fvals.dtype != torch.float32:
+        raise TypeError(f"fvals must be float32, got {fvals.dtype}")
+    if rows < shards.v_pad:
+        raise ValueError(f"the sharded level expects >= {shards.v_pad} "
+                         f"gathered rows, got {rows}")
+    if not fvals.is_cuda:
+        return frontier_expand_sharded_level_ref(shards, fvals, levels)
+    if shards.src.device != fvals.device:
+        raise ValueError("the sharded layout must live on the state's "
+                         "device")
+    if not fvals.is_contiguous():
+        raise ValueError("fvals must be contiguous (rows, B)")
+    smem = node_blocked_smem_bytes(shards.block_e)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"block_e={shards.block_e} stages {smem} bytes of "
+                         f"shared memory, over the card's {MAX_SMEM_BYTES}")
+    real = shards.real_blocks()
+    words, out = _level_buffers(fvals, shards.v_pad)
+    # one C call launches both kernels
+    code = library().frontier_nb_sharded_level_launch(
+        shards.src.data_ptr(), shards.dst.data_ptr(),
+        shards.block_nb.data_ptr(), real.data_ptr(), real.shape[0],
+        fvals.data_ptr(), words.data_ptr(), out.data_ptr(), rows,
+        shards.shard_rows, shards.n_shards, shards.n_edge_blocks,
+        shards.block_e, shards.block_v, batch,
+        _build.raw_stream(fvals.device))
+    _build.check(code, "frontier_words_kernel / frontier_nb_kernel "
+                 "(sharded level) launch")
+    launch_counts[NODE_BLOCKED_WIDE] += 1
+    launch_counts[WORDS] += 1
+    return out.view(shards.n_shards, shards.shard_rows, batch)

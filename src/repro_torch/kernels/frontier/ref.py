@@ -15,7 +15,9 @@ vertex-major state), the same as ``repro.kernels.frontier.ref``:
 The node-blocked version runs the same sum over a ``CSCLayout``'s edge
 order and keeps the row count it was handed.  The sharded version runs
 it over one shard's local view (global ``src``, local ``dst``) from the
-gathered global state and returns the shard's (shard_rows, B) tile.  ``frontier_pull_ref`` runs
+gathered global state and returns the shard's (shard_rows, B) tile; the
+sharded level version stacks every shard's tile, from the gathered
+masked values alone.  ``frontier_pull_ref`` runs
 it over a pull plan (``kernel.build_pull_plan``) in the pull kernel's
 order of additions.  ``frontier_words_ref`` is the plain version of the
 words pass both routes start with: the frontier packed 32 samples to an
@@ -28,6 +30,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["frontier_expand_batched_ref", "frontier_expand_node_blocked_ref",
+           "frontier_expand_sharded_level_ref",
            "frontier_expand_sharded_ref", "frontier_pull_ref",
            "frontier_words_ref"]
 
@@ -72,6 +75,18 @@ def frontier_expand_sharded_ref(shard, dist, sigma, levels):
     """
     return _expand(shard.src, shard.dst, dist, sigma, levels,
                    shard.v_pad + 1)[: shard.v_pad]
+
+
+def frontier_expand_sharded_level_ref(shards, fvals, levels):
+    """Every shard's tile of the level, stacked (S, shard_rows, B): the
+    per-shard version over ``shards.shard(s)`` with the gathered masked
+    values ``fvals`` as sigma and their synthesized dist
+    ``where(fvals > 0, levels, -1)``, as the reference hands each device
+    its wide_state call."""
+    fdist = torch.where(fvals > 0.0, levels[None, :], -1).to(torch.int32)
+    return torch.stack([
+        frontier_expand_sharded_ref(shards.shard(s), fdist, fvals, levels)
+        for s in range(shards.n_shards)])
 
 
 def frontier_pull_ref(plan, dist, sigma, levels):

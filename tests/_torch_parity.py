@@ -4,7 +4,8 @@ and pull tensors back."""
 import numpy as np
 import torch
 
-from repro_torch.core import graph_from_numpy, partitioned_from_numpy
+from repro_torch.core import (bfs_sssp_batched, graph_from_numpy,
+                              partitioned_from_numpy)
 from repro_torch.models.gnn import GraphBatch
 
 _GRAPH_ARRAYS = ("indptr", "indices", "src", "dst", "degree")
@@ -58,3 +59,21 @@ def batch_to_port(jbatch, device="cpu"):
     return GraphBatch(
         **{k: torch.from_numpy(np.array(getattr(jbatch, k))).to(device)
            for k in names}, n_graphs=jbatch.n_graphs)
+
+
+def wide_inputs(tgraph, jpg, batch, seed, gaussian):
+    """JAX's gathered frontier contract at one BFS level (the port's BFS,
+    which gives JAX's bits): masked values over the global rows and their
+    synthesized dist, numpy.  ``gaussian`` replaces sigma by |N(0, 1)|
+    draws, which no summation order keeps exact."""
+    rng = np.random.default_rng(seed)
+    sources = rng.integers(0, tgraph.n_nodes, batch).astype(np.int32)
+    res = bfs_sssp_batched(tgraph, sources)
+    levels = np.maximum(np_(res.levels) // 2, 1).astype(np.int32)
+    dist, sigma = np_(res.dist), np_(res.sigma)
+    if gaussian:
+        sigma = np.abs(rng.standard_normal(sigma.shape)).astype(np.float32)
+    fvals = np.zeros((jpg.v_pad, batch), np.float32)
+    fvals[: dist.shape[0]] = np.where(dist == levels, sigma, 0.0)
+    fdist = np.where(fvals > 0, levels, -1).astype(np.int32)
+    return fdist, fvals, levels

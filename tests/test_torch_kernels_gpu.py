@@ -8,6 +8,9 @@ Without a card every test skips (the ``cuda`` fixture decides at run
 time, so every worker collects the same tests).  This file imports
 torch and the port only, so it runs where JAX is not installed.
 """
+import dataclasses
+import time
+
 import pytest
 import torch
 
@@ -376,10 +379,98 @@ def test_wide_kernel_leaves_canary_rows(cuda):
     assert torch.equal(out[:rows], want)
 
 
-def test_sharded_lane_launches_the_wide_kernel_once_a_shard_a_level(cuda):
+def _exact_equal(got, want):
+    """Bitwise where the plain value is an exact integer below 2^24,
+    within rtol 1e-6 elsewhere (atomics add in a varying order)."""
+    exact = (want < 2 ** 24) & (want == torch.round(want))
+    assert torch.equal(got[exact], want[exact])
+    gap = (got[~exact] - want[~exact]).abs()
+    assert bool((gap <= 1e-6 * want[~exact].abs()).all())
+
+
+@pytest.mark.parametrize("name,batch", [("rmat", 64), ("rmat", 5),
+                                        ("grid", 8), ("grid", 65)])
+def test_sharded_level_kernel_matches_plain(cuda, name, batch):
+    """The sharded level call (one words pass over the gathered values,
+    one node-blocked launch over the real blocks) against its plain
+    version, bitwise where the sums are exact, one wide launch and one
+    words pass for the whole level; each shard's tile is also the
+    per-shard wide kernel's."""
+    make, n_shards, block_v, block_e = _SHARDED[name]
+    graph = make(cuda)
+    pg = tc.partition_graph(graph, n_shards, block_v=block_v,
+                            block_e=block_e)
+    fdist, fvals, levels = _wide_state(graph, pg, batch, seed=batch)
+    tf.reset_launch_counts()
+    got = tf.frontier_expand_sharded_level(pg.shards, fvals, levels)
+    torch.cuda.synchronize()
+    assert tf.launch_counts == {tf.FLAT: 0, tf.NODE_BLOCKED: 0,
+                                tf.NODE_BLOCKED_WIDE: 1, tf.WORDS: 1}
+    want = tf.frontier_expand_sharded_level_ref(pg.shards, fvals, levels)
+    assert got.shape == (n_shards, pg.shard_rows, batch)
+    _exact_equal(got, want)
+    assert bool(want.any())
+    for s in range(n_shards):
+        tile = tf.frontier_expand_node_blocked(pg.shards.shard(s), fdist,
+                                               fvals, levels,
+                                               wide_state=True)
+        _exact_equal(got[s], tile)
+    real = pg.shards.real_blocks()
+    assert 0 < real.shape[0] <= n_shards * pg.shards.n_edge_blocks
+
+
+def test_sharded_level_kernel_leaves_the_next_tile_and_canary_rows(cuda):
+    """Shards whose destinations point past their tile (frontier sources
+    included): shard 1's would land in shard 2's tile, the last shard's
+    past the stack.  The range check keeps both out: shard 2's tile and
+    the canary rows past the stack keep what they should, and the stack
+    is the plain sum without those edges."""
+    graph = tc.grid_graph(64, 8, device=cuda)
+    pg = tc.partition_graph(graph, 3, block_v=64, block_e=128)
+    # three quarters of the rows on every sample's frontier, integer
+    # values: exact sums
+    gen = torch.Generator().manual_seed(2)
+    fvals = torch.zeros((pg.v_pad, 8))
+    fvals[:graph.n_nodes] = torch.randint(0, 4, (graph.n_nodes, 8),
+                                          generator=gen).float()
+    fvals = fvals.to(cuda)
+    levels = torch.zeros(8, dtype=torch.int32, device=cuda)
+    shards = pg.shards
+    rows = shards.shard_rows
+    dst, src = shards.dst.clone(), shards.src.clone()
+    for s in (1, shards.n_shards - 1):
+        hit = (fvals[shards.src[s].long()] > 0).any(dim=1)
+        bad = torch.nonzero(hit)[:, 0][::3]
+        assert bad.numel() > 4
+        dst[s, bad] = (rows + torch.arange(bad.numel(), device=cuda) % 4).to(
+            torch.int32)
+        src[s, bad] = graph.n_nodes
+    broken = dataclasses.replace(shards, dst=dst, _cache={})
+    kept = dataclasses.replace(shards, src=src, _cache={})
+    canary = 7.0
+    stack = shards.n_shards * rows
+    out = torch.full((stack + 4, 8), canary, device=cuda)
+    words = torch.empty((fvals.shape[0], 1), dtype=torch.int32, device=cuda)
+    real = broken.real_blocks()
+    code = tf.kernel.library().frontier_nb_sharded_level_launch(
+        broken.src.data_ptr(), broken.dst.data_ptr(),
+        broken.block_nb.data_ptr(), real.data_ptr(), real.shape[0],
+        fvals.data_ptr(), words.data_ptr(), out.data_ptr(), fvals.shape[0],
+        rows, broken.n_shards, broken.n_edge_blocks, broken.block_e,
+        broken.block_v, 8, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert code == 0
+    assert bool((out[stack:] == canary).all())
+    want = tf.frontier_expand_sharded_level_ref(kept, fvals, levels)
+    assert torch.equal(out[:stack].view(want.shape), want)
+    assert bool(want[2].any())
+
+
+def test_sharded_lane_launches_the_level_kernel_once_a_level(cuda):
     """The sharded BFS, bidirectional search and run_kadabra on the card:
-    every level one wide launch (and one words pass) a shard, no flat or
-    replicated node-blocked launch; the BFS gives the replicated bits."""
+    every level one sharded level launch (and one words pass) for all
+    shards, no flat or replicated node-blocked launch; the BFS gives the
+    replicated bits."""
     graph = tc.grid_graph(32, 16, device=cuda)
     pg = tc.partition_graph(graph, 4, block_v=64, block_e=128)
     mesh = tc.ShardMesh(4, cuda)
@@ -391,15 +482,15 @@ def test_sharded_lane_launches_the_wide_kernel_once_a_shard_a_level(cuda):
     assert torch.equal(mesh.all_gather(res.dist)[:v1].cpu(), want.dist)
     assert torch.equal(mesh.all_gather(res.sigma)[:v1].cpu(), want.sigma)
     assert tf.launch_counts == {tf.FLAT: 0, tf.NODE_BLOCKED: 0,
-                                tf.NODE_BLOCKED_WIDE: 4 * res.n_iters,
-                                tf.WORDS: 4 * res.n_iters}
+                                tf.NODE_BLOCKED_WIDE: res.n_iters,
+                                tf.WORDS: res.n_iters}
     hyper = tc.hyperbolic_graph(300, 20.0, seed=1, device=cuda)
     hpg = tc.partition_graph(hyper, 4, block_v=128, block_e=256)
     tf.reset_launch_counts()
     ts.reset_launch_counts()
     run = tc.run_kadabra(hpg, eps=0.05, mesh=tc.ShardMesh(4, cuda))
     assert tf.launch_counts[tf.NODE_BLOCKED_WIDE] \
-        == tf.launch_counts[tf.WORDS] == 4 * run.bfs_levels > 0
+        == tf.launch_counts[tf.WORDS] == run.bfs_levels > 0
     assert tf.launch_counts[tf.FLAT] == tf.launch_counts[tf.NODE_BLOCKED] \
         == 0
     assert ts.launch_counts[ts.STOPCHECK] == run.n_epochs > 0
@@ -477,20 +568,36 @@ def test_stopcheck_kernel_scratch_per_stream(cuda):
 
 def test_stopcheck_is_one_launch_a_check(cuda):
     """The profiler sees one kernel launch a check, and it is the
-    stop-check kernel."""
-    from torch.profiler import ProfilerActivity, profile
+    stop-check kernel: 10 checks in the second of two traced steps (the
+    first warms the trace up: a trace can miss the first launches of a
+    session), and 10 counted launches in each."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     counts, lil, liu = _stop_inputs(1 << 20, cuda, seed=8)
     omega = torch.tensor(84_000.0, device=cuda)
     ts.stopcheck_fused(counts, 64, lil, liu, omega)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            ts.stopcheck_fused(counts, 64, lil, liu, omega)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
+    traced, counted = [], []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: traced.append(p.key_averages())
+                 ) as prof:
+        for _ in range(2):
+            # the checks sit 0.25 s inside the traced step at both ends,
+            # away from the edges of the trace's window
+            time.sleep(0.25)
+            ts.reset_launch_counts()
+            for _ in range(10):
+                ts.stopcheck_fused(counts, 64, lil, liu, omega)
+            torch.cuda.synchronize()
+            counted.append(ts.launch_counts[ts.STOPCHECK])
+            time.sleep(0.25)
+            prof.step()
+    assert counted == [10, 10]
+    kernels = [e for e in traced[-1]
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.self_device_time_total > 0 and "Memcpy" not in e.key
-               and "Memset" not in e.key]
+               and "Memset" not in e.key
+               and not e.key.startswith("ProfilerStep")]
     assert [e.count for e in kernels] == [10], [(e.key, e.count)
                                                for e in kernels]
     assert "stopcheck_kernel" in kernels[0].key

@@ -23,7 +23,7 @@ import repro.core as jc
 import repro.kernels.frontier as jf
 import repro_torch.core as tc
 import repro_torch.kernels.frontier as tf
-from _torch_parity import np_, partitioned_to_port, to_port
+from _torch_parity import np_, partitioned_to_port, to_port, wide_inputs
 from repro_torch.core import AdaptiveConfig, ShardMesh
 
 CPU = "cpu"
@@ -42,31 +42,14 @@ def _gathered(mesh, x, v1):
 # The plain wide expansion, the bitmaps and the dispatcher's routes
 # ---------------------------------------------------------------------------
 
-def _wide_inputs(tgraph, jpg, batch, seed, gaussian):
-    """JAX's gathered frontier contract at one BFS level (the port's BFS,
-    which gives JAX's bits): masked values over the global rows and their
-    synthesized dist."""
-    rng = np.random.default_rng(seed)
-    sources = rng.integers(0, tgraph.n_nodes, batch).astype(np.int32)
-    res = tc.bfs_sssp_batched(tgraph, sources)
-    levels = np.maximum(np_(res.levels) // 2, 1).astype(np.int32)
-    dist, sigma = np_(res.dist), np_(res.sigma)
-    if gaussian:
-        sigma = np.abs(rng.standard_normal(sigma.shape)).astype(np.float32)
-    fvals = np.zeros((jpg.v_pad, batch), np.float32)
-    fvals[: dist.shape[0]] = np.where(dist == levels, sigma, 0.0)
-    fdist = np.where(fvals > 0, levels, -1).astype(np.int32)
-    return fdist, fvals, levels
-
-
 @pytest.mark.parametrize("gaussian", [False, True], ids=["int", "normal"])
 @pytest.mark.parametrize("batch", [1, 5, 33, 64, 96])
 def test_sharded_ref_matches_jax(batch, gaussian):
     jgraph = jc.erdos_renyi_graph(500, 6.0, seed=7)
     jpg = jc.partition_graph(jgraph, 4, block_v=64, block_e=128)
     tpg = partitioned_to_port(jpg)
-    fdist, fvals, levels = _wide_inputs(to_port(jgraph), jpg, batch, batch,
-                                        gaussian)
+    fdist, fvals, levels = wide_inputs(to_port(jgraph), jpg, batch, batch,
+                                       gaussian)
     args = [torch.from_numpy(a) for a in (fdist, fvals, levels)]
     before = dict(tf.launch_counts)
     for s in range(jpg.n_shards):
