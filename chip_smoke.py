@@ -29,9 +29,9 @@ any failed phase.  Phases:
    timed a call first, before the grid's level and any profiler
    session (1,000 calls back to back at V = 2^20);
 4. the main path: ``run_kadabra`` on R-MAT 2^20 x 30, B=64, eps=0.01,
-   delta=0.1 (``repro.configs.betweenness``), no CSC layout, so every
-   level goes through the flat kernel and every epoch's stop check
-   through the stop-check kernel;
+   delta=0.1 (``repro_torch.configs.betweenness``), no CSC layout, so
+   every level goes through the flat kernel and every epoch's stop check
+   through the stop-check kernel; then [15a] (below);
    then four of its sampling rounds under ``torch.profiler`` (device
    time by kernel, device idle share);
    then the stop-check kernel against its plain version at V = 2^20
@@ -112,9 +112,21 @@ any failed phase.  Phases:
    call, the rest) beside the replicated flat level; one bidirectional
    batch against the replicated flat route (dist, d and split bitwise);
    ``run_kadabra`` on the partition (every level one level launch and
-   one words pass, no flat or replicated node-blocked launch), two of
-   its rounds under the profiler; hyperbolic(1000) in 8 shards within
-   eps 0.05 of exact Brandes.
+   one words pass, no flat or replicated node-blocked launch), then
+   [15b] (below), two of its rounds under the profiler;
+   hyperbolic(1000) in 8 shards within eps 0.05 of exact Brandes;
+15. checkpointed resume at full size, in a temporary directory removed
+   after: (a) right after [4], [4]'s run with ``checkpoint_dir`` stopped
+   after 8 epochs, resumed with [4]'s config (btilde, tau and epochs
+   bitwise [4]'s) and resumed again (no epoch drawn, the same result);
+   (b) right after [14]'s run, the same stopped after 7 epochs, one byte
+   of the newest step's first leaf flipped, resumed: the step is
+   quarantined, the run falls back to step 6, whose leaves and
+   generator state come back bitwise, and its result is [14]'s bits, or
+   within 2 eps of them where a second uninterrupted run also differs.
+   Each prints the bytes a step, the seconds a save blocks the loop, the
+   background publish's and a restore's seconds; (a) also the replayed
+   phases 1-2 and the checkpointed run's sampling seconds against [4]'s.
 
 Every run resets the launch counts just before it and reads them just
 after: each kernel of the run must have carried all of its work.
@@ -140,8 +152,9 @@ RTOL = 1e-6
 U32 = 2.0 ** -24      # float32 unit roundoff
 U_BF16 = 2.0 ** -8    # bfloat16 unit roundoff
 SEED = 0
-RMAT_SCALE, EDGE_FACTOR, BATCH = 20, 30, 64
-MAIN_EPS, MAIN_DELTA = 0.01, 0.1
+# the production cell, R-MAT 2^20 x 30 at eps 0.01, delta 0.1 and B = 64:
+# set by load_main_config() from repro_torch.configs.betweenness
+RMAT_SCALE = EDGE_FACTOR = BATCH = MAIN_EPS = MAIN_DELTA = None
 # epochs of the main path: caps the run inside the smoke's time limit;
 # a run that hits it reports converged=False
 MAIN_MAX_EPOCHS = 100
@@ -217,7 +230,22 @@ LLAMA_BF16_RATIO = 1.5
 # 147,456, v_pad 1,179,648); hyperbolic(1000) in 8 shards of 128 rows
 SHARDS = 8
 HYPER_BLOCK_V = 128
+# checkpointed resume: the replicated run stopped after 8 of [4]'s
+# epochs, the sharded one after 7 of [14]'s, whose newest step then has
+# one byte of its first leaf flipped
+RESUME_AT, SHARDED_RESUME_AT = 8, 7
 DEVICE = "cuda"
+
+
+def load_main_config() -> None:
+    """The production cell's R-MAT scale and edge factor, eps, delta and
+    B, from the port's betweenness config."""
+    global RMAT_SCALE, EDGE_FACTOR, BATCH, MAIN_EPS, MAIN_DELTA
+    from repro_torch.configs.betweenness import make_config
+    cfg = make_config()
+    RMAT_SCALE, EDGE_FACTOR = cfg.rmat_scale, cfg.edge_factor
+    MAIN_EPS, MAIN_DELTA = cfg.eps, cfg.delta
+    BATCH = cfg.adaptive.sample_batch_size
 
 
 def log(msg: str) -> None:
@@ -674,18 +702,20 @@ def read_counts(label: str, kernel_name: str, bfs_levels: int,
 
 
 def drive(label: str, graph, kernel_name: str, eps: float, delta: float,
-          **cfg):
+          checkpoint_dir=None, **cfg):
     """Run ``run_kadabra`` with the launch counts set to 0 just before
     and read just after; the named kernel must carry every level and the
-    stop-check kernel the one stop check of every epoch."""
+    stop-check kernel the one stop check of every epoch drawn (a resumed
+    run draws only the epochs after its checkpoint)."""
     import numpy as np
     from repro_torch.core import AdaptiveConfig, run_kadabra
     config = AdaptiveConfig(eps=eps, delta=delta, **cfg)
     reset_counts()
     t0 = time.perf_counter()
-    res = run_kadabra(graph, config=config, seed=SEED, device=DEVICE)
+    res = run_kadabra(graph, config=config, seed=SEED, device=DEVICE,
+                      checkpoint_dir=checkpoint_dir)
     seconds = time.perf_counter() - t0
-    counts = read_counts(label, kernel_name, res.bfs_levels, res.n_epochs)
+    counts = read_counts(label, kernel_name, res.bfs_levels, len(res.stats))
     b = res.btilde
     log(f"  {label}: {seconds:.1f} s, phases "
         + ", ".join(f"{k} {v:.2f} s" for k, v in res.phase_seconds.items())
@@ -1852,7 +1882,8 @@ def read_sharded_counts(label: str, bfs_levels: int,
     return counts
 
 
-def drive_sharded(label: str, pg, mesh, eps: float, delta: float, **cfg):
+def drive_sharded(label: str, pg, mesh, eps: float, delta: float,
+                  checkpoint_dir=None, **cfg):
     """run_kadabra on the partitioned graph, counts reset just before and
     read just after."""
     import numpy as np
@@ -1860,9 +1891,10 @@ def drive_sharded(label: str, pg, mesh, eps: float, delta: float, **cfg):
     config = AdaptiveConfig(eps=eps, delta=delta, **cfg)
     reset_counts()
     t0 = time.perf_counter()
-    res = run_kadabra(pg, config=config, seed=SEED, mesh=mesh)
+    res = run_kadabra(pg, config=config, seed=SEED, mesh=mesh,
+                      checkpoint_dir=checkpoint_dir)
     seconds = time.perf_counter() - t0
-    counts = read_sharded_counts(label, res.bfs_levels, res.n_epochs)
+    counts = read_sharded_counts(label, res.bfs_levels, len(res.stats))
     total = sum(s.exchange["levels_total"] for s in res.stats)
     sparse = sum(s.exchange["levels_sparse"] for s in res.stats)
     moved = sum(s.exchange["bytes"] for s in res.stats)
@@ -1958,6 +1990,9 @@ def phase_sharded() -> tuple:
         sample_batch_size=BATCH, max_epochs=MAIN_MAX_EPOCHS)
     if not res.converged:
         log(f"  the epoch cap {MAIN_MAX_EPOCHS} was hit: converged=False")
+    log(f"[15b] checkpointed resume of [14]: stopped after "
+        f"{SHARDED_RESUME_AT} epochs, newest step damaged, resumed")
+    paths["rmat_sharded_resumed"] = phase_resume_sharded(pg, mesh, res)
     phase_profile("rmat_sharded", pg, 2, BATCH, mesh=mesh)
     del rmat, pg
     torch.cuda.empty_cache()
@@ -1975,6 +2010,240 @@ def phase_sharded() -> tuple:
     return row, paths
 
 
+def host_copies(leaves) -> list:
+    """Each leaf of an engine checkpoint as its own numpy array."""
+    import numpy as np
+    import torch
+    return [x.detach().cpu().numpy().copy() if isinstance(x, torch.Tensor)
+            else np.array(x) for x in leaves]
+
+
+class CheckpointProbe:
+    """Times the store's saves (the loop's thread is blocked for the copy
+    to host), their background publishes (CRC32, ``np.save``, fsync,
+    rename) and the restores of the runs made inside it.  With
+    ``stash`` it also keeps a host copy of every leaf list the engine
+    saved and of the leaves and generator state each restore set, by
+    epoch, for the round-trip check; the copies cost the loop time, so
+    a timed run goes without."""
+
+    def __init__(self, stash: bool = False):
+        self.stash = stash
+        self.blocked, self.threads, self.restores = [], [], []
+        self.saved, self.restored = {}, {}
+
+    def __enter__(self):
+        from repro_torch.checkpoint import store
+        from repro_torch.core.engine import _EngineCheckpointer as ckpt
+        self._orig = (store.save, store.restore, ckpt.save_state,
+                      ckpt.restore_state)
+        orig_save, orig_restore, orig_save_state, orig_restore_state = \
+            self._orig
+
+        def save(*args, **kwargs):
+            t0 = time.perf_counter()
+            thread = orig_save(*args, **kwargs)
+            self.blocked.append(time.perf_counter() - t0)
+            self.threads.append(thread)
+            return thread
+
+        def restore(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = orig_restore(*args, **kwargs)
+            self.restores.append(time.perf_counter() - t0)
+            return out
+
+        def save_state(ck, epoch, state, frozen_c, frozen_tau, stop_epoch,
+                       gen, **kwargs):
+            self.saved[epoch] = host_copies(ck.leaves(
+                state, frozen_c, frozen_tau, stop_epoch, gen))
+            return orig_save_state(ck, epoch, state, frozen_c, frozen_tau,
+                                   stop_epoch, gen, **kwargs)
+
+        def restore_state(ck, state, frozen_c, frozen_tau, stop_epoch, gen):
+            out = orig_restore_state(ck, state, frozen_c, frozen_tau,
+                                     stop_epoch, gen)
+            if out[4]:          # a step was restored (epoch 0: none)
+                # the generator's state read back after set_state
+                self.restored[out[4]] = host_copies(ck.leaves(*out[:4],
+                                                              gen))
+            return out
+
+        store.save, store.restore = save, restore
+        if self.stash:
+            ckpt.save_state, ckpt.restore_state = save_state, restore_state
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.checkpoint import store
+        from repro_torch.core.engine import _EngineCheckpointer as ckpt
+        store.save, store.restore = self._orig[:2]
+        ckpt.save_state, ckpt.restore_state = self._orig[2:]
+        return False
+
+    def summary(self) -> str:
+        def ms(xs):
+            return (f"{len(xs)} x, mean {1e3 * sum(xs) / max(len(xs), 1):.2f}"
+                    f" ms, max {1e3 * max(xs, default=0):.2f} ms")
+        publish = [t.seconds for t in self.threads]
+        return (f"saves blocked the loop {ms(self.blocked)}; background "
+                f"publishes {ms(publish)}; restores {ms(self.restores)}")
+
+
+def step_bytes(root: str, step: int) -> int:
+    d = Path(root) / f"step_{step:08d}"
+    return sum(f.stat().st_size for f in d.iterdir())
+
+
+def flip_byte(root: str, step: int) -> str:
+    """One byte in the middle of a step's first leaf, inverted."""
+    path = Path(root) / f"step_{step:08d}" / "arr_000000.npy"
+    with open(path, "r+b") as f:
+        f.seek(path.stat().st_size // 2)
+        b = f.read(1)
+        f.seek(-1, 1)
+        f.write(bytes([b[0] ^ 0xFF]))
+    return str(path)
+
+
+def same_run(a, b) -> bool:
+    import numpy as np
+    return (np.array_equal(a.btilde, b.btilde) and a.tau == b.tau
+            and a.n_epochs == b.n_epochs and a.converged == b.converged)
+
+
+def phase_resume(rmat, base) -> dict:
+    """[15a]: [4]'s run with checkpoint_dir, stopped after RESUME_AT
+    epochs, resumed with [4]'s config (bitwise [4]'s result: K1 and K3
+    add in a fixed order), and resumed once more (nothing drawn).  Every
+    level through K1, every check through K3.  Returns the launch counts
+    of the resumed run."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.core import AdaptiveConfig, run_kadabra
+    from repro_torch.kernels.frontier import FLAT, WORDS
+    from repro_torch.kernels.stopcheck import STOPCHECK
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    cfg = dict(sample_batch_size=BATCH)
+    try:
+        with CheckpointProbe() as probe:
+            part, _ = drive("rmat_ckpt_part", rmat, FLAT, MAIN_EPS,
+                            MAIN_DELTA, checkpoint_dir=root,
+                            max_epochs=RESUME_AT, **cfg)
+            if part.n_epochs != RESUME_AT or latest_step(root) != RESUME_AT:
+                raise AssertionError(f"checkpointed run: {part.n_epochs} "
+                                     f"epochs, latest step "
+                                     f"{latest_step(root)}")
+            n_bytes = step_bytes(root, RESUME_AT)
+            res, counts = drive("rmat_resumed", rmat, FLAT, MAIN_EPS,
+                                MAIN_DELTA, checkpoint_dir=root,
+                                max_epochs=MAIN_MAX_EPOCHS, **cfg)
+            if not same_run(res, base):
+                raise AssertionError(
+                    f"resumed run is not [4]'s: tau {res.tau} vs {base.tau}, "
+                    f"epochs {res.n_epochs} vs {base.n_epochs}, btilde "
+                    f"equal {bool((res.btilde == base.btilde).all())}")
+            if [s.epoch for s in res.stats] != list(
+                    range(RESUME_AT + 1, base.n_epochs + 1)):
+                raise AssertionError("the resumed run drew other epochs")
+            reset_counts()
+            again = run_kadabra(rmat, config=AdaptiveConfig(
+                eps=MAIN_EPS, delta=MAIN_DELTA, max_epochs=MAIN_MAX_EPOCHS,
+                **cfg), seed=SEED, device=DEVICE, checkpoint_dir=root)
+            c2 = all_counts()
+        if not same_run(again, base) or again.stats \
+                or c2[STOPCHECK] != 0 or c2[FLAT] != again.bfs_levels \
+                or c2[WORDS] != again.bfs_levels:
+            raise AssertionError(f"resuming the completed run drew epochs "
+                                 f"or changed the result: {again.stats}, "
+                                 f"launches {c2}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    samp = part.phase_seconds["sampling"] + res.phase_seconds["sampling"]
+    draw = sum(s.seconds for s in part.stats + res.stats)
+    base_samp = base.phase_seconds["sampling"]
+    base_draw = sum(s.seconds for s in base.stats)
+    replay = (res.phase_seconds["diameter"]
+              + res.phase_seconds["calibration"])
+    log(f"  checkpointed: {n_bytes} bytes a step; {probe.summary()}")
+    log(f"  resumed at epoch {RESUME_AT}: btilde, tau {res.tau} and "
+        f"{res.n_epochs} epochs bitwise [4]'s; phases 1-2 replayed in "
+        f"{replay:.3f} s; resumed again: 0 epochs, {again.bfs_levels} "
+        f"replayed levels, the same result")
+    log(f"  sampling with checkpoint_every=1: {samp:.3f} s over "
+        f"{base.n_epochs} epochs against [4]'s {base_samp:.3f} s "
+        f"({samp / base_samp - 1:+.2%}); the epochs' draws alone "
+        f"{draw:.3f} s against {base_draw:.3f} s")
+    return counts
+
+
+def phase_resume_sharded(pg, mesh, base) -> dict:
+    """[15b]: [14]'s sharded run with checkpoint_dir, stopped after
+    SHARDED_RESUME_AT epochs; one byte of the newest step's first leaf
+    flipped; resumed with [14]'s config.  The damaged step must be
+    quarantined and the run fall back to the step before, whose leaves
+    and generator state must come back bitwise; the result must be
+    [14]'s bits, or, only where a second uninterrupted run also differs
+    from [14]'s (K2's atomics add in a varying order), within 2 eps of
+    it.  Returns the launch counts of the resumed run."""
+    import os
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch.checkpoint import latest_step
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    cfg = dict(sample_batch_size=BATCH)
+    try:
+        with CheckpointProbe(stash=True) as probe:
+            part, _ = drive_sharded("rmat_sharded_ckpt_part", pg, mesh,
+                                    MAIN_EPS, MAIN_DELTA, checkpoint_dir=root,
+                                    max_epochs=SHARDED_RESUME_AT, **cfg)
+            if part.n_epochs != SHARDED_RESUME_AT \
+                    or latest_step(root) != SHARDED_RESUME_AT:
+                raise AssertionError(f"checkpointed sharded run: "
+                                     f"{part.n_epochs} epochs, latest step "
+                                     f"{latest_step(root)}")
+            n_bytes = step_bytes(root, SHARDED_RESUME_AT)
+            damaged = flip_byte(root, SHARDED_RESUME_AT)
+            res, counts = drive_sharded("rmat_sharded_resumed", pg, mesh,
+                                        MAIN_EPS, MAIN_DELTA,
+                                        checkpoint_dir=root,
+                                        max_epochs=MAIN_MAX_EPOCHS, **cfg)
+        quarantined = os.path.isdir(os.path.join(
+            root, f"step_{SHARDED_RESUME_AT:08d}.quarantined-0"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    back = SHARDED_RESUME_AT - 1
+    if not quarantined or list(probe.restored) != [back]:
+        raise AssertionError(f"the damaged step was not quarantined or the "
+                             f"run did not fall back to step {back}: "
+                             f"restored {list(probe.restored)}")
+    got, want = probe.restored[back], probe.saved[back]
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.dtype != w.dtype or not np.array_equal(g, w):
+            raise AssertionError(f"restored leaf {i} of step {back} is not "
+                                 f"what the interrupted run held")
+    log(f"  checkpointed: {n_bytes} bytes a step; byte flipped in "
+        f"{damaged}; quarantined, fell back to step {back}: its "
+        f"{len(got)} leaves and the generator state restored bitwise; "
+        f"{probe.summary()}")
+    if same_run(res, base):
+        log(f"  resumed run bitwise [14]'s: tau {res.tau}, {res.n_epochs} "
+            f"epochs")
+        return counts
+    second, _ = drive_sharded("rmat_sharded_again", pg, mesh, MAIN_EPS,
+                              MAIN_DELTA, max_epochs=MAIN_MAX_EPOCHS, **cfg)
+    d_res = float(np.abs(res.btilde - base.btilde).max())
+    d_two = float(np.abs(second.btilde - base.btilde).max())
+    log(f"  resumed run differs from [14]'s: max |diff| {d_res} (tau "
+        f"{res.tau} vs {base.tau}); a second uninterrupted run: max |diff| "
+        f"{d_two} (tau {second.tau})")
+    if same_run(second, base) or not d_res < 2 * MAIN_EPS:
+        raise AssertionError("the sharded resume breaks its contract")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1982,6 +2251,7 @@ def main() -> int:
               "False)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    load_main_config()
     import numpy as np
     from repro_torch.core import (brandes_numpy, grid_graph,
                                   hyperbolic_graph, rmat_graph,
@@ -2026,6 +2296,10 @@ def main() -> int:
         max_epochs=MAIN_MAX_EPOCHS)
     if not res.converged:
         log(f"  the epoch cap {MAIN_MAX_EPOCHS} was hit: converged=False")
+    # right after [4] and before its profiled rounds: both runs timed alike
+    log(f"[15a] checkpointed resume of [4]: stopped after {RESUME_AT} "
+        f"epochs, resumed twice")
+    paths["rmat_resumed"] = phase_resume(rmat, res)
     phase_profile("rmat", rmat, 4, BATCH)
     rows.append({"name": STOPCHECK, "route": "cuda",
                  "source": "src/repro_torch/kernels/stopcheck/csrc/"

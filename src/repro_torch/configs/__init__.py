@@ -1,3 +1,3 @@
-"""Model configurations of the port (``repro.configs``): graphsage-reddit
-and llama3.2-3b so far.  The registry and ``ArchDef`` wait for their
+"""Configurations of the port (``repro.configs``): betweenness,
+graphsage-reddit and llama3.2-3b so far.  The registry and ``ArchDef`` wait for their
 slice."""

@@ -39,7 +39,9 @@ class BetweennessResult(NamedTuple):
 def run_kadabra(graph, *, eps: Optional[float] = None,
                 delta: Optional[float] = None, seed: int = 0,
                 config: Optional[AdaptiveConfig] = None,
-                device=None, mesh=None) -> BetweennessResult:
+                device=None, mesh=None,
+                checkpoint_dir: Optional[str] = None,
+                checkpoint_every: int = 1) -> BetweennessResult:
     """Approximate betweenness with adaptive sampling (KADABRA): the
     betweenness estimator on the bidirectional stream.
 
@@ -47,11 +49,13 @@ def run_kadabra(graph, *, eps: Optional[float] = None,
     0.1).  ``device`` defaults to ``"cuda"`` and raises without a card
     unless ``device="cpu"`` is passed.  A :class:`PartitionedGraph` runs
     the sharded lane with ``mesh=ShardMesh(n_shards, device)``, on the
-    mesh's device.
+    mesh's device.  ``checkpoint_dir`` and ``checkpoint_every`` make the
+    run resumable, as in :func:`run_adaptive`.
     """
     res: AdaptiveRunResult = run_adaptive(
         graph, ("betweenness",), eps=eps, delta=delta, seed=seed,
-        config=config, stream="bidir", device=device, mesh=mesh)
+        config=config, stream="bidir", device=device, mesh=mesh,
+        checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every)
     rep = res.reports[0]
     stats = [EpochStats(s.epoch, s.tau, s.max_f[0], s.max_g[0], s.seconds,
                         s.exchange) for s in res.stats]

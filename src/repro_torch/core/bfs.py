@@ -14,7 +14,10 @@ the results carry ``n_iters``, the number of levels the loop expanded.
 
 Path counts grow combinatorially, so each sample's sigma column is
 rescaled by 1/max whenever its max passes 1e30; every consumer uses
-ratios within a column, so the rescale is exact in distribution.
+ratios within a column, so the rescale is exact in distribution.  A
+reached vertex's sigma is floored at float32's smallest normal number
+after the rescale, so that a count the rescale takes below float32's
+range still carries reach to its successors (``_floor_reached``).
 
 The ``*_sharded`` functions at the bottom run the same searches on a
 :class:`PartitionedGraph` over a :class:`ShardMesh`: the state is the
@@ -44,6 +47,7 @@ __all__ = ["BFSResult", "BidirResult", "bfs_sssp", "bfs_sssp_batched",
 _RESCALE_THRESHOLD = 1e30
 _SINK_DIST = -3
 _INT32_MAX = torch.iinfo(torch.int32).max
+_SIGMA_FLOOR = torch.finfo(torch.float32).tiny
 
 
 class BFSResult(NamedTuple):
@@ -95,6 +99,19 @@ def _init_state(graph: Graph, sources):
     return dist, sigma
 
 
+def _floor_reached(dist, sigma):
+    """Reached rows' sigma floored at float32's smallest normal number.
+
+    The rescale can take a column's small path counts below float32's
+    range; a reached vertex whose sigma became 0 would pass nothing on,
+    and its successors would be reached late or never (the reference
+    loses them so).  With the floor ``contrib > 0`` holds exactly where
+    a frontier in-neighbour exists, and a frontier value is above +0.
+    Sigma is unchanged wherever it is at least the floor; sink and
+    unreached rows stay 0."""
+    return torch.where(dist >= 0, sigma.clamp_min(_SIGMA_FLOOR), sigma)
+
+
 def _expand_level(graph: Graph, dist, sigma, level, active):
     """One batched relaxation; inactive columns are left untouched.
     Returns (dist, sigma, n_new (B,))."""
@@ -107,7 +124,7 @@ def _expand_level(graph: Graph, dist, sigma, level, active):
     sigma = torch.where(new, contrib, sigma)
     m = torch.where(new, sigma, 0.0).amax(dim=0, keepdim=True)
     scale = torch.where(m > _RESCALE_THRESHOLD, 1.0 / m, 1.0)
-    sigma = sigma * scale
+    sigma = _floor_reached(dist, sigma * scale)
     return dist, sigma, new.sum(dim=0, dtype=torch.int32)
 
 
@@ -348,7 +365,7 @@ def _expand_level_sharded(pg: PartitionedGraph, mesh: ShardMesh, dist,
     sigma = torch.where(new, contrib, sigma)
     m = mesh.pmax(torch.where(new, sigma, 0.0).amax(dim=1))        # (B,)
     scale = torch.where(m > _RESCALE_THRESHOLD, 1.0 / m, 1.0)
-    sigma = sigma * scale[None, None, :]
+    sigma = _floor_reached(dist, sigma * scale[None, None, :])
     n_new = mesh.psum(new.sum(dim=1, dtype=torch.int32))
     return dist, sigma, n_new, took
 

@@ -32,10 +32,15 @@ exchange.  Its diameter phase resolves an ``"auto"`` exchange budget;
 calibration draws ``calib_samples_per_device * n_shards`` samples, as in
 the reference.
 
+With ``checkpoint_dir`` the loop's state is published every
+``checkpoint_every`` epochs (:class:`_EngineCheckpointer`), and a run
+started again on the same directory resumes from the newest step that
+verifies, bit for bit the uninterrupted run's on either lane.
+
 Not ported yet (each raises ``NotImplementedError`` naming the ROADMAP
-§1 item that adds it): the weighted stream (item 13), checkpointing
-(10), a mesh over a replicated graph, the SPMD lane (11), and the
-supervision hook and telemetry (14), on either lane.
+§1 item that adds it): the weighted stream (item 13), a mesh over a
+replicated graph, the SPMD lane (11), and the supervision hook and
+telemetry (14), on either lane.
 """
 from __future__ import annotations
 
@@ -50,7 +55,7 @@ import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
 from .diameter import estimate_diameter, estimate_diameter_sharded
-from .epoch import epoch_length
+from .epoch import epoch_length, frame_schema_id
 from .estimators import get_estimator
 from .estimators.base import DrawBatch, Estimator, MetricReport, RunContext
 from .graph import Graph
@@ -334,11 +339,75 @@ def _lane(graph, mesh, cfg: AdaptiveConfig, estimators, stream, gen,
     return ns
 
 
+# ---------------------------------------------------------------------------
+# Checkpointing (schema-stamped loop state)
+# ---------------------------------------------------------------------------
+
+class _EngineCheckpointer:
+    """Mid-run persistence of the loop's state: every ``checkpoint_every``
+    epochs the 10 leaves
+
+        (agg counts (C, V+1) float32, agg tau, frame counts, frame tau,
+         surplus counts, surplus tau (the taus 0-d int64),
+         frozen counts (C, V+1), frozen tau (E,) int64,
+         stop epoch (E,) int64 (-1 where a metric has not stopped),
+         the generator's state (uint8))
+
+    are published through :class:`repro_torch.checkpoint.CheckpointManager`,
+    stamped with the run's :func:`frame_schema_id`, after the epoch's
+    draws and freeze.  The frozen leaves carry each stopped metric's
+    deciding snapshot, and the generator's state is taken after the
+    epoch's draws, so a resumed run (phases 1-2 replayed from the seed,
+    then the state and the generator overwritten) continues the
+    uninterrupted run's stream exactly."""
+
+    def __init__(self, checkpoint_dir: str, checkpoint_every: int,
+                 schema: str, dev: torch.device):
+        from ..checkpoint.store import CheckpointManager
+        self.mgr = CheckpointManager(checkpoint_dir, keep=3,
+                                     save_every=checkpoint_every,
+                                     schema=schema)
+        cpu = torch.device("cpu")
+        # where each leaf lives in the loop: counts on the run's device,
+        # taus, the frozen bookkeeping and the generator state on the host
+        self.devices = (dev, cpu, dev, cpu, dev, cpu, dev, cpu, cpu, cpu)
+
+    @staticmethod
+    def leaves(state, frozen_c, frozen_tau, stop_epoch, gen) -> tuple:
+        agg_c, agg_t, fr_c, fr_t, sur_c, sur_t = state
+        return (agg_c, np.int64(agg_t), fr_c, np.int64(fr_t), sur_c,
+                np.int64(sur_t), frozen_c, frozen_tau, stop_epoch,
+                gen.get_state())
+
+    def restore_state(self, state, frozen_c, frozen_tau, stop_epoch, gen):
+        """-> (state, frozen_c, frozen_tau, stop_epoch, epoch): the newest
+        step that verifies, with ``gen`` set to its state, or the
+        arguments and epoch 0 when there is none."""
+        out = self.mgr.restore_or_none(
+            self.leaves(state, frozen_c, frozen_tau, stop_epoch, gen),
+            device=self.devices)
+        if out is None:
+            return state, frozen_c, frozen_tau, stop_epoch, 0
+        lv, step, meta = out
+        gen.set_state(lv[9])
+        state = (lv[0], int(lv[1]), lv[2], int(lv[3]), lv[4], int(lv[5]))
+        return (state, lv[6], lv[7].numpy(), lv[8].numpy(),
+                int(meta.get("epoch", step)))
+
+    def save_state(self, epoch: int, state, frozen_c, frozen_tau,
+                   stop_epoch, gen, done: bool) -> None:
+        self.mgr.maybe_save(
+            epoch, self.leaves(state, frozen_c, frozen_tau, stop_epoch, gen),
+            metadata={"epoch": epoch, "done": bool(done)})
+
+    def wait(self) -> None:
+        self.mgr.wait()
+
+
 def _not_ported(**args) -> None:
     """Raise ``NotImplementedError`` for the first argument given that a
     later ROADMAP §1 item adds."""
-    items = {"checkpoint_dir": "item 10 (checkpointing)",
-             "on_epoch": "item 14 (runtime)",
+    items = {"on_epoch": "item 14 (runtime)",
              "telemetry": "item 14 (runtime)"}
     for name, value in args.items():
         if value is not None:
@@ -380,7 +449,8 @@ def run_adaptive(graph, metrics=("betweenness",), *,
                  seed: int = 0, config: Optional[AdaptiveConfig] = None,
                  stream: Optional[str] = None, device=None,
                  mesh=None, checkpoint_dir: Optional[str] = None,
-                 on_epoch=None, telemetry=None) -> AdaptiveRunResult:
+                 checkpoint_every: int = 1, on_epoch=None,
+                 telemetry=None) -> AdaptiveRunResult:
     """Adaptive sampling for the estimators named by ``metrics``.
 
     ``graph`` is a :class:`Graph`, moved to ``device`` (``None`` means
@@ -391,9 +461,18 @@ def run_adaptive(graph, metrics=("betweenness",), *,
     given, must name it).  Explicit ``eps``/``delta`` override
     ``config``'s.  ``seed`` seeds the run's one ``torch.Generator``.
     ``stream`` is resolved by :func:`resolve_stream`.
+
+    ``checkpoint_dir`` publishes the loop's state every
+    ``checkpoint_every`` epochs (at least 1) and resumes from the newest
+    step there that verifies: the result is bitwise the uninterrupted
+    run's at the same seed.  A step of another metric set, lane or
+    generator device raises ``CheckpointSchemaError``.  Resuming a
+    completed run draws nothing and reports the same result.
     """
-    _not_ported(checkpoint_dir=checkpoint_dir, on_epoch=on_epoch,
-                telemetry=telemetry)
+    _not_ported(on_epoch=on_epoch, telemetry=telemetry)
+    if int(checkpoint_every) < 1:
+        raise ValueError(f"checkpoint_every must be >= 1, got "
+                         f"{checkpoint_every}")
     cfg = config if config is not None else AdaptiveConfig()
     overrides = {k: v for k, v in (("eps", eps), ("delta", delta))
                  if v is not None}
@@ -431,59 +510,87 @@ def run_adaptive(graph, metrics=("betweenness",), *,
     n0 = epoch_length(1, base=cfg.n0_base, exponent=cfg.n0_exponent)
     epoch_step = lane.make_epoch(params, ctx, n0, bsz)
     state = lane.init_state(ctx)
-    frozen = [None] * n_est          # (counts slice, tau) per estimator
-    stop_epoch = [-1] * n_est
-    stopped = np.zeros(n_est, dtype=bool)
+    # which metric owns each channel row (the frozen snapshot's row masks)
+    row_metric = np.concatenate([np.full(e.n_channels, i)
+                                 for i, e in enumerate(estimators)])
+    frozen_c = torch.zeros_like(state[0])
+    frozen_tau = np.zeros(n_est, dtype=np.int64)
+    stop_epoch = np.full(n_est, -1, dtype=np.int64)
+    epoch = 0
+    ckpt = None
+    if checkpoint_dir:
+        lane_name = "single" if mesh is None else f"sharded{graph.n_shards}"
+        ckpt = _EngineCheckpointer(
+            checkpoint_dir, int(checkpoint_every),
+            frame_schema_id(estimators, lane=lane_name,
+                            generator=gen.device.type), dev)
+        state, frozen_c, frozen_tau, stop_epoch, epoch = ckpt.restore_state(
+            state, frozen_c, frozen_tau, stop_epoch, gen)
+    stopped = stop_epoch >= 0
+
+    def freeze(which, flushed):
+        rows = torch.as_tensor(np.isin(row_metric, np.nonzero(which)[0]),
+                               device=dev)
+        return (torch.where(rows[:, None], flushed[0], frozen_c),
+                np.where(which, flushed[1], frozen_tau),
+                np.where(which, epoch, stop_epoch))
+
     stats = []
     last_flush = None
-    epoch = 0
     t0 = time.perf_counter()
-    while not stopped.all() and epoch < cfg.max_epochs:
-        te = time.perf_counter()
-        state, (done, mf, mg), n_levels, xch = epoch_step(state)
-        bfs_levels += n_levels
-        epoch += 1
-        newly = done & ~stopped
-        if newly.any():
-            # freeze each newly stopped metric at this epoch's flush: f/g
-            # are not monotone, so a later snapshot would not reproduce
-            # the decision
-            last_flush = lane.flush(state)
-            for i in np.nonzero(newly)[0]:
-                off = offsets[i]
-                frozen[i] = (last_flush[0][off: off + estimators[i]
-                                           .n_channels], last_flush[1])
-                stop_epoch[i] = epoch
-            stopped |= newly
-        xacct = None
-        if xch is not None:
-            xch = xch.tolist()
-            xacct = xplan.epoch_accounting(xch[0], xch[1])
-        stats.append(EngineEpochStats(
-            epoch, int(state[1]), tuple(float(x) for x in mf),
-            tuple(float(x) for x in mg), time.perf_counter() - te,
-            int(state[3]), xacct))
+    try:
+        while not stopped.all() and epoch < cfg.max_epochs:
+            te = time.perf_counter()
+            state, (done, mf, mg), n_levels, xch = epoch_step(state)
+            bfs_levels += n_levels
+            epoch += 1
+            newly = done & ~stopped
+            if newly.any():
+                # freeze each newly stopped metric at this epoch's flush:
+                # f/g are not monotone, so a later snapshot would not
+                # reproduce the decision
+                last_flush = lane.flush(state)
+                frozen_c, frozen_tau, stop_epoch = freeze(newly, last_flush)
+                stopped |= newly
+            xacct = None
+            if xch is not None:
+                xch = xch.tolist()
+                xacct = xplan.epoch_accounting(xch[0], xch[1])
+            stats.append(EngineEpochStats(
+                epoch, int(state[1]), tuple(float(x) for x in mf),
+                tuple(float(x) for x in mg), time.perf_counter() - te,
+                int(state[3]), xacct))
+            if ckpt is not None:
+                ckpt.save_state(epoch, state, frozen_c, frozen_tau,
+                                stop_epoch, gen, done=bool(stopped.all()))
+    finally:
+        # earlier good epochs land even when the loop raises, and a
+        # publish error surfaces here
+        if ckpt is not None:
+            ckpt.wait()
     converged = stopped.copy()
     if not stopped.all():
-        # max_epochs reached: freeze what never converged
+        # max_epochs reached: freeze what never converged (not written to
+        # the checkpoint, so a resume with a higher max_epochs samples on)
         last_flush = lane.flush(state)
-        for i in np.nonzero(~stopped)[0]:
-            off = offsets[i]
-            frozen[i] = (last_flush[0][off: off + estimators[i].n_channels],
-                         last_flush[1])
-            stop_epoch[i] = epoch
+        frozen_c, frozen_tau, stop_epoch = freeze(~stopped, last_flush)
     _sync(dev)
     t_samp = time.perf_counter() - t0
 
     reports = tuple(
         MetricReport(name=est.name,
-                     scores=est.finalize(frozen[i][0], frozen[i][1], p, ctx),
-                     tau=int(frozen[i][1]), converged=bool(converged[i]),
+                     scores=est.finalize(frozen_c[off: off + est.n_channels],
+                                         int(frozen_tau[i]), p, ctx),
+                     tau=int(frozen_tau[i]), converged=bool(converged[i]),
                      omega=float(getattr(p, "omega", np.nan)),
-                     stop_epoch=stop_epoch[i], extras=est.extras(p, ctx))
-        for i, (est, p) in enumerate(zip(estimators, params)))
+                     stop_epoch=int(stop_epoch[i]),
+                     extras=est.extras(p, ctx))
+        for i, (est, off, p) in enumerate(zip(estimators, offsets, params)))
+    # a resumed completed run draws nothing: its tau is the frozen one
+    tau_total = (int(last_flush[1]) if last_flush is not None
+                 else int(frozen_tau.max(initial=0)))
     return AdaptiveRunResult(
-        reports, int(last_flush[1]), epoch, bool(converged.all()),
+        reports, tau_total, epoch, bool(converged.all()),
         ctx.vertex_diameter, stats,
         {"diameter": lane.t_diam, "calibration": t_cal,
          "sampling": t_samp}, bfs_levels)

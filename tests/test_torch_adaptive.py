@@ -5,6 +5,8 @@ JAX package's: the sampler is held to its law (uniform pairs, uniform
 shortest paths) and the end-to-end run to the (eps, delta) guarantee
 against exact Brandes, and to within 2 eps of the JAX ``run_kadabra``.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -162,7 +164,7 @@ def test_explicit_eps_delta_override_config():
 
 @pytest.mark.parametrize("kwargs,item", [
     ({"mesh": object()}, "item 11"),
-    ({"checkpoint_dir": "ckpt"}, "item 10"),
+    ({"checkpoint_dir": "ckpt", "on_epoch": print}, "item 14"),
     ({"on_epoch": print}, "item 14"),
     ({"telemetry": "trace.jsonl"}, "item 14"),
     ({"metrics": ("closeness",), "mesh": object()}, "item 11"),
@@ -173,3 +175,53 @@ def test_unported_options_raise(kwargs, item):
     graph = tc.grid_graph(3, 3, device="cpu")
     with pytest.raises(NotImplementedError, match=item):
         tc.run_adaptive(graph, device="cpu", **kwargs)
+    assert not os.path.exists("ckpt")
+
+
+def test_checkpoint_every_below_one_raises(tmp_path):
+    graph = tc.grid_graph(3, 3, device="cpu")
+    for every in (0, -1):
+        with pytest.raises(ValueError, match="checkpoint_every"):
+            tc.run_kadabra(graph, device="cpu", checkpoint_every=every,
+                           checkpoint_dir=str(tmp_path / "ck"))
+    assert not (tmp_path / "ck").exists()
+
+
+def test_betweenness_config_matches_jax():
+    """The port's configs.betweenness carries the JAX package's values,
+    its adaptive config's included (the port's AdaptiveConfig has no
+    ``aggregation`` yet: that is the SPMD lane's)."""
+    import dataclasses
+    import repro.configs.betweenness as jcfg
+    import repro_torch.configs.betweenness as tcfg
+    for make in ("make_config", "make_smoke_config"):
+        want, got = getattr(jcfg, make)(), getattr(tcfg, make)()
+        for f in ("rmat_scale", "edge_factor", "eps", "delta"):
+            assert getattr(got, f) == getattr(want, f)
+        got_a = dataclasses.asdict(got.adaptive)
+        want_a = dataclasses.asdict(want.adaptive)
+        assert want_a.pop("aggregation") == "hierarchical"
+        assert got_a == want_a
+
+
+def test_quickstart_example_runs_on_the_cpu(capsys):
+    """examples/quickstart_torch.py at 150 vertices with --device cpu:
+    betweenness within eps of Brandes, three metrics on one stream."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(__file__), "..", "examples",
+                        "quickstart_torch.py")
+    spec = importlib.util.spec_from_file_location("quickstart_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    # a small run: one intra-op thread keeps it from contending for the
+    # cores with the suite's other workers
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = mod.main(["--device", "cpu", "--n", "150"])
+    finally:
+        torch.set_num_threads(n_threads)
+    assert out["max_err"] < 0.05 and out["kadabra"].converged
+    assert [r.name for r in out["multi"].reports] == [
+        "betweenness", "closeness", "harmonic"]
+    assert capsys.readouterr().out.rstrip().endswith("OK")

@@ -2,6 +2,7 @@
 package, and its entry points raise without a card unless the caller
 asks for the CPU."""
 import ast
+import importlib.util
 import os
 import pkgutil
 import subprocess
@@ -16,6 +17,7 @@ import repro_torch
 import repro_torch.core as tc
 import repro_torch.configs.llama3_2_3b as llama
 import repro_torch.models.transformer as lm
+from repro_torch.checkpoint import restore
 from repro_torch.configs.graphsage_reddit import make_smoke_config
 from repro_torch.data import graph_to_batch
 from repro_torch.models.convert import lm_params_from_numpy
@@ -23,6 +25,15 @@ from repro_torch.models.gnn import (GraphBatch, sage_init,
                                     sage_params_from_numpy)
 
 SRC = Path(repro_torch.__file__).resolve().parent
+EXAMPLES = SRC.parents[1] / "examples"
+
+
+def _quickstart():
+    spec = importlib.util.spec_from_file_location(
+        "quickstart_torch", EXAMPLES / "quickstart_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _submodules():
@@ -59,8 +70,12 @@ def test_guard_walks_the_forward_slice_modules():
 
 
 def test_sources_name_no_jax_and_no_repro():
+    """The package, the card's smoke script and the port's examples."""
     offenders = []
-    for path in SRC.rglob("*.py"):
+    scripts = [SRC.parents[1] / "chip_smoke.py",
+               *sorted(EXAMPLES.glob("*_torch.py"))]
+    assert len(scripts) >= 3
+    for path in [*SRC.rglob("*.py"), *scripts]:
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
@@ -92,6 +107,15 @@ def test_guard_walks_the_graphsage_slice_modules():
             "repro_torch.optim.adamw",
             "repro_torch.train.step",
             "repro_torch.tree"} <= set(_submodules())
+
+
+def test_guard_walks_the_checkpoint_slice_modules():
+    """The import guard reaches the store, the schema stamp's module and
+    the betweenness config."""
+    assert {"repro_torch.checkpoint",
+            "repro_torch.checkpoint.store",
+            "repro_torch.configs.betweenness",
+            "repro_torch.core.epoch"} <= set(_submodules())
 
 
 def test_guard_walks_the_lm_slice_modules():
@@ -129,10 +153,13 @@ def test_guard_walks_the_lm_slice_modules():
     lambda: lm.init_params(torch.Generator(), llama.make_smoke_config()),
     lambda: lm.init_cache(llama.make_smoke_config(), 1, 8),
     lambda: lm_params_from_numpy({"ln_f": torch.ones(2).numpy()}),
+    lambda: restore("no-such-dir", (torch.zeros(1),)),
+    lambda: _quickstart().main([]),
 ], ids=["generator", "from_edge_list", "run_kadabra", "run_adaptive",
         "graph_to", "run_fixed", "run_fixed_sampling", "sage_init",
         "graph_to_batch", "sage_params_from_numpy", "graph_batch_to",
-        "lm_init_params", "lm_init_cache", "lm_params_from_numpy"])
+        "lm_init_params", "lm_init_cache", "lm_params_from_numpy",
+        "checkpoint_restore", "quickstart_torch"])
 def test_entry_points_raise_without_a_card(call, monkeypatch):
     """The default device is CUDA; with no card the call raises instead
     of running on the CPU."""

@@ -151,10 +151,9 @@ def test_bfs_sssp_sharded_matches_jax_replicated():
     """Grid 126 x 126 in 8 shards, B=64, against JAX's replicated BFS:
     dist and levels bitwise; rows past the graph stay -3 / 0.  Sigma
     passes 1e30 here and is rescaled, so it is no exact integer: it is
-    bitwise the port's replicated BFS (each destination adds its sources
-    in the replicated order), and JAX's once the port's subnormals are
-    flushed to zero, as XLA's CPU backend flushes them (the port's
-    replicated BFS has the same subnormals)."""
+    bitwise JAX's wherever JAX's is a normal number (at least 2^-126),
+    and at least float32's smallest normal where JAX's is 0 or
+    subnormal, since the port floors a reached vertex's sigma there."""
     jgraph = jc.grid_graph(126, 126)
     tpg = tc.partition_graph(to_port(jgraph), 8, block_v=256, block_e=128)
     sources = np.random.default_rng(11).integers(
@@ -167,10 +166,13 @@ def test_bfs_sssp_sharded_matches_jax_replicated():
     np.testing.assert_array_equal(_gathered(mesh, got.dist, v1),
                                   np_(want.dist))
     np.testing.assert_array_equal(np_(got.levels), np_(want.levels))
-    sigma = _gathered(mesh, got.sigma, v1)
-    tiny = np.abs(sigma) < np.finfo(np.float32).tiny
-    np.testing.assert_array_equal(np.where(tiny, 0.0, sigma),
-                                  np_(want.sigma))
+    sigma, jsigma = _gathered(mesh, got.sigma, v1), np_(want.sigma)
+    tiny = np.finfo(np.float32).tiny
+    reached = np_(want.dist) >= 0
+    normal = reached & (jsigma >= tiny)
+    np.testing.assert_array_equal(sigma[normal], jsigma[normal])
+    assert (sigma[reached & ~normal] >= tiny).all()
+    np.testing.assert_array_equal(sigma[~reached], jsigma[~reached])
     assert bool((mesh.all_gather(got.dist)[v1:] == -3).all())
     assert bool((mesh.all_gather(got.sigma)[v1:] == 0).all())
     assert got.n_iters == int(np_(want.levels).max()) + 1
@@ -342,8 +344,7 @@ def test_sharded_lane_raises():
     assert "12" not in str(err.value)
     with pytest.raises(NotImplementedError, match="item 11"):
         tc.run_fixed(g, 8, mesh=mesh, device=CPU)
-    for kw, item in ((dict(checkpoint_dir="ck"), "item 10"),
-                     (dict(on_epoch=print), "item 14"),
+    for kw, item in ((dict(on_epoch=print), "item 14"),
                      (dict(telemetry="t.jsonl"), "item 14"),
                      (dict(stream="weighted"), "item 13")):
         with pytest.raises(NotImplementedError, match=item):
