@@ -74,16 +74,20 @@ any failed phase.  Phases:
    forward, 4 a step); then a step under the profiler (after a warm-up
    step); then the same forward and first step on the dispatcher's
    plain route held against the kernel route's;
-11. the flash-attention kernel (K5): the ptxas lines of its bfloat16
-   (wgmma + TMA) kernels and their HGMMA and UTMALDG counts from
-   ``cuobjdump -sass``; then K5 against its plain version at the serving
-   path's shape: q (2, 32768, 24, 128), k and v (2, 32768, 8, 128),
-   bfloat16, causal, within 2e-2 (P is rounded to bfloat16 before P V)
-   and per row, with a stale-ring-slot control; then float32 at (1,
-   4096, 24/8, 128) within 3e-5 and a ragged non-causal (1, 1000, 6/2,
-   64).  Each timed (and its TFLOP/s) beside its plain version, its
-   bound and ``scaled_dot_product_attention`` (the library yardstick,
-   called only here, on KV heads repeated beforehand);
+11. the flash-attention kernel (K5): the ptxas lines of its kernels
+   and, from ``cuobjdump -sass``, the HGMMA and UTMALDG counts of the
+   bfloat16 ones (wgmma + TMA) and the HMMA counts of the float32 ones
+   (split TF32 on ``mma.sync``), which must not spill; then K5 against
+   its plain version at the serving path's shape: q (2, 32768, 24, 128),
+   k and v (2, 32768, 8, 128), bfloat16, causal, within 2e-2 (P is
+   rounded to bfloat16 before P V) and per row, with a stale-ring-slot
+   control; then float32 at (1, 4096, 24/8, 128) within 3e-5, with a
+   control (the plain version on q, k, v rounded to TF32) that must lie
+   beyond it, and a ragged non-causal (1, 1000, 6/2, 64).  Each timed
+   (and its TFLOP/s) beside its plain version, its bound (float32: three
+   TF32 products, and the float32 pipe's figure) and
+   ``scaled_dot_product_attention`` (the library yardstick, called only
+   here, on KV heads repeated beforehand);
 12. llama3.2-3b serving at full width and depth in bfloat16 (3.61e9
    parameters drawn on the card): a prefill of 2 prompts of 32768
    tokens (the prefill_32k cell's length; its batch of 32 is cut to 2,
@@ -146,6 +150,7 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+TF32_OPS_PER_S = 495e12       # H100 SXM TF32 tensor cores, dense
 BF16_OPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 EXACT_LIMIT = float(1 << 24)  # float32 sums of integers are exact below
 RTOL = 1e-6
@@ -204,6 +209,17 @@ FLASH_TOL = {"bfloat16": 2e-2, "float32": 3e-5}
 # between them.
 FLASH_ROW_REL = 1e-2
 FLASH_KV_TILE, FLASH_KV_STAGES = 128, 2
+# the float32 route (flash_f32_kernel): q K^T and P V as three TF32
+# products on the tensor cores (a = a_hi + a_lo; a_lo b_hi + a_hi b_lo +
+# a_hi b_hi), so its least time is 3 x the operations over the TF32 rate;
+# the float32 pipe's figure is logged beside it.  Its control: the plain
+# version on q, k, v rounded to TF32, what one TF32 pass would see,
+# which must lie beyond 3e-5 where the kernel lies within it (7-26x
+# beyond at S 320 and 512 in tools/flash_f32_emulation.py).  A
+# block owns FLASH_F32_ROWS query rows (Q tile in shared memory) and
+# walks KV tiles of FLASH_F32_TILE keys in a ring of FLASH_F32_STAGES
+FLASH_F32_PRODUCTS = 3
+FLASH_F32_ROWS, FLASH_F32_TILE, FLASH_F32_STAGES = 128, 64, 2
 # llama3.2-3b serving: prefill_32k's length, its batch cut from 32 to 2
 # (32 caches of 3.76 GB exceed the card's 80 GB), 32 decode steps
 LLAMA_BATCH, LLAMA_PROMPT, LLAMA_GEN = 2, 32768, 32
@@ -1325,12 +1341,42 @@ def check_flash_rows(label: str, q, k, v, got, want, causal: bool) -> dict:
     return {"row_rel_err": sound, "stale_tile_row_rel_err_min": control}
 
 
+def tf32_round(x):
+    """float32 rounded to TF32 (10 mantissa bits), to nearest, ties away
+    from zero (``cvt.rna.tf32.f32``)."""
+    import torch
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def check_flash_tf32_control(label: str, q, k, v, want, causal: bool,
+                             excess: float) -> dict:
+    """The float32 route's control: the plain version on q, k, v rounded
+    to TF32 must lie beyond the 3e-5 that the kernel meets (``excess``,
+    its largest gap over the allowed one, at most 1)."""
+    from repro_torch.kernels.flashattn import flash_attention_gqa_ref
+    tol = FLASH_TOL["float32"]
+    bad = flash_attention_gqa_ref(tf32_round(q), tf32_round(k),
+                                  tf32_round(v), causal=causal)
+    gap = (bad - want).abs()
+    control = float((gap / (tol + tol * want.abs())).max())
+    log(f"  flash {label}: control, the plain version on q, k, v rounded "
+        f"to TF32: max |diff| {float(gap.max()):.3g}, largest gap / allowed "
+        f"{control:.3g}; the kernel's {excess:.3g}")
+    if not excess <= 1.0 < control:
+        raise AssertionError(f"flash {label}: the kernel's gap ({excess}) or "
+                             f"the TF32-rounded control's ({control}) on the "
+                             f"wrong side of {tol}")
+    return {"tf32_inputs_excess": control, "excess": excess}
+
+
 def check_flash_case(label: str, shape, dtype, causal: bool, seed: int,
-                     iters: int) -> dict:
+                     iters: int, tf32_control: bool = False) -> dict:
     """K5 against its plain version on N(0, 1) inputs within the dtype's
-    tolerance (and bfloat16 per row too, with its control); then timed
-    beside the plain version, the bound and
-    ``scaled_dot_product_attention`` on KV heads repeated beforehand."""
+    tolerance (and bfloat16 per row too, with its control; float32 with
+    the TF32 control where asked); then timed beside the plain version,
+    the bound and ``scaled_dot_product_attention`` on KV heads repeated
+    beforehand.  A float32 bound is three TF32 products' (the float32
+    pipe's figure beside it)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flashattn import (flash_attention_cuda,
@@ -1350,6 +1396,8 @@ def check_flash_case(label: str, shape, dtype, causal: bool, seed: int,
                              f"= rtol = {tol}")
     rows = (check_flash_rows(label, q, k, v, got, want, causal)
             if dtype == torch.bfloat16 else {})
+    if tf32_control:
+        rows = check_flash_tf32_control(label, q, k, v, want, causal, excess)
     ms = cuda_time_ms(lambda: flash_attention_cuda(q, k, v, causal=causal),
                       iters)
     plain = cuda_time_ms(lambda: flash_attention_gqa_ref(q, k, v,
@@ -1364,20 +1412,40 @@ def check_flash_case(label: str, shape, dtype, causal: bool, seed: int,
     lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=causal), iters)
     n_bytes, n_ops = flash_cost(shape, causal, q.element_size())
-    b_ms, b_by = bound(n_bytes, n_ops, BF16_OPS_PER_S
-                       if dtype == torch.bfloat16 else FP32_OPS_PER_S)
+    if dtype == torch.bfloat16:
+        b_ms, b_by = bound(n_bytes, n_ops, BF16_OPS_PER_S)
+        bounds = {}
+        also = ""
+    else:
+        b_ms, b_by = bound(n_bytes, FLASH_F32_PRODUCTS * n_ops,
+                           TF32_OPS_PER_S)
+        fp32_ms, _ = bound(n_bytes, n_ops, FP32_OPS_PER_S)
+        bounds = {"fp32_pipe_bound_ms": fp32_ms}
+        also = (f"; the operations as {FLASH_F32_PRODUCTS} TF32 products "
+                f"at {TF32_OPS_PER_S / 1e12:.0f} TFLOP/s; the float32 "
+                f"pipe's bound {fp32_ms:.3f} ms at "
+                f"{FP32_OPS_PER_S / 1e12:.0f} TFLOP/s")
     tflops = n_ops / ms / 1e9
     log(f"  flash {label} {str(dtype)[6:]} {'causal' if causal else 'full'}"
         f" (B, S, H/KV, dh) = ({b}, {s}, {h}/{kv}, {dh}): max |diff| "
         f"{err:.3g} (atol = rtol = {tol}; largest gap / allowed "
         f"{excess:.3g}); {ms:.3f} ms ({tflops:.1f} TFLOP/s), plain "
         f"{plain:.3f} ms, scaled_dot_product_attention {lib_ms:.3f} ms (max "
-        f"|diff| vs plain {lib_err:.3g}), bound {b_ms:.3f} ms ({b_by})")
+        f"|diff| vs plain {lib_err:.3g}), bound {b_ms:.3f} ms ({b_by}{also})")
     return {"max_abs_err": err, "ms": ms, "tflops": tflops,
             "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms, **rows,
+            **bounds, "library_ms": lib_ms, **rows,
             "shape": f"(B, S, H/KV, dh) = ({b}, {s}, {h}/{kv}, {dh}) "
                      f"{str(dtype)[6:]}, {'causal' if causal else 'full'}"}
+
+
+def flash_f32_smem(dh: int) -> int:
+    """Dynamic shared memory of one float32 block (``f32_smem_bytes``):
+    the Q tile and the K/V ring, Q and K rows padded to 16 banks mod 32
+    (dh 16 needs none), V rows by 4 floats."""
+    ld_qk = dh if dh % 32 == 16 else dh + 16
+    return 4 * (FLASH_F32_ROWS * ld_qk
+                + FLASH_F32_STAGES * FLASH_F32_TILE * (ld_qk + dh + 4))
 
 
 def phase_flash() -> dict:
@@ -1390,25 +1458,36 @@ def phase_flash() -> dict:
     tiles = (1 + 2 * FLASH_KV_STAGES) * FLASH_KV_TILE * dh * 2
     log(f"  dynamic shared memory a block: bfloat16 {tiles} bytes of tiles "
         f"(+ barriers and 1024-byte alignment), float32 "
-        f"{(64 * (dh + 1) * 2 + 64 * dh + 64 * 65) * 4} bytes at dh={dh} "
-        f"({SOURCE.name})")
+        f"{flash_f32_smem(dh)} bytes at dh={dh} (the Q tile and "
+        f"{FLASH_F32_STAGES} stages of K and V, rows padded) ({SOURCE.name})")
     ptxas = _build.build_report("flashattn")["ptxas"].splitlines()
+    spills = {}
     for i, line in enumerate(ptxas):
-        if "Compiling entry" in line and "flash_bf16_kernel" in line:
+        if "Compiling entry" in line and "flash_" in line:
+            props = [x.strip() for x in ptxas[i + 1:i + 4]]
             log(f"  ptxas: {line.strip()}")
-            log(f"  ptxas: {' | '.join(x.strip() for x in ptxas[i + 1:i + 4])}")
-    ops = {f: n for f, n in sass_ops("flashattn").items()
-           if "flash_bf16_kernel" in f}
+            log(f"  ptxas: {' | '.join(props)}")
+            if "flash_f32_kernel" in line:
+                spills[line.split("'")[1]] = next(
+                    (x for x in props if "spill" in x), "")
+    ops = sass_ops("flashattn", ("HGMMA", "UTMALDG", "HMMA"))
     for func, counts in ops.items():
         log(f"  cuobjdump -sass: {func}: {counts}")
-    if len(ops) != 2 or not all(n["HGMMA"] and n["UTMALDG"]
-                                for n in ops.values()):
+    bf16 = [n for f, n in ops.items() if "flash_bf16_kernel" in f]
+    f32 = [n for f, n in ops.items() if "flash_f32_kernel" in f]
+    if len(bf16) != 2 or not all(n["HGMMA"] and n["UTMALDG"] for n in bf16):
         raise AssertionError(f"flash_bf16_kernel lacks HGMMA or UTMALDG: {ops}")
+    if len(f32) != 3 or not all(n["HMMA"] for n in f32):
+        raise AssertionError(f"flash_f32_kernel lacks HMMA: {ops}")
+    if len(spills) != 3 or not all(
+            "0 bytes spill stores, 0 bytes spill loads" in x
+            for x in spills.values()):
+        raise AssertionError(f"flash_f32_kernel spills: {spills}")
     row = check_flash_case("serving", FLASH_SHAPE, torch.bfloat16, True,
                            SEED + 5, 5)
     torch.cuda.empty_cache()
     f32 = check_flash_case("float32", FLASH_F32_SHAPE, torch.float32, True,
-                           SEED + 6, 3)
+                           SEED + 6, 10, tf32_control=True)
     ragged = check_flash_case("ragged", FLASH_RAGGED_SHAPE, torch.float32,
                               False, SEED + 7, 20)
     torch.cuda.empty_cache()

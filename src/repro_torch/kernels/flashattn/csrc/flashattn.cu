@@ -73,10 +73,43 @@
 // slowest grid axis, the longest (causal) first across every head, so
 // the short tail tiles fill the last wave.
 //
-// float32 route (flash_f32_kernel).  64-row query tiles, scalar FMAs, so
-// that the float32 comparison shows the algorithm without bfloat16
-// rounding: two threads a query row, each scoring every other key of the
-// tile and accumulating every other output column.
+// float32 route (flash_f32_kernel): split TF32 on the tensor cores.  It
+// is held to 3e-5 (absolute and relative) against the plain float32
+// version.  At (1, 4096, 24 / 8 heads, 128), causal, it does 1.03e11
+// operations (4 dh a kept (query, key) pair): 1.54 ms on the float32
+// pipe (67 TFLOP/s), 0.63 ms as three TF32 products on the tensor cores
+// (495 TFLOP/s), against 0.04 ms of bytes.  One TF32 product (10
+// mantissa bits) misses 3e-5 by 7-26x; three keep it.  Each float32
+// operand is split x = hi + lo, hi rounded to TF32 to nearest (ties
+// away, as cvt.rna.tf32.f32 but in two integer operations: cvt takes
+// four) and lo = x - hi passed whole, which the tensor core reads
+// truncated to TF32; a b = a_lo b_hi + a_hi b_lo + a_hi b_hi is summed
+// in the float32 accumulator.  The dropped a_lo b_lo and lo's
+// truncation stay within 2^-21 of a b, a few float32 units in the last
+// place.  A CPU emulation puts the kernel's arithmetic 30-80x inside
+// 3e-5 on N(0, 1) inputs at S 320 and 512, and one TF32 product 7-26x
+// beyond (tools/flash_f32_emulation.py; tests/test_torch_flash_f32_split.py
+// holds both).
+//
+// The products are mma.sync.m16n8k8 TF32, not wgmma: wgmma's TF32 form
+// reads B only K-major from shared memory, so P V would need a
+// transposed V, and both halves of K and V^T in shared memory (128 KB
+// for a 64-key stage at dh 128).  A block is 8 warps and owns 128 query
+// rows, 16 a warp.  The Q tile (raw) and a 2-stage ring of raw K and V
+// tiles of 64 keys sit in shared memory, filled by cp.async from every
+// thread (the next tile's copies fly while this one computes; rows past
+// S land as zeros); each warp splits the fragments it reads.  In each
+// 16-column slice of dh, a thread's A and B columns are dh 4t .. 4t + 3
+// (the reduction may run in any order), so Q and K are read as float4.
+// In each 8-key step of P V, A column t is key 2t and column t + 4 key
+// 2t + 1, so the S accumulator is P's A fragment as it stands, with no
+// shuffle, and V's B fragment is rows 2t, 2t + 1; V's columns are
+// permuted so that a thread reads float2 and writes its output as
+// float4.  Padded row strides keep the reads free of bank conflicts.
+// With `causal` the loop ends at the query tile's diagonal, a warp skips
+// a tile whose keys all lie past its rows, and only diagonal and ragged
+// tiles are masked.  The online softmax is float32, exp2f with log2 e
+// folded into the scale.  Query tiles run longest first, as in bf16.
 //
 // Offsets are 64-bit (B S H dh passes 2^31 at the serving shapes).  The
 // entry point launches on the caller's stream and returns
@@ -93,9 +126,10 @@
 namespace {
 
 // float32 route
-constexpr int kBlockM = 64;   // query rows a block
-constexpr int kBlockN = 64;   // keys a KV tile
-constexpr int kThreads = 128;
+constexpr int kF32Rows = 128;         // query rows a block, 16 a warp
+constexpr int kF32Keys = 64;          // keys a KV tile
+constexpr int kF32Stages = 2;         // K/V ring
+constexpr int kF32Threads = 256;      // 8 warps
 // bfloat16 route
 constexpr int kTile = 128;            // query rows a block, keys a KV tile
 constexpr int kStages = 2;            // K/V ring
@@ -559,127 +593,314 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------------
-// float32 route: the same structure with scalar FMAs
+// float32 route: split TF32 on the tensor cores (mma.sync), cp.async ring
 // ---------------------------------------------------------------------------
 
-// rows row0 .. row0 + 63 into a shared tile of row stride `ld`; rows >=
-// seq are zeros
+// Row strides (floats) of the Q, K and V tiles in shared memory.  Q and
+// K are read as float4 at column 4t of rows g: a quarter warp is rows g,
+// g + 1, so a stride of 16 banks (mod 32) puts them on disjoint halves.
+// V is read as float2 at column 2g of rows 2t: a half warp is rows 0, 2,
+// 4, 6 apart, so a stride of 4 banks (mod 16) puts them 8 banks apart.
 template <int D>
-__device__ __forceinline__ void load_tile_f32(float* tile,
-                                              const float* __restrict__ base,
-                                              long long stride, int row0,
-                                              int seq, int ld) {
-  for (int c = threadIdx.x; c < kBlockM * D; c += kThreads) {
-    const int r = c / D;
-    const int col = c % D;
-    const int row = row0 + r;
-    tile[r * ld + col] =
-        row < seq ? base[(long long)row * stride + col] : 0.0f;
+__host__ __device__ constexpr int f32_ld_qk() {
+  return D % 32 == 16 ? D : D + 16;
+}
+
+template <int D>
+__host__ __device__ constexpr int f32_ld_v() {
+  return D + 4;
+}
+
+// shared memory of one block: the Q tile, then kF32Stages x (K tile, V
+// tile)
+template <int D>
+constexpr int f32_smem_bytes() {
+  return (kF32Rows * f32_ld_qk<D>()
+          + kF32Stages * kF32Keys * (f32_ld_qk<D>() + f32_ld_v<D>())) * 4;
+}
+
+// x = hi + lo for the TF32 tensor cores.  hi is x rounded to TF32 (10
+// mantissa bits) to nearest, ties away from zero: half a unit of TF32's
+// last place added to the bits, the 13 low bits cleared (what
+// cvt.rna.tf32.f32 gives, in two integer operations where cvt takes
+// four).  lo = x - hi is exact and goes in whole: the tensor core reads
+// a TF32 operand's top 19 bits, so it takes lo truncated to TF32, within
+// 2^-10 |lo| <= 2^-21 |x|.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d (16 x 8, float32) += a (16 x 8) b (8 x 8), TF32 operands
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b as three TF32 products, the small ones first: a_lo b_hi +
+// a_hi b_lo + a_hi b_hi (a_lo b_lo, 2^-22 of a b, is dropped)
+__device__ __forceinline__ void mma3_tf32(float (&d)[4],
+                                          const uint32_t (&ah)[4],
+                                          const uint32_t (&al)[4],
+                                          const uint32_t (&bh)[2],
+                                          const uint32_t (&bl)[2]) {
+  mma_tf32(d, al, bh);
+  mma_tf32(d, ah, bl);
+  mma_tf32(d, ah, bh);
+}
+
+// 16 bytes from device to shared memory, asynchronously; zeros when not
+// `valid` (src is then not read)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// until at most N committed groups of this thread's copies are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// rows r0 .. r0 + ROWS - 1 of a (seq, D) float32 slab of row stride ss
+// into shared memory at row stride LD, every thread of the block a
+// share, asynchronously; rows past seq land as zeros
+template <int D, int ROWS, int LD>
+__device__ __forceinline__ void load_rows_f32(uint32_t dst, const float* src,
+                                              long long ss, int r0, int seq) {
+  constexpr int kChunks = D / 4;                  // 16-byte chunks a row
+  for (int c = threadIdx.x; c < ROWS * kChunks; c += kF32Threads) {
+    const int r = c / kChunks;
+    const int col = (c % kChunks) * 4;
+    const bool valid = r0 + r < seq;
+    const long long row = valid ? r0 + r : 0;
+    cp_async16(dst + (r * LD + col) * 4, src + row * ss + col, valid);
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kF32Threads, 1)
 flash_f32_kernel(const Params p) {
-  constexpr int kLd = D + 1;                      // Q, K rows (padded)
-  constexpr int kLdP = kBlockN + 1;
-  constexpr int kHalf = D / 2;
+  constexpr int kLd = f32_ld_qk<D>();                // Q and K rows
+  constexpr int kLdV = f32_ld_v<D>();
+  constexpr int kStage = kF32Keys * (kLd + kLdV);    // floats a stage
+  constexpr int kSlices = D / 16;                    // 16-column slices of dh
+  constexpr int kKeyBlocks = kF32Keys / 8;           // n8-blocks a tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* q_s = reinterpret_cast<float*>(smem_raw);
-  float* k_s = q_s + kBlockM * kLd;
-  float* v_s = k_s + kBlockN * kLd;               // rows of D
-  float* p_s = v_s + kBlockN * D;                 // (64, 65) probabilities
+  const float* q_tile = reinterpret_cast<const float*>(smem_raw);
+  const float* ring = q_tile + kF32Rows * kLd;
+  const uint32_t q_s = smem_addr(smem_raw);
+  const uint32_t ring_s = q_s + kF32Rows * kLd * 4;
 
-  const int n_qt = (p.seq + kBlockM - 1) / kBlockM;
-  const int qt = n_qt - 1 - blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int n_qt = (p.seq + kF32Rows - 1) / kF32Rows;
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.z);  // long first
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
   const int kvh = h / p.group;
-  const int r = threadIdx.x >> 1;                 // this thread's row
-  const int half = threadIdx.x & 1;               // keys / columns of parity
+  const int n_kt = (p.seq + kF32Keys - 1) / kF32Keys;
+  const int n_kv = p.causal ? min(n_kt, (qt + 1) * (kF32Rows / kF32Keys))
+                            : n_kt;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;                   // row in the 8-row group
+  const int t = lane & 3;                    // thread in the group
+  const int r0 = qt * kF32Rows + warp * 16;  // this warp's first row
+  const int row_a = r0 + g;
+  const int row_b = row_a + 8;
   const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* kg = static_cast<const float*>(p.k) + b * p.k_sb
       + kvh * p.k_sh;
   const float* vg = static_cast<const float*>(p.v) + b * p.v_sb
       + kvh * p.v_sh;
-  const int q0 = qt * kBlockM;
-  const int row = q0 + r;
-  const int n_kv = p.causal ? qt + 1 : n_qt;
 
-  load_tile_f32<D>(q_s, qg, p.q_ss, q0, p.seq, kLd);
-  float acc[kHalf];
+  // the Q tile and KV tile 0: one group of copies
+  load_rows_f32<D, kF32Rows, kLd>(q_s, qg, p.q_ss, qt * kF32Rows, p.seq);
+  load_rows_f32<D, kF32Keys, kLd>(ring_s, kg, p.k_ss, 0, p.seq);
+  load_rows_f32<D, kF32Keys, kLdV>(ring_s + kF32Keys * kLd * 4, vg, p.v_ss, 0,
+                                   p.seq);
+  cp_async_commit();
+  // this thread's Q rows g and g + 8 of the warp's 16, at column 4 t
+  const float* q_rows = q_tile + (warp * 16 + g) * kLd + 4 * t;
+  float acc[D / 8][4];                       // O: D / 8 n8-blocks
 #pragma unroll
-  for (int i = 0; i < kHalf; ++i) acc[i] = 0.0f;
-  float m_run = kNegBig;
-  float l_run = 0.0f;
+  for (int i = 0; i < D / 8; ++i)
+    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.0f;
+  float m_run[2] = {kNegBig, kNegBig};       // rows g and g + 8, log2 units
+  float l_run[2] = {0.0f, 0.0f};             // this thread's columns
+  const float scale = p.sm_scale * kLog2e;
 
   for (int j = 0; j < n_kv; ++j) {
-    const int k0 = j * kBlockN;
-    load_tile_f32<D>(k_s, kg, p.k_ss, k0, p.seq, kLd);
-    load_tile_f32<D>(v_s, vg, p.v_ss, k0, p.seq, D);
+    const int s = j % kF32Stages;
+    if (j + 1 < n_kv) {
+      const uint32_t next = ring_s + ((j + 1) % kF32Stages) * kStage * 4;
+      load_rows_f32<D, kF32Keys, kLd>(next, kg, p.k_ss, (j + 1) * kF32Keys,
+                                      p.seq);
+      load_rows_f32<D, kF32Keys, kLdV>(next + kF32Keys * kLd * 4, vg, p.v_ss,
+                                       (j + 1) * kF32Keys, p.seq);
+    }
+    cp_async_commit();         // (empty on the last tile)
+    cp_async_wait<1>();        // this tile's copies have landed
     __syncthreads();
+    const int k0 = j * kF32Keys;
+    // a warp whose rows all lie past S, or (causal) before every key of
+    // the tile, gains nothing from it
+    if (r0 < p.seq && !(p.causal && k0 > r0 + 15)) {
+      const float* ks = ring + s * kStage;
+      const float* vs = ks + kF32Keys * kLd;
+      // S = Q K^T: in slice i, k-step e takes columns 16 i + 4 t + 2 e
+      // (A column t) and + 1 (A column t + 4), for A and B alike
+      float sc[kKeyBlocks][4];               // S
+#pragma unroll
+      for (int n = 0; n < kKeyBlocks; ++n)
+        sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.0f;
+#pragma unroll
+      for (int i = 0; i < kSlices; ++i) {
+        const float4 qa = *reinterpret_cast<const float4*>(q_rows + 16 * i);
+        const float4 qb = *reinterpret_cast<const float4*>(
+            q_rows + 8 * kLd + 16 * i);
+        uint32_t ah[2][4], al[2][4];
+        split_tf32(qa.x, ah[0][0], al[0][0]);
+        split_tf32(qb.x, ah[0][1], al[0][1]);
+        split_tf32(qa.y, ah[0][2], al[0][2]);
+        split_tf32(qb.y, ah[0][3], al[0][3]);
+        split_tf32(qa.z, ah[1][0], al[1][0]);
+        split_tf32(qb.z, ah[1][1], al[1][1]);
+        split_tf32(qa.w, ah[1][2], al[1][2]);
+        split_tf32(qb.w, ah[1][3], al[1][3]);
+#pragma unroll
+        for (int n = 0; n < kKeyBlocks; ++n) {
+          const float4 kx = *reinterpret_cast<const float4*>(
+              ks + (8 * n + g) * kLd + 16 * i + 4 * t);
+          uint32_t bh[2][2], bl[2][2];
+          split_tf32(kx.x, bh[0][0], bl[0][0]);
+          split_tf32(kx.y, bh[0][1], bl[0][1]);
+          split_tf32(kx.z, bh[1][0], bl[1][0]);
+          split_tf32(kx.w, bh[1][1], bl[1][1]);
+          mma3_tf32(sc[n], ah[0], al[0], bh[0], bl[0]);
+          mma3_tf32(sc[n], ah[1], al[1], bh[1], bl[1]);
+        }
+      }
 
-    // scores of keys 2i + half, i = 0 .. 31
-    float s[kBlockN / 2];
+      // online softmax: sc[n] holds rows g (0, 1) and g + 8 (2, 3) at
+      // keys k0 + 8 n + 2 t (0, 2) and + 1 (1, 3)
+      const bool edge = k0 + kF32Keys > p.seq
+          || (p.causal && k0 + kF32Keys - 1 > r0);
+      float mx[2] = {kNegBig, kNegBig};
 #pragma unroll
-    for (int i = 0; i < kBlockN / 2; ++i) s[i] = 0.0f;
-    for (int d = 0; d < D; ++d) {
-      const float qv = q_s[r * kLd + d];
+      for (int n = 0; n < kKeyBlocks; ++n) {
 #pragma unroll
-      for (int i = 0; i < kBlockN / 2; ++i)
-        s[i] = fmaf(qv, k_s[(2 * i + half) * kLd + d], s[i]);
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[n][e] * scale;
+          if (edge) {
+            const int key = k0 + 8 * n + 2 * t + (e & 1);
+            const int row = e < 2 ? row_a : row_b;
+            if (key >= p.seq || (p.causal && key > row)) x = kNegBig;
+          }
+          sc[n][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m_run[r], mx[r]);
+        alpha[r] = exp2f(m_run[r] - m_new);
+        m_run[r] = m_new;
+        l_run[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int n = 0; n < kKeyBlocks; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[n][e] = exp2f(sc[n][e] - m_run[e >> 1]);
+          l_run[e >> 1] += sc[n][e];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        acc[i][0] *= alpha[0];
+        acc[i][1] *= alpha[0];
+        acc[i][2] *= alpha[1];
+        acc[i][3] *= alpha[1];
+      }
+
+      // O += P V: in key step n, A column t is key 8 n + 2 t and column
+      // t + 4 key 8 n + 2 t + 1, so sc[n] is the A fragment as it
+      // stands; B's column g of n8-block 2 i + c is V column 16 i + 2 g + c
+#pragma unroll
+      for (int n = 0; n < kKeyBlocks; ++n) {
+        uint32_t ph[4], pl[4];
+        split_tf32(sc[n][0], ph[0], pl[0]);
+        split_tf32(sc[n][2], ph[1], pl[1]);
+        split_tf32(sc[n][1], ph[2], pl[2]);
+        split_tf32(sc[n][3], ph[3], pl[3]);
+        const float* v0 = vs + (8 * n + 2 * t) * kLdV + 2 * g;
+#pragma unroll
+        for (int i = 0; i < kSlices; ++i) {
+          const float2 x0 = *reinterpret_cast<const float2*>(v0 + 16 * i);
+          const float2 x1 = *reinterpret_cast<const float2*>(
+              v0 + kLdV + 16 * i);
+          uint32_t bh[2][2], bl[2][2];
+          split_tf32(x0.x, bh[0][0], bl[0][0]);
+          split_tf32(x1.x, bh[0][1], bl[0][1]);
+          split_tf32(x0.y, bh[1][0], bl[1][0]);
+          split_tf32(x1.y, bh[1][1], bl[1][1]);
+          mma3_tf32(acc[2 * i], ph, pl, bh[0], bl[0]);
+          mma3_tf32(acc[2 * i + 1], ph, pl, bh[1], bl[1]);
+        }
+      }
     }
-    float mx = kNegBig;
-#pragma unroll
-    for (int i = 0; i < kBlockN / 2; ++i) {
-      const int key = k0 + 2 * i + half;
-      float x = s[i] * p.sm_scale;
-      if (key >= p.seq || (p.causal && key > row)) x = kNegBig;
-      s[i] = x;
-      mx = fmaxf(mx, x);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m_run, mx);
-    const float alpha = expf(m_run - m_new);
-    m_run = m_new;
-    l_run *= alpha;
-#pragma unroll
-    for (int i = 0; i < kBlockN / 2; ++i) {
-      const float pe = expf(s[i] - m_new);
-      l_run += pe;
-      p_s[r * kLdP + 2 * i + half] = pe;
-    }
-    __syncwarp();      // a row's two threads share a warp
-#pragma unroll
-    for (int i = 0; i < kHalf; ++i) acc[i] *= alpha;
-    for (int key = 0; key < kBlockN; ++key) {
-      const float pk = p_s[r * kLdP + key];
-#pragma unroll
-      for (int i = 0; i < kHalf; ++i)
-        acc[i] = fmaf(pk, v_s[key * D + 2 * i + half], acc[i]);
-    }
-    __syncthreads();   // before the next tile overwrites k_s, v_s, p_s
+    __syncthreads();           // before the next pass refills this stage
   }
 
-  const float l = fmaxf(l_run + __shfl_xor_sync(0xffffffffu, l_run, 1),
-                        1e-30f);
-  if (row < p.seq) {
-    float* og = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh
-        + (long long)row * p.o_ss;
+  // out = acc / max(l, 1e-30), l summed over the row's four threads; in
+  // slice i this thread holds columns 16 i + 4 t .. + 3 of rows g, g + 8
+  float inv[2];
 #pragma unroll
-    for (int i = 0; i < kHalf; ++i) og[2 * i + half] = acc[i] / l;
+  for (int r = 0; r < 2; ++r) {
+    float l = l_run[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv[r] = 1.0f / fmaxf(l, 1e-30f);
+  }
+  float* og = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+  for (int i = 0; i < kSlices; ++i) {
+    const int col = 16 * i + 4 * t;
+    if (row_a < p.seq)
+      *reinterpret_cast<float4*>(og + row_a * p.o_ss + col) = make_float4(
+          acc[2 * i][0] * inv[0], acc[2 * i + 1][0] * inv[0],
+          acc[2 * i][1] * inv[0], acc[2 * i + 1][1] * inv[0]);
+    if (row_b < p.seq)
+      *reinterpret_cast<float4*>(og + row_b * p.o_ss + col) = make_float4(
+          acc[2 * i][2] * inv[1], acc[2 * i + 1][2] * inv[1],
+          acc[2 * i][3] * inv[1], acc[2 * i + 1][3] * inv[1]);
   }
 }
 
-template <typename Kernel>
-cudaError_t launch_f32(Kernel kernel, const Params& p, int batch,
-                       int n_heads, int smem, cudaStream_t stream) {
+template <int D>
+int launch_f32(const Params& p, int batch, int n_heads, cudaStream_t stream) {
+  const int smem = f32_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.seq + kBlockM - 1) / kBlockM, n_heads, batch);
-  kernel<<<grid, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
+      flash_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_qt = (p.seq + kF32Rows - 1) / kF32Rows;
+  if (n_qt > 65535 || batch > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(n_heads, batch, n_qt);
+  flash_f32_kernel<D><<<grid, kF32Threads, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // A (dh, S, heads, B) bf16 view with element strides (ss, sh, sb), in
@@ -745,20 +966,15 @@ extern "C" int flash_attention_launch(
   Params p{q, k, v, o, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
            o_sb, o_ss, o_sh, seq, n_heads / n_kv_heads, causal, sm_scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int f32_smem = (kBlockM * (head_dim + 1) * 2 + kBlockN * head_dim
-                        + kBlockM * (kBlockN + 1)) * 4;
   if (dtype == 1 && head_dim == 128)
     return launch_bf16<128>(p, batch, n_heads, n_kv_heads, s);
   if (dtype == 1 && head_dim == 64)
     return launch_bf16<64>(p, batch, n_heads, n_kv_heads, s);
   if (dtype == 0 && head_dim == 128)
-    return static_cast<int>(launch_f32(flash_f32_kernel<128>, p, batch,
-                                       n_heads, f32_smem, s));
+    return launch_f32<128>(p, batch, n_heads, s);
   if (dtype == 0 && head_dim == 64)
-    return static_cast<int>(launch_f32(flash_f32_kernel<64>, p, batch,
-                                       n_heads, f32_smem, s));
+    return launch_f32<64>(p, batch, n_heads, s);
   if (dtype == 0 && head_dim == 16)
-    return static_cast<int>(launch_f32(flash_f32_kernel<16>, p, batch,
-                                       n_heads, f32_smem, s));
+    return launch_f32<16>(p, batch, n_heads, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

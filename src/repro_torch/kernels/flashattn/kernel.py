@@ -5,9 +5,13 @@ TPU kernel it replaces, what bounds it on the card and how the design
 answers that bound).  It reads q (B, S, H, dh) and k, v (B, S, KV, dh)
 in the model's layout through their strides, maps query head h to KV
 head h // (H / KV), and writes a contiguous (B, S, H, dh) output.  The
-bfloat16 route loads its tiles with TMA, whose tensor maps the C entry
-point encodes with the driver's ``cuTensorMapEncodeTiled``: the library
-links ``libcuda`` (``EXTRA_FLAGS``).
+bfloat16 route runs on ``wgmma`` and loads its tiles with TMA, whose
+tensor maps the C entry point encodes with the driver's
+``cuTensorMapEncodeTiled``: the library links ``libcuda``
+(``EXTRA_FLAGS``).  The float32 route runs on the tensor cores too
+(``mma.sync``): each operand is split into two TF32 halves and each
+product taken as three TF32 products, which keeps the route within the
+float32 tolerance, 3e-5, of the plain version.
 
 :func:`flash_attention_cuda` launches it and raises on CPU tensors; the
 dispatcher in ``ops.py`` sends those to the plain version.  Each launch

@@ -24,9 +24,14 @@ pytestmark = pytest.mark.gpu
 
 
 @pytest.fixture
-def cuda():
+def cuda(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    # the plain versions' float32 products in full float32 (PyTorch's
+    # default for matmul, not for cuDNN): a TF32 plain route would sit
+    # ~1e-3 from the float32 kernels it is held against
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     return torch.device("cuda")
 
 
@@ -836,11 +841,12 @@ def test_flash_kernel_matches_plain(cuda, dtype, dh, causal, s, h, n_kv):
         assert float(rel.max()) <= FLASH_ROW_REL
 
 
-def test_flash_kernel_reads_strided_views(cuda):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel_reads_strided_views(cuda, dtype):
     """q, k, v as views into wider tensors (head and row strides that
     are not the contiguous ones): the same output as contiguous copies."""
-    wide = torch.randn(2, 130, 6, 256, device=cuda).to(torch.bfloat16)
-    kv = torch.randn(2, 130, 2, 384, device=cuda).to(torch.bfloat16)
+    wide = torch.randn(2, 130, 6, 256, device=cuda).to(dtype)
+    kv = torch.randn(2, 130, 2, 384, device=cuda).to(dtype)
     q, k, v = wide[..., 64:192], kv[..., :128], kv[..., 256:]
     got = fa.flash_attention_cuda(q, k, v)
     want = fa.flash_attention_cuda(q.contiguous(), k.contiguous(),
@@ -887,6 +893,31 @@ def test_lm_prefill_runs_the_kernel_once_a_layer(cuda):
     lm.decode_step(gpu_params, cache, got.argmax(-1)[:, None], cfg)
     torch.cuda.synchronize()
     assert fa.launch_counts[fa.FLASHATTN] == 0
+
+
+# the float32 route's K/V ring: FLASH_F32_STAGES slots of FLASH_F32_TILE
+# keys (csrc/flashattn.cu)
+FLASH_F32_TILE, FLASH_F32_STAGES = 64, 2
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [2 * FLASH_F32_STAGES * FLASH_F32_TILE + 1,
+                               1000])
+def test_flash_kernel_float32_sharp_softmax(cuda, dh, causal, s):
+    """The float32 route on q and k doubled (scores 4x as large: a
+    peaked softmax, where an error in q K^T moves the output more)
+    within 3e-5, at an S that wraps the two-stage ring of 64-key tiles
+    by one key and at a ragged one.  Scores 16x as large would test
+    float32 itself: there the plain version lies 0.82 of 3e-5 from a
+    float64 one at dh 128, S 512 (tools/flash_f32_emulation.py, which
+    puts the kernel's arithmetic at 0.10-0.37 of 3e-5 on this case)."""
+    q, k, v = _qkv(2, s, 6, 2, dh, torch.float32, cuda, seed=s + dh)
+    q, k = 2 * q, 2 * k
+    got = fa.flash_attention_cuda(q, k, v, causal=causal)
+    want = fa.flash_attention_gqa_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=3e-5, atol=3e-5)
 
 
 def test_flash_kernel_float32_head_dim_16(cuda):
