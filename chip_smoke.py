@@ -130,7 +130,26 @@ any failed phase.  Phases:
    within 2 eps of them where a second uninterrupted run also differs.
    Each prints the bytes a step, the seconds a save blocks the loop, the
    background publish's and a restore's seconds; (a) also the replayed
-   phases 1-2 and the checkpointed run's sampling seconds against [4]'s.
+   phases 1-2 and the checkpointed run's sampling seconds against [4]'s;
+16. the SPMD lane, after [14] has freed its graphs: SPMD_RANKS ranks
+   spawned (``repro_torch.launch.spawn_local``) on the one card in a gloo
+   group over a ``FileStore`` (NCCL refuses two ranks on one card; gloo
+   aggregates each frame in pinned host memory), a (2, 2) ("pod",
+   "data") ``SamplerMesh``.  The ranks load the kernels this process
+   built.  Each rank builds R-MAT 2^20 x 30 (its checksum the same on
+   every rank) and runs (a) ``run_kadabra`` on the production cell in
+   each of the hierarchical, flat and root aggregations: every rank's
+   btilde, tau and epochs bitwise rank 0's, the three modes bitwise one
+   another's, each converged; (b) on every rank its flat and words
+   launches equal its BFS levels and its stop checks its epochs;
+   (c) rank 0's seconds drawing, blocked in ``wait()`` and bytes staged,
+   each epoch, and the run's seconds and max |b - b_[4]| beside [4]'s;
+   (d) the hierarchical run stopped after RESUME_AT epochs and resumed,
+   bitwise (a)'s; (e) hyperbolic(1000) within eps 0.05 of exact Brandes.
+   A rank that raises, or a group that outlasts SPMD_TIMEOUT, fails the
+   smoke.  (f) In this process, a one-rank NCCL group runs the three
+   aggregations on a (1, v_pad) frame on the card: bitwise its input,
+   each timed.
 
 Every run resets the launch counts just before it and reads them just
 after: each kernel of the run must have carried all of its work.
@@ -142,6 +161,7 @@ power limit, and as the last line
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -250,7 +270,20 @@ HYPER_BLOCK_V = 128
 # epochs, the sharded one after 7 of [14]'s, whose newest step then has
 # one byte of its first leaf flipped
 RESUME_AT, SHARDED_RESUME_AT = 8, 7
+# the SPMD lane: 4 ranks sharing the one card in a gloo group (NCCL
+# refuses two ranks on one card), on a (2, 2) ("pod", "data") mesh; a
+# rank that raises, or a group that outlasts SPMD_TIMEOUT seconds, fails
+# the smoke
+SPMD_RANKS, SPMD_SHAPE, SPMD_AXES = 4, (2, 2), ("pod", "data")
+SPMD_MODES = ("hierarchical", "flat", "root")
+SPMD_TIMEOUT = 600
 DEVICE = "cuda"
+# the settings a spawned rank takes from the parent (it imports this
+# script afresh)
+SPMD_SETTINGS = ("DEVICE", "SEED", "RMAT_SCALE", "EDGE_FACTOR", "BATCH",
+                 "MAIN_EPS", "MAIN_DELTA", "MAIN_MAX_EPOCHS", "RESUME_AT",
+                 "HYPER_N", "HYPER_EPS", "SPMD_SHAPE", "SPMD_AXES",
+                 "SPMD_MODES")
 
 
 def load_main_config() -> None:
@@ -2323,6 +2356,244 @@ def phase_resume_sharded(pg, mesh, base) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# [16] the SPMD lane: independent samplers, one process each
+# ---------------------------------------------------------------------------
+
+def check_spmd_counts(label: str, res) -> dict:
+    """One rank's launch counts of the run just made: every level of its
+    searches through the flat kernel and its words pass, one stop check
+    an epoch, nothing else."""
+    from repro_torch.kernels import frontier, stopcheck
+    counts = all_counts()
+    want = {k: 0 for k in counts}
+    want.update({frontier.FLAT: res.bfs_levels, frontier.WORDS: res.bfs_levels,
+                 stopcheck.STOPCHECK: len(res.stats)})
+    if counts != want or res.bfs_levels == 0 or not res.stats:
+        raise AssertionError(f"{label}: launches {counts}, expected {want}")
+    return counts
+
+
+def spmd_rank(rank: int, ckpt_root: str, settings: dict) -> dict:
+    """[16] on one rank of the spawned gloo group, on the card: the
+    production cell's run in each aggregation mode, the checkpointed
+    resume of the hierarchical run, hyperbolic(HYPER_N) at HYPER_EPS.
+    Each run resets the launch counts just before it and checks them
+    just after.  ``settings`` are the parent's SPMD_SETTINGS."""
+    import zlib
+    import numpy as np
+    import torch
+    from repro_torch.core import (AdaptiveConfig, SamplerMesh,
+                                  hyperbolic_graph, rmat_graph, run_kadabra)
+    from repro_torch.core.distributed import assert_replicated
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.frontier import kernel as frontier
+    from repro_torch.kernels.stopcheck import kernel as stopcheck
+    globals().update(settings)
+    libs = {}
+    t0 = time.perf_counter()
+    if torch.device(DEVICE).type == "cuda":
+        torch.cuda.set_device(0)
+        frontier.library(), stopcheck.library()   # the parent's builds
+        libs = {k: _build.build_report(k)["seconds"]
+                for k in ("frontier", "stopcheck")}
+    mesh = SamplerMesh(SPMD_SHAPE, SPMD_AXES, device=DEVICE)
+    t_setup = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rmat = rmat_graph(RMAT_SCALE, EDGE_FACTOR, seed=SEED, device=DEVICE)
+    crc = zlib.crc32(rmat.indices.cpu().numpy().tobytes(),
+                     zlib.crc32(rmat.indptr.cpu().numpy().tobytes()))
+    assert_replicated(mesh, {"graph_crc32": crc, "n_edges": rmat.n_edges})
+    out = {"rank": rank, "libs": libs, "setup_s": t_setup,
+           "graph_s": time.perf_counter() - t0, "staged": mesh.staged}
+
+    def run(label, mode, max_epochs=MAIN_MAX_EPOCHS, checkpoint_dir=None):
+        config = AdaptiveConfig(eps=MAIN_EPS, delta=MAIN_DELTA,
+                                sample_batch_size=BATCH, aggregation=mode,
+                                max_epochs=max_epochs)
+        reset_counts()
+        t1 = time.perf_counter()
+        res = run_kadabra(rmat, config=config, seed=SEED, mesh=mesh,
+                          checkpoint_dir=checkpoint_dir)
+        seconds = time.perf_counter() - t1
+        return {"btilde": res.btilde, "tau": res.tau,
+                "n_epochs": res.n_epochs, "converged": res.converged,
+                "bfs_levels": res.bfs_levels, "seconds": seconds,
+                "phases": res.phase_seconds,
+                "epochs": [s.aggregation for s in res.stats],
+                "epoch_numbers": [s.epoch for s in res.stats],
+                "counts": check_spmd_counts(f"rank {rank} {label}", res)}
+
+    for mode in SPMD_MODES:
+        out[mode] = run(mode, mode)
+    out["part"] = run("part", "hierarchical", max_epochs=RESUME_AT,
+                      checkpoint_dir=ckpt_root)
+    out["resumed"] = run("resumed", "hierarchical", checkpoint_dir=ckpt_root)
+    del rmat
+    torch.cuda.empty_cache()
+    hyper = hyperbolic_graph(HYPER_N, seed=SEED, device=DEVICE)
+    reset_counts()
+    res = run_kadabra(hyper, config=AdaptiveConfig(eps=HYPER_EPS,
+                                                   delta=0.1),
+                      seed=SEED, mesh=mesh)
+    check_spmd_counts(f"rank {rank} hyperbolic", res)
+    out["hyperbolic"] = {"btilde": res.btilde, "tau": res.tau,
+                         "n_epochs": res.n_epochs}
+    return out
+
+
+def spmd_bitwise(label: str, a: dict, b: dict) -> None:
+    if not (np_equal(a["btilde"], b["btilde"]) and a["tau"] == b["tau"]
+            and a["n_epochs"] == b["n_epochs"]
+            and a["converged"] == b["converged"]):
+        raise AssertionError(f"{label}: tau {a['tau']} vs {b['tau']}, "
+                             f"epochs {a['n_epochs']} vs {b['n_epochs']}, "
+                             "btilde equal "
+                             f"{np_equal(a['btilde'], b['btilde'])}")
+
+
+def np_equal(a, b) -> bool:
+    import numpy as np
+    return bool(np.array_equal(a, b))
+
+
+def phase_spmd(main_res) -> dict:
+    """[16] a-e: SPMD_RANKS ranks spawned on the one card in a gloo group
+    over a FileStore (spmd_rank each), checked against one another, [4]
+    and exact Brandes.  Returns the path's launch counts, summed over
+    the ranks."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch.core import brandes_numpy, hyperbolic_graph
+    from repro_torch.launch import spawn_local
+    root = tempfile.mkdtemp(prefix="chip_smoke_spmd_")
+    t0 = time.perf_counter()
+    try:
+        ranks = spawn_local(spmd_rank, SPMD_RANKS,
+                            args=(os.path.join(root, "ckpt"),
+                                  {k: globals()[k] for k in SPMD_SETTINGS}),
+                            backend="gloo", timeout=SPMD_TIMEOUT,
+                            store_dir=root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    log(f"  {SPMD_RANKS} ranks spawned and done in {wall:.1f} s; rank 0 "
+        f"loaded the parent's kernel builds (nvcc seconds {r0['libs']}) and "
+        f"made its mesh in {r0['setup_s']:.2f} s; R-MAT built and checked "
+        f"alike on every rank in {r0['graph_s']:.1f} s; frames staged "
+        f"through the host: {r0['staged']}")
+    for r in ranks:
+        if any(r["libs"].values()):
+            raise AssertionError(f"rank {r['rank']} rebuilt a kernel: "
+                                 f"{r['libs']}")
+    for mode in SPMD_MODES:
+        res = r0[mode]
+        for r in ranks[1:]:
+            spmd_bitwise(f"{mode}: rank {r['rank']} against rank 0",
+                         r[mode], res)
+        if mode != "hierarchical":
+            spmd_bitwise(f"{mode} against hierarchical", res,
+                         r0["hierarchical"])
+        if not res["converged"]:
+            raise AssertionError(f"{mode}: not converged in "
+                                 f"{res['n_epochs']} epochs")
+        gap = float(np.abs(res["btilde"] - main_res.btilde).max())
+        per_rank = [(r["rank"], r[mode]["bfs_levels"],
+                     r[mode]["counts"]["stopcheck"]) for r in ranks]
+        log(f"  {mode}: {res['seconds']:.1f} s, phases "
+            + ", ".join(f"{k} {v:.2f} s" for k, v in res["phases"].items())
+            + f" ({sum(res['phases'].values()):.2f} s against [4]'s "
+            f"{sum(main_res.phase_seconds.values()):.2f} s); tau {res['tau']} "
+            f"([4] {main_res.tau}), epochs {res['n_epochs']} ([4] "
+            f"{main_res.n_epochs}), converged; max |b_spmd - b_[4]| {gap:.5f}"
+            f"; bitwise on every rank and across the modes; (rank, levels "
+            f"= flat and words launches, stop checks) {per_rank}")
+        draw = wait = 0.0
+        staged = 0
+        for n, e in enumerate(res["epochs"], 1):
+            log(f"    epoch {n:3d}: start {e['start_s'] * 1e3:8.3f} ms, draw "
+                f"{e['draw_s'] * 1e3:9.3f} ms, blocked in wait() "
+                f"{e['wait_s'] * 1e3:8.3f} ms, staged {e['staged_bytes']} "
+                f"bytes")
+            draw += e["draw_s"]
+            wait += e["wait_s"]
+            staged += e["staged_bytes"]
+        log(f"    rank 0 over {len(res['epochs'])} epochs: draw {draw:.3f} s, "
+            f"wait {wait:.3f} s ({wait / max(draw + wait, 1e-9):.1%} of "
+            f"draw + wait), staged {staged / 1e6:.1f} MB")
+    part, resumed, base = r0["part"], r0["resumed"], r0["hierarchical"]
+    for r in ranks:
+        spmd_bitwise(f"rank {r['rank']} resumed against its uninterrupted "
+                     "run", r["resumed"], r["hierarchical"])
+        if r["part"]["n_epochs"] != RESUME_AT or \
+                r["resumed"]["epoch_numbers"] != list(
+                    range(RESUME_AT + 1, base["n_epochs"] + 1)):
+            raise AssertionError(f"rank {r['rank']}: the stopped run drew "
+                                 f"{r['part']['n_epochs']} epochs, the "
+                                 f"resumed one epochs "
+                                 f"{r['resumed']['epoch_numbers']}")
+    log(f"  [16d] resumed after {RESUME_AT} epochs: btilde, tau "
+        f"{resumed['tau']} and {resumed['n_epochs']} epochs bitwise the "
+        f"uninterrupted hierarchical run on every rank; stopped run "
+        f"{part['seconds']:.1f} s, resumed {resumed['seconds']:.1f} s")
+    hyper = hyperbolic_graph(HYPER_N, seed=SEED, device="cpu")
+    err = float(np.abs(r0["hyperbolic"]["btilde"]
+                       - brandes_numpy(hyper)).max())
+    for r in ranks[1:]:
+        if not np_equal(r["hyperbolic"]["btilde"], r0["hyperbolic"]["btilde"]):
+            raise AssertionError("hyperbolic: ranks differ")
+    log(f"  [16e] hyperbolic({HYPER_N}) on {SPMD_RANKS} ranks: tau "
+        f"{r0['hyperbolic']['tau']}, {r0['hyperbolic']['n_epochs']} epochs, "
+        f"max |b~ - b| = {err:.5f} (eps {HYPER_EPS})")
+    if not err < HYPER_EPS:
+        raise AssertionError(f"SPMD hyperbolic: max error {err} >= "
+                             f"{HYPER_EPS}")
+    keys = r0["hierarchical"]["counts"]
+    return {k: sum(r["hierarchical"]["counts"][k] for r in ranks)
+            for k in keys}
+
+
+def phase_nccl(n_nodes: int) -> None:
+    """[16f] a one-rank NCCL group in this process: the three
+    aggregations on a (1, v_pad) frame on the card (the production
+    frame's length at SPMD_RANKS ranks), each bitwise its input, each
+    timed a call."""
+    import datetime
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import SamplerMesh
+    from repro_torch.core.distributed import AGGREGATIONS
+    from repro_torch.core.engine import _pad_len
+    root = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(root, "store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = SamplerMesh((1, 1), SPMD_AXES, device=DEVICE)
+        v_pad = _pad_len(n_nodes, SPMD_RANKS)
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        x = torch.randint(0, 1000, (1, v_pad), generator=gen,
+                          device=DEVICE).float()
+        for mode, fn in AGGREGATIONS.items():
+            handle = fn(x, mesh)
+            got = handle.wait()
+            torch.cuda.synchronize()
+            if not torch.equal(got, x) or handle.staged_bytes:
+                raise AssertionError(f"NCCL {mode}: not the input's bits, or "
+                                     f"{handle.staged_bytes} bytes staged")
+            ms = cuda_time_ms(lambda: fn(x, mesh).wait(), 20)
+            log(f"  [16f] NCCL {mode} on one rank, (1, {v_pad}) float32 on "
+                f"the card: bitwise the input, {ms:.4f} ms a call, nothing "
+                "staged")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2373,6 +2644,7 @@ def main() -> int:
     res, paths["rmat_bidir"] = drive(
         "rmat", rmat, FLAT, MAIN_EPS, MAIN_DELTA, sample_batch_size=BATCH,
         max_epochs=MAIN_MAX_EPOCHS)
+    main_res = res      # [16] compares the SPMD lane's runs with it
     if not res.converged:
         log(f"  the epoch cap {MAIN_MAX_EPOCHS} was hit: converged=False")
     # right after [4] and before its profiled rounds: both runs timed alike
@@ -2469,6 +2741,15 @@ def main() -> int:
                            "frontier.cu",
                  "replaces": "src/repro/kernels/frontier/kernel.py:405",
                  "launches": 0, **wide_row})
+    torch.cuda.empty_cache()
+
+    log(f"[16] SPMD lane: {SPMD_RANKS} ranks spawned on the one card in a "
+        f"gloo group, mesh {SPMD_SHAPE} {SPMD_AXES}; run_kadabra R-MAT "
+        f"2^{RMAT_SCALE} x {EDGE_FACTOR}, B={BATCH}, eps={MAIN_EPS} in each "
+        f"of {SPMD_MODES}, resumed after {RESUME_AT} epochs; "
+        f"hyperbolic({HYPER_N}); then a one-rank NCCL group")
+    paths["rmat_spmd"] = phase_spmd(main_res)
+    phase_nccl(1 << RMAT_SCALE)
 
     # each row's launches: the run of the path that row's kernel carries;
     # the node-blocked rows' words pass beside it

@@ -1,5 +1,6 @@
 """Core of the port: graph storage, batched BFS, path sampling, KADABRA
-statistics and the adaptive engine (mirrors ``repro.core``)."""
+statistics, the aggregation over a ``torch.distributed`` group and the
+adaptive engine (mirrors ``repro.core``)."""
 from .adaptive import (BetweennessResult, EpochStats, run_fixed_sampling,
                        run_kadabra)
 from .bfs import (BFSResult, BidirResult, bfs_sssp, bfs_sssp_batched,
@@ -9,6 +10,7 @@ from .bfs import (BFSResult, BidirResult, bfs_sssp, bfs_sssp_batched,
 from .brandes import brandes_numpy
 from .diameter import (DiameterEstimate, estimate_diameter,
                        estimate_diameter_sharded)
+from .distributed import SamplerMesh
 from .engine import (AdaptiveConfig, AdaptiveRunResult, draw_fold,
                      resolve_sample_batch_size, run_adaptive, run_fixed)
 from .estimators import available_metrics, get_estimator
@@ -35,7 +37,7 @@ __all__ = [
     "AdaptiveConfig", "AdaptiveRunResult", "BFSResult", "BetweennessResult",
     "BidirResult", "CSCLayout", "DiameterEstimate", "EpochStats",
     "ExchangePlan", "ForwardSample", "Graph", "KadabraParams", "PathSample",
-    "PartitionedGraph", "ShardMesh", "ShardedCSCLayout",
+    "PartitionedGraph", "SamplerMesh", "ShardMesh", "ShardedCSCLayout",
     "auto_exchange_budget", "available_metrics", "bfs_sssp",
     "bfs_sssp_batched", "bfs_sssp_batched_sharded", "bidirectional_bfs",
     "bidirectional_bfs_batched", "bidirectional_bfs_batched_sharded",

@@ -1,7 +1,8 @@
-"""``run_kadabra``: the paper's KADABRA on one device, or cooperatively
-over the shards of a :class:`PartitionedGraph` (``repro.core.adaptive``),
-a thin mapping of the engine's result onto :class:`BetweennessResult`;
-and ``run_fixed_sampling``, its fixed-count baseline."""
+"""``run_kadabra``: the paper's KADABRA on one device, on the independent
+samplers of a :class:`SamplerMesh`, or cooperatively over the shards of
+a :class:`PartitionedGraph` (``repro.core.adaptive``), a thin mapping of
+the engine's result onto :class:`BetweennessResult`; and
+``run_fixed_sampling``, its fixed-count baseline."""
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
@@ -22,6 +23,8 @@ class EpochStats(NamedTuple):
     max_g: float
     seconds: float
     exchange: Optional[dict] = None   # sharded lane: the priced exchange
+    # SPMD lane: this rank's draw and wait seconds and staged bytes
+    aggregation: Optional[dict] = None
 
 
 class BetweennessResult(NamedTuple):
@@ -49,7 +52,9 @@ def run_kadabra(graph, *, eps: Optional[float] = None,
     0.1).  ``device`` defaults to ``"cuda"`` and raises without a card
     unless ``device="cpu"`` is passed.  A :class:`PartitionedGraph` runs
     the sharded lane with ``mesh=ShardMesh(n_shards, device)``, on the
-    mesh's device.  ``checkpoint_dir`` and ``checkpoint_every`` make the
+    mesh's device; a :class:`Graph` with ``mesh=SamplerMesh(...)`` the
+    SPMD lane, called on every rank (``config.aggregation`` picks the
+    aggregation).  ``checkpoint_dir`` and ``checkpoint_every`` make the
     run resumable, as in :func:`run_adaptive`.
     """
     res: AdaptiveRunResult = run_adaptive(
@@ -58,7 +63,7 @@ def run_kadabra(graph, *, eps: Optional[float] = None,
         checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every)
     rep = res.reports[0]
     stats = [EpochStats(s.epoch, s.tau, s.max_f[0], s.max_g[0], s.seconds,
-                        s.exchange) for s in res.stats]
+                        s.exchange, s.aggregation) for s in res.stats]
     return BetweennessResult(rep.scores, rep.tau, res.n_epochs,
                              rep.converged, rep.omega, res.vertex_diameter,
                              stats, res.phase_seconds, res.bfs_levels)

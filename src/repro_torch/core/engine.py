@@ -1,5 +1,6 @@
-"""The adaptive sampling engine: the single-device lane and the sharded
-cooperative lane (``repro.core.engine``).
+"""The adaptive sampling engine: the single-device lane, the SPMD lane of
+independent samplers and the sharded cooperative lane
+(``repro.core.engine``).
 
 Phases, as in the JAX package:
 
@@ -37,15 +38,32 @@ With ``checkpoint_dir`` the loop's state is published every
 started again on the same directory resumes from the newest step that
 verifies, bit for bit the uninterrupted run's on either lane.
 
+The SPMD lane takes a replicated :class:`Graph` with
+``mesh=SamplerMesh(...)`` (:mod:`repro_torch.core.distributed`): one
+process a sampler, every rank calling the run with the same graph and
+seed.  Phase 1 draws from a generator seeded with ``seed`` alone, so
+every rank finds the same diameter; each rank then samples from its own
+generator (:func:`~repro_torch.core.distributed.sampler_generator`).
+Calibration draws ``calib_samples_per_device`` on each rank and sums
+them with one blocking all_reduce, after which the ranks check that they
+hold the same diameter, parameters and epoch length.  An epoch starts
+the aggregation of the previous frame (``AdaptiveConfig.aggregation``:
+``"hierarchical"``, ``"flat"`` or ``"root"``), draws ``n0 =
+epoch_length(W)`` samples on each rank meanwhile, then waits for the
+sum and evaluates every stop rule on it, on every rank.  Frames are
+``(C, v_pad)``, zero past V+1 (:func:`_pad_len`); the estimators read
+``[:V]``.  Each rank returns the same result.  A mesh of one rank is the
+single-device lane.
+
 Not ported yet (each raises ``NotImplementedError`` naming the ROADMAP
-§1 item that adds it): the weighted stream (item 13), a mesh over a
-replicated graph, the SPMD lane (11), and the supervision hook and
-telemetry (14), on either lane.
+§1 item that adds it): the weighted stream (item 13), and the
+supervision hook and telemetry (14), on every lane.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+import zlib
 from functools import partial
 from types import SimpleNamespace
 from typing import NamedTuple, Optional
@@ -55,6 +73,9 @@ import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
 from .diameter import estimate_diameter, estimate_diameter_sharded
+from .distributed import (AGGREGATIONS, SamplerMesh, allreduce_ints,
+                          assert_replicated, flat_allreduce,
+                          sampler_generator)
 from .epoch import epoch_length, frame_schema_id
 from .estimators import get_estimator
 from .estimators.base import DrawBatch, Estimator, MetricReport, RunContext
@@ -68,8 +89,9 @@ from .shards import ShardMesh, canonical_device
 
 __all__ = ["DEFAULT_SAMPLE_BATCH_SIZE", "AdaptiveConfig",
            "AdaptiveRunResult", "EngineEpochStats", "FoldResult",
-           "draw_fold", "resolve_estimators", "resolve_sample_batch_size",
-           "resolve_stream", "run_adaptive", "run_fixed"]
+           "draw_fold", "make_agg_fn", "resolve_estimators",
+           "resolve_sample_batch_size", "resolve_stream", "run_adaptive",
+           "run_fixed"]
 
 DEFAULT_SAMPLE_BATCH_SIZE = 16
 
@@ -100,6 +122,9 @@ class AdaptiveConfig:
     n0_exponent: float = 1.33
     max_epochs: int = 10_000
     diameter_sweeps: int = 2
+    # the SPMD lane's aggregation of each epoch's frame:
+    # "hierarchical" | "flat" | "root" (repro_torch.core.distributed)
+    aggregation: str = "hierarchical"
     # None: resolve B from the diameter estimate (resolve_sample_batch_size)
     sample_batch_size: Optional[int] = None
 
@@ -113,8 +138,12 @@ class EngineEpochStats(NamedTuple):
     seconds: float
     samples: int      # samples drawn this epoch
     # sharded lane: ExchangePlan.epoch_accounting of the epoch's draws
-    # (levels dense and sparse, bytes); None on the single lane
+    # (levels dense and sparse, bytes); None on the other lanes
     exchange: Optional[dict] = None
+    # SPMD lane, this rank: seconds starting the previous frame's
+    # aggregation, drawing this epoch's frame and blocked in its wait(),
+    # and the bytes staged to the host and back; None on the other lanes
+    aggregation: Optional[dict] = None
 
 
 class AdaptiveRunResult(NamedTuple):
@@ -160,6 +189,24 @@ def resolve_stream(estimators, stream: Optional[str] = None) -> str:
             f"estimators {need_fwd} need the forward stream; the "
             "bidirectional stream carries no per-source distances")
     return stream
+
+
+def _pad_len(v: int, n_dev: int) -> int:
+    """A frame's length: V+1 (the sink row) rounded up to a multiple of
+    the mesh's size, so that every tier's reduce_scatter tiles it."""
+    return -(-(v + 1) // n_dev) * n_dev
+
+
+def make_agg_fn(mesh: SamplerMesh, aggregation: str):
+    """``x -> Aggregation`` of ``aggregation`` over ``mesh``: one of
+    ``"hierarchical"``, ``"flat"`` or ``"root"``.  A (C, v_pad) frame is
+    aggregated whole, flattened to (C * v_pad,) around the collectives
+    (``mesh.size`` divides v_pad)."""
+    fn = AGGREGATIONS.get(aggregation)
+    if fn is None:
+        raise ValueError(f"unknown aggregation {aggregation!r} (expected "
+                         f"one of {sorted(AGGREGATIONS)})")
+    return partial(fn, mesh=mesh)
 
 
 def _channel_offsets(estimators) -> tuple:
@@ -303,7 +350,7 @@ def _lane(graph, mesh, cfg: AdaptiveConfig, estimators, stream, gen,
                                         cfg.diameter_sweeps)
         n_cal = cfg.calib_samples_per_device * graph.n_shards
     _sync(dev)
-    ns.graph = graph
+    ns.graph, ns.gen, ns.n_samplers = graph, gen, 1
     ns.vd, ns.diam_levels = int(diam.vertex_diameter), diam.n_levels
     ns.t_diam = time.perf_counter() - t0
 
@@ -322,7 +369,8 @@ def _lane(graph, mesh, cfg: AdaptiveConfig, estimators, stream, gen,
             checks = _check_all(estimators, offsets, agg_c, agg_t, params,
                                 ctx)
             return ((agg_c, agg_t, fold.counts, fold.tau, fold.sur_counts,
-                     fold.sur_tau), checks, fold.n_levels, fold.exchange)
+                     fold.sur_tau), checks, fold.n_levels, fold.exchange,
+                    None)
         return epoch_step
 
     def flush(state):
@@ -337,6 +385,102 @@ def _lane(graph, mesh, cfg: AdaptiveConfig, estimators, stream, gen,
     ns.calibrate, ns.make_epoch = calibrate, make_epoch
     ns.flush, ns.init_state = flush, init_state
     return ns
+
+
+def _padded(counts: torch.Tensor, v_pad: int) -> torch.Tensor:
+    """(C, V+1) counts as a (C, v_pad) frame, zero past V+1."""
+    return torch.nn.functional.pad(counts, (0, v_pad - counts.shape[1]))
+
+
+def _spmd_lane(graph, mesh: SamplerMesh, cfg: AdaptiveConfig, estimators,
+               stream, gen, offsets, seed: int):
+    """Phase 1 and the per-epoch pieces of the SPMD lane: ``mesh.size``
+    independent samplers, one a rank, whose frames are summed by
+    ``cfg.aggregation`` (paper Alg. 2).  ``gen`` (seeded with ``seed``
+    alone) draws the diameter's seeds, the same on every rank; the
+    samples come from this rank's :func:`sampler_generator`."""
+    ns = SimpleNamespace()
+    dev = graph.device
+    v1 = graph.n_nodes + 1
+    v_pad = _pad_len(graph.n_nodes, mesh.size)
+    agg = make_agg_fn(mesh, cfg.aggregation)
+    t0 = time.perf_counter()
+    diam = estimate_diameter(graph, gen, n_sweeps=cfg.diameter_sweeps)
+    _sync(dev)
+    ns.graph, ns.n_samplers = graph, mesh.size
+    ns.gen = sampler_generator(seed, mesh.rank, dev)
+    ns.vd, ns.diam_levels = int(diam.vertex_diameter), diam.n_levels
+    ns.t_diam = time.perf_counter() - t0
+
+    def calibrate(bsz, ctx):
+        # pleasingly parallel draws, then one blocking reduce
+        fold = draw_fold(graph, ns.gen, cfg.calib_samples_per_device,
+                         estimators=estimators, ctx=ctx, stream=stream,
+                         batch_size=bsz)
+        counts = flat_allreduce(_padded(fold.counts, v_pad), mesh).wait()
+        tau = int(allreduce_ints([fold.tau], mesh).wait()[0])
+        return fold._replace(counts=counts, tau=tau)
+
+    def make_epoch(params, ctx, n0, bsz):
+        def epoch_step(state):
+            agg_c, agg_t, fr_c, fr_t, sur_c, sur_t = state
+            t0 = time.perf_counter()
+            # 1. the previous frame goes to the aggregation ...
+            inc_c = agg(fr_c)
+            inc_t = allreduce_ints([fr_t], mesh)
+            t1 = time.perf_counter()
+            # 2. ... while this rank draws the next one, the previous
+            #    surplus seeding it
+            fold = draw_fold(graph, ns.gen, n0, estimators=estimators,
+                             ctx=ctx, stream=stream, batch_size=bsz,
+                             carry=(sur_c, sur_t))
+            new_c = _padded(fold.counts, v_pad)
+            _sync(dev)
+            t2 = time.perf_counter()
+            # 3. the sum, and every stop rule on it, on every rank
+            agg_c = agg_c + inc_c.wait()
+            agg_t = agg_t + int(inc_t.wait()[0])
+            t3 = time.perf_counter()
+            checks = _check_all(estimators, offsets, agg_c, agg_t, params,
+                                ctx)
+            timing = {"start_s": t1 - t0, "draw_s": t2 - t1,
+                      "wait_s": t3 - t2, "staged_bytes": inc_c.staged_bytes}
+            return ((agg_c, agg_t, new_c, fold.tau, fold.sur_counts,
+                     fold.sur_tau), checks, fold.n_levels, None, timing)
+        return epoch_step
+
+    def flush(state):
+        # each rank's frame plus its surplus, then one aggregation
+        agg_c, agg_t, fr_c, fr_t, sur_c, sur_t = state
+        c = fr_c.clone()
+        c[:, :v1] += sur_c
+        inc_c, inc_t = agg(c), allreduce_ints([fr_t + sur_t], mesh)
+        return agg_c + inc_c.wait(), agg_t + int(inc_t.wait()[0])
+
+    def init_state(ctx):
+        n_ch = sum(e.n_channels for e in estimators)
+        z = torch.zeros((n_ch, v_pad), dtype=torch.float32, device=dev)
+        return (z, 0, z, 0, torch.zeros((n_ch, v1), dtype=torch.float32,
+                                        device=dev), 0)
+
+    ns.calibrate, ns.make_epoch = calibrate, make_epoch
+    ns.flush, ns.init_state = flush, init_state
+    return ns
+
+
+def _params_crc(params) -> int:
+    """CRC32 over the bits of every estimator's stop-rule parameters."""
+    crc = 0
+    for p in params:
+        for x in (p if isinstance(p, tuple) else (p,)):
+            if isinstance(x, torch.Tensor):
+                b = x.detach().cpu().numpy().tobytes()
+            elif isinstance(x, (int, float, np.number)):
+                b = np.float64(x).tobytes()
+            else:
+                b = repr(x).encode()
+            crc = zlib.crc32(b, crc)
+    return crc
 
 
 # ---------------------------------------------------------------------------
@@ -404,6 +548,108 @@ class _EngineCheckpointer:
         self.mgr.wait()
 
 
+class _SpmdCheckpointer:
+    """The SPMD lane's checkpoint: :class:`_EngineCheckpointer`'s 10
+    leaves with the per-rank ones stacked over the mesh's ranks (frames
+    (W, C, v_pad), surplus (W, C, V+1), generator states (W, n)),
+    gathered to the mesh's rank 0, which alone publishes them.  The
+    aggregate, the taus and the frozen leaves are the same on every
+    rank.  On resume, rank 0 picks the newest step that verifies and
+    broadcasts its number (or that it failed, so that every rank
+    raises); each rank then restores that step and takes its own row.
+    A step of another world size is another schema (lane ``spmd<W>``)
+    and raises ``CheckpointSchemaError``."""
+
+    def __init__(self, checkpoint_dir: str, checkpoint_every: int,
+                 schema: str, mesh: SamplerMesh):
+        from ..checkpoint.store import CheckpointManager
+        self.root, self.schema, self.every = (checkpoint_dir, schema,
+                                              checkpoint_every)
+        self.mesh = mesh
+        self.mgr = (CheckpointManager(checkpoint_dir, keep=3,
+                                      save_every=checkpoint_every,
+                                      schema=schema)
+                    if mesh.rank == 0 else None)
+
+    def _stack(self, x: torch.Tensor):
+        """(W, *x.shape): every rank's ``x`` on rank 0; None elsewhere."""
+        m = self.mesh
+        t = x.to(m.comm_device)
+        rows = ([torch.empty_like(t) for _ in range(m.size)]
+                if m.rank == 0 else None)
+        torch.distributed.gather(t, rows, dst=m.root, group=m.group)
+        return None if rows is None else torch.stack(rows)
+
+    def save_state(self, epoch: int, state, frozen_c, frozen_tau,
+                   stop_epoch, gen, done: bool) -> None:
+        if epoch % self.every:
+            return
+        agg_c, agg_t, fr_c, fr_t, sur_c, sur_t = state
+        leaves = (agg_c, np.int64(agg_t), self._stack(fr_c), np.int64(fr_t),
+                  self._stack(sur_c), np.int64(sur_t), frozen_c, frozen_tau,
+                  stop_epoch, self._stack(gen.get_state()))
+        if self.mgr is not None:
+            self.mgr.maybe_save(epoch, leaves,
+                                metadata={"epoch": epoch, "done": bool(done)})
+
+    def _agree_on_step(self, like):
+        """Rank 0's restore (or None) and the step every rank reads: -1
+        for none; a failure on rank 0 raises on every rank, of the same
+        class where it is a checkpoint error."""
+        from ..checkpoint.store import (CheckpointError, CheckpointLayoutError,
+                                        CheckpointSchemaError)
+        kinds = (CheckpointSchemaError, CheckpointLayoutError,
+                 CheckpointError, RuntimeError)
+        m = self.mesh
+        out, code, failure = None, -1, None
+        if m.rank == 0:
+            try:
+                out = self.mgr.restore_or_none(like, device="cpu")
+                code = -1 if out is None else out[1]
+            except Exception as e:  # noqa: BLE001 - every rank must hear
+                failure = e
+                code = -2 - next(i for i, k in enumerate(kinds)
+                                 if isinstance(e, k) or k is RuntimeError)
+        t = torch.tensor([code], dtype=torch.int64, device=m.comm_device)
+        torch.distributed.broadcast(t, src=m.root, group=m.group)
+        code = int(t[0])
+        if failure is not None:
+            raise failure
+        if code < -1:
+            raise kinds[-2 - code](
+                f"rank 0 of the SamplerMesh could not restore the checkpoint "
+                f"under {self.root} (schema {self.schema!r}); see its error")
+        return out, code
+
+    def restore_state(self, state, frozen_c, frozen_tau, stop_epoch, gen):
+        """As :meth:`_EngineCheckpointer.restore_state`, each rank
+        taking its own row of the stacked leaves."""
+        from ..checkpoint.store import restore
+        w, r = self.mesh.size, self.mesh.rank
+        agg_c, agg_t, fr_c, fr_t, sur_c, sur_t = state
+        g = gen.get_state()
+        like = (agg_c, np.int64(0), fr_c.new_empty((w, *fr_c.shape)),
+                np.int64(0), sur_c.new_empty((w, *sur_c.shape)), np.int64(0),
+                frozen_c, frozen_tau, stop_epoch, g.new_empty((w, g.numel())))
+        out, step = self._agree_on_step(like)
+        if step == -1:
+            return state, frozen_c, frozen_tau, stop_epoch, 0
+        if out is None:
+            out = restore(self.root, like, step=step, device="cpu",
+                          expect_schema=self.schema)
+        lv, _, meta = out
+        gen.set_state(lv[9][r].clone())
+        dev = self.mesh.device
+        state = (lv[0].to(dev), int(lv[1]), lv[2][r].to(dev), int(lv[3]),
+                 lv[4][r].to(dev), int(lv[5]))
+        return (state, lv[6].to(dev), lv[7].numpy(), lv[8].numpy(),
+                int(meta.get("epoch", step)))
+
+    def wait(self) -> None:
+        if self.mgr is not None:
+            self.mgr.wait()
+
+
 def _not_ported(**args) -> None:
     """Raise ``NotImplementedError`` for the first argument given that a
     later ROADMAP §1 item adds."""
@@ -418,7 +664,17 @@ def _not_ported(**args) -> None:
 def _resolve_lane(graph, mesh, device):
     """(graph on the run's device, mesh or None, device).  A
     PartitionedGraph needs a ShardMesh with its shard count on its own
-    device; a mesh with a plain Graph is the SPMD lane, not ported."""
+    device; a plain Graph with a SamplerMesh of more than one rank is
+    the SPMD lane, on the mesh's device (one rank: the single lane)."""
+    if isinstance(mesh, SamplerMesh):
+        if isinstance(graph, PartitionedGraph):
+            raise TypeError("a SamplerMesh samples a replicated Graph; a "
+                            "PartitionedGraph needs a ShardMesh")
+        if device is not None and canonical_device(device) != mesh.device:
+            raise ValueError(f"device={device!r} differs from the mesh's "
+                             f"{mesh.device}")
+        return (graph.to(mesh.device), mesh if mesh.size > 1 else None,
+                mesh.device)
     if isinstance(graph, PartitionedGraph):
         if mesh is None:
             raise ValueError(
@@ -433,9 +689,8 @@ def _resolve_lane(graph, mesh, device):
         mesh.check(graph)
         return graph, mesh, mesh.device
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh= with a replicated Graph is the SPMD lane, not ported "
-            "yet: ROADMAP §1 item 11")
+        raise TypeError(f"a replicated Graph takes a SamplerMesh, got "
+                        f"{type(mesh)}")
     dev = resolve_device(DEFAULT_DEVICE if device is None else device)
     return graph.to(dev), None, dev
 
@@ -458,16 +713,23 @@ def run_adaptive(graph, metrics=("betweenness",), *,
     the CPU), or a :class:`PartitionedGraph` with
     ``mesh=ShardMesh(n_shards, device)``: the sharded lane, on the
     mesh's device, where the graph must already lie (``device``, if
-    given, must name it).  Explicit ``eps``/``delta`` override
-    ``config``'s.  ``seed`` seeds the run's one ``torch.Generator``.
-    ``stream`` is resolved by :func:`resolve_stream`.
+    given, must name it).  A :class:`Graph` with
+    ``mesh=SamplerMesh(...)`` is the SPMD lane: every rank of the mesh
+    calls the run with the same graph and arguments, on the mesh's
+    device, and every rank returns the same result (module docstring).
+    Explicit ``eps``/``delta`` override ``config``'s.  ``seed`` seeds
+    the run's ``torch.Generator`` (on the SPMD lane, the diameter's; the
+    ranks' own are derived from it).  ``stream`` is resolved by
+    :func:`resolve_stream`.
 
     ``checkpoint_dir`` publishes the loop's state every
     ``checkpoint_every`` epochs (at least 1) and resumes from the newest
     step there that verifies: the result is bitwise the uninterrupted
     run's at the same seed.  A step of another metric set, lane or
-    generator device raises ``CheckpointSchemaError``.  Resuming a
-    completed run draws nothing and reports the same result.
+    generator device raises ``CheckpointSchemaError``; on the SPMD lane
+    the mesh's rank 0 writes the steps, and a step of another world size
+    raises too.  Resuming a completed run draws nothing and reports the
+    same result.
     """
     _not_ported(on_epoch=on_epoch, telemetry=telemetry)
     if int(checkpoint_every) < 1:
@@ -486,13 +748,20 @@ def run_adaptive(graph, metrics=("betweenness",), *,
     offsets = _channel_offsets(estimators)
     n_est = len(estimators)
 
+    spmd = isinstance(mesh, SamplerMesh)
+
     # ---- phase 1: diameter ---------------------------------------------
-    lane = _lane(graph, mesh, cfg, estimators, stream, gen, offsets)
+    if spmd:
+        lane = _spmd_lane(graph, mesh, cfg, estimators, stream, gen,
+                          offsets, seed)
+    else:
+        lane = _lane(graph, mesh, cfg, estimators, stream, gen, offsets)
     graph = lane.graph
     ctx = RunContext(graph.n_nodes, lane.vd)
     bsz = resolve_sample_batch_size(cfg.sample_batch_size, ctx.n_nodes,
                                     ctx.vertex_diameter)
-    xplan = None if mesh is None else exchange_plan(graph, bsz)
+    xplan = (exchange_plan(graph, bsz) if isinstance(mesh, ShardMesh)
+             else None)
     bfs_levels = lane.diam_levels
 
     # ---- phase 2: calibration ------------------------------------------
@@ -507,7 +776,14 @@ def run_adaptive(graph, metrics=("betweenness",), *,
     t_cal = time.perf_counter() - t0
 
     # ---- phase 3: the adaptive loop --------------------------------------
-    n0 = epoch_length(1, base=cfg.n0_base, exponent=cfg.n0_exponent)
+    n0 = epoch_length(lane.n_samplers, base=cfg.n0_base,
+                      exponent=cfg.n0_exponent)
+    if spmd:
+        # every rank must run the same loop: a rank-dependent bit here
+        # would leave the others waiting in a collective
+        assert_replicated(mesh, {
+            "vertex_diameter": ctx.vertex_diameter, "batch": bsz, "n0": n0,
+            "calibration_tau": cal.tau, "params_crc32": _params_crc(params)})
     epoch_step = lane.make_epoch(params, ctx, n0, bsz)
     state = lane.init_state(ctx)
     # which metric owns each channel row (the frozen snapshot's row masks)
@@ -519,13 +795,16 @@ def run_adaptive(graph, metrics=("betweenness",), *,
     epoch = 0
     ckpt = None
     if checkpoint_dir:
-        lane_name = "single" if mesh is None else f"sharded{graph.n_shards}"
-        ckpt = _EngineCheckpointer(
-            checkpoint_dir, int(checkpoint_every),
-            frame_schema_id(estimators, lane=lane_name,
-                            generator=gen.device.type), dev)
+        lane_name = ("single" if mesh is None else f"spmd{mesh.size}"
+                     if spmd else f"sharded{graph.n_shards}")
+        schema = frame_schema_id(estimators, lane=lane_name,
+                                 generator=lane.gen.device.type)
+        ckpt = (_SpmdCheckpointer(checkpoint_dir, int(checkpoint_every),
+                                  schema, mesh) if spmd else
+                _EngineCheckpointer(checkpoint_dir, int(checkpoint_every),
+                                    schema, dev))
         state, frozen_c, frozen_tau, stop_epoch, epoch = ckpt.restore_state(
-            state, frozen_c, frozen_tau, stop_epoch, gen)
+            state, frozen_c, frozen_tau, stop_epoch, lane.gen)
     stopped = stop_epoch >= 0
 
     def freeze(which, flushed):
@@ -541,7 +820,7 @@ def run_adaptive(graph, metrics=("betweenness",), *,
     try:
         while not stopped.all() and epoch < cfg.max_epochs:
             te = time.perf_counter()
-            state, (done, mf, mg), n_levels, xch = epoch_step(state)
+            state, (done, mf, mg), n_levels, xch, timing = epoch_step(state)
             bfs_levels += n_levels
             epoch += 1
             newly = done & ~stopped
@@ -559,10 +838,11 @@ def run_adaptive(graph, metrics=("betweenness",), *,
             stats.append(EngineEpochStats(
                 epoch, int(state[1]), tuple(float(x) for x in mf),
                 tuple(float(x) for x in mg), time.perf_counter() - te,
-                int(state[3]), xacct))
+                int(state[3]) * lane.n_samplers, xacct, timing))
             if ckpt is not None:
                 ckpt.save_state(epoch, state, frozen_c, frozen_tau,
-                                stop_epoch, gen, done=bool(stopped.all()))
+                                stop_epoch, lane.gen,
+                                done=bool(stopped.all()))
     finally:
         # earlier good epochs land even when the loop raises, and a
         # publish error surfaces here
@@ -610,6 +890,9 @@ def run_fixed(graph, n_samples: int, *, metrics=("betweenness",),
     diameter is swept only when a metric normalizes by it (closeness),
     and always on a :class:`PartitionedGraph` (with ``mesh=``, as in
     :func:`run_adaptive`), where it also resolves an ``"auto"`` budget.
+    With ``mesh=SamplerMesh(...)`` (W ranks) each rank draws ``ceil(n /
+    W)`` samples from its own generator and one all_reduce sums them:
+    ``tau`` is ``W * ceil(n / W)``, the same on every rank.
     """
     estimators = resolve_estimators(metrics)
     stream = resolve_stream(estimators, stream)
@@ -619,21 +902,28 @@ def run_fixed(graph, n_samples: int, *, metrics=("betweenness",),
     needs_vd = stream == "forward" and any(e.needs_diameter
                                            for e in estimators)
     vd = 0
-    if mesh is not None:
+    if isinstance(mesh, ShardMesh):
         diam, graph = _sharded_diameter(graph, mesh, gen, 2)
         vd = int(diam.vertex_diameter) if needs_vd else 0
     elif needs_vd:
         vd = int(estimate_diameter(graph, gen, n_sweeps=2).vertex_diameter)
     ctx = RunContext(graph.n_nodes, vd)
-    fold = draw_fold(graph, gen, n_samples, estimators=estimators, ctx=ctx,
-                     stream=stream,
-                     batch_size=(DEFAULT_SAMPLE_BATCH_SIZE if batch_size is None
-                                 else batch_size), mesh=mesh)
+    bsz = DEFAULT_SAMPLE_BATCH_SIZE if batch_size is None else batch_size
+    if isinstance(mesh, SamplerMesh):
+        fold = draw_fold(graph, sampler_generator(seed, mesh.rank, dev),
+                         -(-n_samples // mesh.size), estimators=estimators,
+                         ctx=ctx, stream=stream, batch_size=bsz)
+        counts = flat_allreduce(fold.counts, mesh).wait()
+        tau = int(allreduce_ints([fold.tau], mesh).wait()[0])
+    else:
+        fold = draw_fold(graph, gen, n_samples, estimators=estimators,
+                         ctx=ctx, stream=stream, batch_size=bsz, mesh=mesh)
+        counts, tau = fold.counts, fold.tau
     reports = []
     for est, off in zip(estimators, _channel_offsets(estimators)):
-        sl = fold.counts[off: off + est.n_channels]
+        sl = counts[off: off + est.n_channels]
         reports.append(MetricReport(
-            name=est.name, scores=est.finalize(sl, fold.tau, None, ctx),
-            tau=fold.tau, converged=False, omega=float("nan"), stop_epoch=0,
+            name=est.name, scores=est.finalize(sl, tau, None, ctx),
+            tau=tau, converged=False, omega=float("nan"), stop_epoch=0,
             extras=est.extras(None, ctx)))
     return tuple(reports)

@@ -16,8 +16,9 @@ def frame_schema_id(estimators, *, lane: str, generator: str) -> str:
     """The checkpoint ``schema`` stamp of the engine's state, e.g.
     ``"epoch-state-torch-v1:single:cuda:betweenness[path_counts]"``.
 
-    It names the lane (``single``, or ``sharded<S>``: the two lanes draw
-    different streams), the random generator's device type (a CPU
+    It names the lane (``single``, ``spmd<W>`` for W ranks, each with its
+    own generator, or ``sharded<S>``: the lanes draw different streams),
+    the random generator's device type (a CPU
     generator's state is 5,056 bytes of MT19937, a CUDA one's 16 bytes
     of Philox seed and offset) and every estimator with its channels, in
     channel-row order.  It differs from the JAX engine's

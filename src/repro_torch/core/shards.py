@@ -16,7 +16,7 @@ These are the only places where shards meet; a shard's local step is one
 operation over the whole stack, which gives the bits of running it shard
 by shard (integer sums and float max are exact, and the elementwise steps
 read no other shard).  Nothing here leaves the device.  A later transport
-over ``torch.distributed`` (ROADMAP §1 item 11) puts a process group
+over ``torch.distributed`` (ROADMAP §1 item 11b) puts a process group
 behind the same few methods.
 """
 from __future__ import annotations

@@ -14,7 +14,10 @@ after it.  The library is renamed to
 ``build/kernels/<name>-<digest>.so``, the digest taken over the command
 line and the source's bytes: a changed source or flag set gets a new
 path, so the dynamic loader, which returns the handle it already holds
-for a path it has opened, never hands back a stale library.
+for a path it has opened, never hands back a stale library.  A library
+already at its digest's path (another process built it: the ranks of a
+spawned group load what their parent built) is loaded without running
+``nvcc``; ``ptxas``'s report is kept beside it.
 
 Every C entry point returns ``cudaGetLastError()`` and the Python
 wrapper raises on a non-zero code (:func:`check`).  Nothing here runs at
@@ -67,38 +70,45 @@ def load(name: str, source: Path, declare, extra_flags=()) -> ctypes.CDLL:
     ``extra_flags`` are further ``nvcc`` arguments for this source only,
     placed after it.  The library is written to a temporary name and
     renamed to ``BUILD_DIR/<name>-<digest>.so`` (module docstring), so a
-    concurrent builder never loads a half-written file.  ``declare(lib)``
-    sets ``argtypes``/``restype`` of its entry points.
+    process building the same source at once never loads a half-written
+    file; a library already there is loaded as it is.  ``declare(lib)`` sets
+    ``argtypes``/``restype`` of its entry points.
     """
     key = (name, tuple(extra_flags))
     if key not in _LOADED:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(source), *key[1]]
-        stable = [arg for arg in cmd if arg != tmp]
-        digest = hashlib.sha256("\0".join(stable).encode()
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", "", str(source), *key[1]]
+        digest = hashlib.sha256("\0".join(a for a in cmd if a).encode()
                                 + Path(source).read_bytes()).hexdigest()[:16]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise KernelBuildError(f"{name}: nvcc exit {proc.returncode}\n"
-                                   f"{proc.stdout}{proc.stderr}")
         path = BUILD_DIR / f"{name}-{digest}.so"
-        os.replace(tmp, path)
+        report = path.with_suffix(".ptxas")
+        seconds = 0.0
+        if not path.exists():
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd[cmd.index("-o") + 1] = tmp
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            seconds = time.perf_counter() - t0
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                raise KernelBuildError(f"{name}: nvcc exit "
+                                       f"{proc.returncode}\n"
+                                       f"{proc.stdout}{proc.stderr}")
+            report.write_text(proc.stdout + proc.stderr)
+            os.replace(tmp, path)
         lib = ctypes.CDLL(str(path))
         declare(lib)
         _LOADED[key] = lib
         _REPORTS[name] = {"seconds": seconds, "path": str(path),
-                          "ptxas": proc.stdout + proc.stderr}
+                          "ptxas": report.read_text()
+                          if report.exists() else ""}
     return _LOADED[key]
 
 
 def build_report(name: str) -> dict:
-    """``{"seconds", "path", "ptxas"}`` of the library ``name`` built by
-    this process."""
+    """``{"seconds", "path", "ptxas"}`` of the library ``name`` loaded by
+    this process (``seconds`` 0 where it was built before)."""
     return _REPORTS[name]
 
 

@@ -3,8 +3,9 @@ global grad-norm clipping in float32, decoupled weight decay, in the JAX
 package's order of operations.  Functional: every step returns new
 parameter and state trees.
 
-``compress="int8"`` compresses the gradient all-reduce, which one GPU
-does not have: it raises until the SPMD lane (ROADMAP item 11).
+``compress="int8"`` compresses a data-parallel gradient all-reduce, which
+one GPU does not have: it raises until data-parallel training (FSDP/TP,
+ROADMAP §1 item 16).
 """
 from __future__ import annotations
 
@@ -32,8 +33,9 @@ class AdamWConfig:
 def _no_compression(compress) -> None:
     if compress:
         raise NotImplementedError(
-            "int8 gradient compression shrinks the cross-device all-reduce; "
-            "it waits for the port's SPMD lane (ROADMAP item 11)")
+            "int8 gradient compression shrinks the data-parallel gradient "
+            "all-reduce; it waits for data-parallel training (FSDP/TP, "
+            "ROADMAP §1 item 16): the SPMD sampling lane has no gradient")
 
 
 def init_state(params, compress: bool = False) -> dict:

@@ -163,11 +163,9 @@ def test_explicit_eps_delta_override_config():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"mesh": object()}, "item 11"),
     ({"checkpoint_dir": "ckpt", "on_epoch": print}, "item 14"),
     ({"on_epoch": print}, "item 14"),
     ({"telemetry": "trace.jsonl"}, "item 14"),
-    ({"metrics": ("closeness",), "mesh": object()}, "item 11"),
     ({"stream": "weighted"}, "item 13"),
     ({"metrics": ("harmonic",), "stream": "weighted"}, "item 13"),
 ])
@@ -176,6 +174,18 @@ def test_unported_options_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
         tc.run_adaptive(graph, device="cpu", **kwargs)
     assert not os.path.exists("ckpt")
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"mesh": object()},
+    {"metrics": ("closeness",), "mesh": object()},
+])
+def test_a_replicated_graph_takes_only_a_sampler_mesh(kwargs):
+    """A mesh with a replicated Graph is the SPMD lane's SamplerMesh
+    (tests/test_torch_spmd.py); anything else raises before a draw."""
+    graph = tc.grid_graph(3, 3, device="cpu")
+    with pytest.raises(TypeError, match="SamplerMesh"):
+        tc.run_adaptive(graph, device="cpu", **kwargs)
 
 
 def test_checkpoint_every_below_one_raises(tmp_path):
@@ -189,8 +199,8 @@ def test_checkpoint_every_below_one_raises(tmp_path):
 
 def test_betweenness_config_matches_jax():
     """The port's configs.betweenness carries the JAX package's values,
-    its adaptive config's included (the port's AdaptiveConfig has no
-    ``aggregation`` yet: that is the SPMD lane's)."""
+    its adaptive config's included (the SPMD lane's ``aggregation``
+    too)."""
     import dataclasses
     import repro.configs.betweenness as jcfg
     import repro_torch.configs.betweenness as tcfg
@@ -200,7 +210,7 @@ def test_betweenness_config_matches_jax():
             assert getattr(got, f) == getattr(want, f)
         got_a = dataclasses.asdict(got.adaptive)
         want_a = dataclasses.asdict(want.adaptive)
-        assert want_a.pop("aggregation") == "hierarchical"
+        assert want_a["aggregation"] == "hierarchical"
         assert got_a == want_a
 
 

@@ -73,7 +73,8 @@ def test_extra_flags_follow_the_source(nvcc):
 def test_a_rebuild_never_loads_a_stale_library(nvcc, tmp_path, monkeypatch):
     """Another flag set or another source text gets another library
     path (the loader hands back the library it already holds for a path
-    it has opened); the same ones get the same path."""
+    it has opened); the same ones get the same path, which a new process
+    loads without building again."""
     src = tmp_path / "k.cu"
     src.write_text("// one\n")
     _build.load("k", src, lambda lib: None)
@@ -86,7 +87,7 @@ def test_a_rebuild_never_loads_a_stale_library(nvcc, tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "_LOADED", {})
     _build.load("k", src, lambda lib: None)
     first, flagged, edited, again = nvcc["loaded"]
-    assert len(nvcc["commands"]) == 4
+    assert len(nvcc["commands"]) == 3
     assert len({first, flagged, edited}) == 3 and again == first
     assert all(Path(p).parent == tmp_path and Path(p).name.startswith("k-")
                for p in nvcc["loaded"])
@@ -101,3 +102,21 @@ def test_a_refused_source_raises_and_leaves_nothing(nvcc, tmp_path):
     with pytest.raises(_build.KernelBuildError, match="nvcc exit 1"):
         _build.load("bad", bad, lambda lib: None)
     assert not list(tmp_path.glob("*.so")) and not nvcc["loaded"]
+
+
+def test_a_library_built_by_another_process_is_loaded_without_nvcc(
+        nvcc, tmp_path, monkeypatch):
+    """The ranks of a spawned group load what their parent built: same
+    path, no command, and the build's ptxas report read back."""
+    src = tmp_path / "k.cu"
+    src.write_text("// one\n")
+    _build.load("k", src, lambda lib: None)
+    built = _build.build_report("k")
+    monkeypatch.setattr(_build, "_LOADED", {})         # another process
+    monkeypatch.setattr(_build, "_REPORTS", {})
+    _build.load("k", src, lambda lib: None)
+    assert len(nvcc["commands"]) == 1
+    assert nvcc["loaded"] == [built["path"]] * 2
+    again = _build.build_report("k")
+    assert again["ptxas"] == built["ptxas"] == "ptxas info"
+    assert again["seconds"] == 0.0 and again["path"] == built["path"]

@@ -259,7 +259,7 @@ def test_run_fixed_reports_every_metric():
         assert r.scores.shape == (80,) and np.isfinite(r.scores).all()
     # closeness normalizes by the swept diameter bound
     assert reports[1].extras["distance_cap"] > 1
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="SamplerMesh"):
         tc.run_fixed(graph, 64, mesh=object(), device="cpu")
 
 

@@ -36,6 +36,15 @@ def _quickstart():
     return mod
 
 
+def _scaling():
+    spec = importlib.util.spec_from_file_location(
+        "betweenness_scaling_torch",
+        EXAMPLES / "betweenness_scaling_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def _submodules():
     return sorted(m.name for m in pkgutil.walk_packages(
         [str(SRC)], prefix="repro_torch."))
@@ -109,6 +118,12 @@ def test_guard_walks_the_graphsage_slice_modules():
             "repro_torch.tree"} <= set(_submodules())
 
 
+def test_guard_walks_the_spmd_slice_modules():
+    """The import guard reaches the aggregation and the launcher."""
+    assert {"repro_torch.core.distributed", "repro_torch.launch",
+            "repro_torch.launch.mesh"} <= set(_submodules())
+
+
 def test_guard_walks_the_checkpoint_slice_modules():
     """The import guard reaches the store, the schema stamp's module and
     the betweenness config."""
@@ -155,14 +170,30 @@ def test_guard_walks_the_lm_slice_modules():
     lambda: lm_params_from_numpy({"ln_f": torch.ones(2).numpy()}),
     lambda: restore("no-such-dir", (torch.zeros(1),)),
     lambda: _quickstart().main([]),
+    lambda: _scaling().main([]),
 ], ids=["generator", "from_edge_list", "run_kadabra", "run_adaptive",
         "graph_to", "run_fixed", "run_fixed_sampling", "sage_init",
         "graph_to_batch", "sage_params_from_numpy", "graph_batch_to",
         "lm_init_params", "lm_init_cache", "lm_params_from_numpy",
-        "checkpoint_restore", "quickstart_torch"])
+        "checkpoint_restore", "quickstart_torch",
+        "betweenness_scaling_torch"])
 def test_entry_points_raise_without_a_card(call, monkeypatch):
     """The default device is CUDA; with no card the call raises instead
     of running on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
+
+
+def test_scaling_example_runs_on_the_cpu(capsys, monkeypatch):
+    """examples/betweenness_scaling_torch.py with --device cpu on R-MAT
+    2^8: 8 ranks of a gloo group, the three aggregations within eps of
+    Brandes and bitwise alike on every rank."""
+    # imported by its name, so that the ranks it spawns import it too
+    monkeypatch.syspath_prepend(str(EXAMPLES))
+    scaling = importlib.import_module("betweenness_scaling_torch")
+    results = scaling.main(["--device", "cpu", "--scale", "8"])
+    assert len(results) == 8
+    out = capsys.readouterr().out
+    assert out.rstrip().endswith("OK") and out.count("the same bits: True") \
+        == 3

@@ -339,10 +339,11 @@ def test_sharded_lane_raises():
         mesh.check(dataclasses.replace(pg).to("meta"))
     with pytest.raises(ValueError, match="differs"):
         tc.run_kadabra(pg, mesh=mesh, device="meta")
-    with pytest.raises(NotImplementedError, match="item 11") as err:
+    # a replicated Graph takes a SamplerMesh (the SPMD lane), not a
+    # ShardMesh
+    with pytest.raises(TypeError, match="SamplerMesh"):
         tc.run_kadabra(g, mesh=mesh, device=CPU)
-    assert "12" not in str(err.value)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="SamplerMesh"):
         tc.run_fixed(g, 8, mesh=mesh, device=CPU)
     for kw, item in ((dict(on_epoch=print), "item 14"),
                      (dict(telemetry="t.jsonl"), "item 14"),
