@@ -149,7 +149,45 @@ any failed phase.  Phases:
    A rank that raises, or a group that outlasts SPMD_TIMEOUT, fails the
    smoke.  (f) In this process, a one-rank NCCL group runs the three
    aggregations on a (1, v_pad) frame on the card: bitwise its input,
-   each timed.
+   each timed;
+17. the sharded cooperative lane over ``torch.distributed``, after [16]:
+   R-MAT 2^20 x 30 cut into GROUP_SHARDS = 4 shards at the card's
+   blocking, and 4 ranks spawned on the one card in a gloo group, each
+   holding one shard (``partition_graph(graph, 4, shard=rank)`` on a
+   ``GroupShardMesh``; CRC32 of its layout against the parent's whole
+   partition's row) and loading the parent's kernel builds.  (a) One
+   bidirectional and one forward batch of B pairs: every rank's
+   gathered dist, d, split and levels bitwise the parent's
+   ``ShardMesh(4)`` batches on the same sources (saved for the ranks
+   in a temporary directory), sigma bitwise where an exact integer
+   below 2^24, else within rtol 1e-6; every rank bitwise rank 0 (CRC32
+   of the gathered state).  (b) Each rank's launches: one words pass
+   and one node-blocked launch a level, no flat or replicated
+   node-blocked launch, one K3 an epoch.  (c) Rank 0's level split into
+   the exchange (occupancy bits, the pick, the chosen protocol's gathers,
+   staged through pinned host memory), the level call (the card
+   synchronized on both sides), the reductions and the rest; the levels
+   taken dense and sparse, the bytes sent and staged a level by
+   protocol, and the state's gather once a batch; the parent's
+   ``ShardMesh(4)`` level on the same batch beside it.  (d)
+   ``run_kadabra`` on the production cell stopped at GROUP_MAX_EPOCHS =
+   2 epochs (calibration's 128 samples, then 2 epochs of n0 = 1,000):
+   every rank bitwise rank 0, and bitwise the parent's ``ShardMesh(4)``
+   run of the same config where two such runs are bitwise alike, else
+   within 2 eps; each collective's calls, bytes and seconds.  The run to
+   eps 0.01's stop rule is left out on purpose: at ~224 batches the
+   once-a-batch gather of the state alone (4 tensors of v_pad x B x 4
+   bytes, v_pad 1,114,112) is ~1.1 GB received a rank a batch, ~255 GB a
+   rank a run through loopback TCP, minutes beyond the smoke's limit for
+   no check that (d) does not make.  (e) hyperbolic(1000) in 4 ranks to
+   its stop rule within eps 0.05 of exact Brandes; the same run stopped
+   after one epoch and resumed, and resumed from a step written by the
+   parent's ``ShardMesh(4)`` run, both bitwise, and bitwise that run.
+   A rank that raises, or a group that outlasts GROUP_TIMEOUT, fails
+   the smoke.  (f) In this process, a one-rank NCCL group (the
+   collectives on the card, nothing staged) runs one bidirectional
+   batch on ``partition_graph(graph, 1, shard=0)``: dist, d and split
+   bitwise the ``ShardMesh(1)`` batch, sigma as in (a).
 
 Every run resets the launch counts just before it and reads them just
 after: each kernel of the run must have carried all of its work.
@@ -284,6 +322,15 @@ SPMD_SETTINGS = ("DEVICE", "SEED", "RMAT_SCALE", "EDGE_FACTOR", "BATCH",
                  "MAIN_EPS", "MAIN_DELTA", "MAIN_MAX_EPOCHS", "RESUME_AT",
                  "HYPER_N", "HYPER_EPS", "SPMD_SHAPE", "SPMD_AXES",
                  "SPMD_MODES")
+# the sharded lane over torch.distributed: the production graph in 4
+# shards at the card's blocking, one a rank, the ranks spawned on the one
+# card in a gloo group; (d) runs calibration and GROUP_MAX_EPOCHS epochs
+# (phase [17]'s docstring says why not to the stop rule); a rank that
+# raises, or a group that outlasts GROUP_TIMEOUT seconds, fails the smoke
+GROUP_SHARDS, GROUP_MAX_EPOCHS, GROUP_TIMEOUT = 4, 2, 400
+GROUP_SETTINGS = ("DEVICE", "SEED", "RMAT_SCALE", "EDGE_FACTOR", "BATCH",
+                  "MAIN_EPS", "MAIN_DELTA", "HYPER_N", "HYPER_EPS",
+                  "HYPER_BLOCK_V", "GROUP_SHARDS", "GROUP_MAX_EPOCHS")
 
 
 def load_main_config() -> None:
@@ -1735,9 +1782,10 @@ def phase_llama() -> dict:
 # [14] the sharded cooperative lane
 # ---------------------------------------------------------------------------
 
-def compare_cells(name: str, got, want) -> float:
+def check_cells(name: str, got, want) -> tuple:
     """Bitwise where the plain value is an exact integer below 2^24,
-    within rtol elsewhere (atomics add in a varying order)."""
+    within rtol elsewhere (atomics add in a varying order); raises, else
+    -> (exact cells, other cells, max |diff|)."""
     import torch
     exact = (want < EXACT_LIMIT) & (want == torch.round(want))
     err = float((got - want).abs().max()) if want.numel() else 0.0
@@ -1749,8 +1797,14 @@ def compare_cells(name: str, got, want) -> float:
     if bool((gap > RTOL * want[rest].abs()).any()):
         raise AssertionError(f"{name}: max |diff| {err} beyond rtol {RTOL} "
                              "where the sums are not exact")
-    log(f"  {name}: bitwise on {int(exact.sum())} exact cells, within rtol "
-        f"{RTOL} on {int(rest.sum())} others (max |diff| {err})")
+    return int(exact.sum()), int(rest.sum()), err
+
+
+def compare_cells(name: str, got, want) -> float:
+    """:func:`check_cells`, logged."""
+    n_exact, n_rest, err = check_cells(name, got, want)
+    log(f"  {name}: bitwise on {n_exact} exact cells, within rtol "
+        f"{RTOL} on {n_rest} others (max |diff| {err})")
     return err
 
 
@@ -2594,6 +2648,547 @@ def phase_nccl(n_nodes: int) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# [17] the sharded cooperative lane over torch.distributed: one shard a rank
+# ---------------------------------------------------------------------------
+
+GROUP_BIDIR = ("dist_s", "dist_t", "sigma_s", "sigma_t")
+
+
+def group_pairs(n_nodes: int):
+    """The (s, t) pairs of [17]'s batches: the same on every process of
+    the card (one seeded generator on it)."""
+    import torch
+    from repro_torch.core import sample_pairs
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+    return sample_pairs(gen, n_nodes, BATCH)
+
+
+class LevelClock:
+    """Wraps the sharded searches' level call (``core/bfs.py``'s
+    ``frontier_expand``) to time it, the card synchronized on both
+    sides: ``seconds`` and ``calls`` while entered."""
+
+    def __enter__(self):
+        import repro_torch.core.bfs as bfs
+        import torch
+        self.seconds, self.calls = 0.0, 0
+        self._orig = orig = bfs.frontier_expand
+
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(*args, **kw)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            return out
+
+        bfs.frontier_expand = timed
+        return self
+
+    def __exit__(self, *exc):
+        import repro_torch.core.bfs as bfs
+        bfs.frontier_expand = self._orig
+
+
+LAYOUT_ARRAYS = ("src", "dst", "block_nb", "block_sb", "block_first")
+
+
+def layout_crc(arrays: dict, row: int, n_blocks: int, block_e: int) -> int:
+    """CRC32 of a partition's stacked layout ``arrays`` (host tensors) at
+    ``row``, cut to ``n_blocks`` edge blocks."""
+    import zlib
+    crc = 0
+    for name in LAYOUT_ARRAYS:
+        cut = n_blocks * (block_e if name in ("src", "dst") else 1)
+        crc = zlib.crc32(arrays[name][row, :cut].numpy().tobytes(), crc)
+    return crc
+
+
+def tensor_crc(*tensors) -> int:
+    import zlib
+    crc = 0
+    for t in tensors:
+        crc = zlib.crc32(t.cpu().numpy().tobytes(), crc)
+    return crc
+
+
+def check_group_counts(label: str, levels: int, stop_checks: int) -> dict:
+    """One rank's launches: every level one sharded level launch and one
+    words pass, nothing flat or replicated, ``stop_checks`` K3."""
+    from repro_torch.kernels import frontier, stopcheck
+    counts = all_counts()
+    want = {k: 0 for k in counts}
+    want.update({frontier.NODE_BLOCKED_WIDE: levels, frontier.WORDS: levels,
+                 stopcheck.STOPCHECK: stop_checks})
+    if counts != want or levels == 0:
+        raise AssertionError(f"{label}: launches {counts}, expected {want}")
+    return counts
+
+
+def group_rank(rank: int, work: str, settings: dict) -> dict:
+    """[17] on one rank of the spawned gloo group, on the card: the
+    rank's own shard of the production graph (a local partition), (a)-(c)
+    one bidirectional and one forward batch against the parent's
+    ShardMesh references (saved under ``work``), (d) ``run_kadabra`` at
+    GROUP_MAX_EPOCHS, (e) hyperbolic(HYPER_N) to its stop rule, stopped
+    and resumed, and resumed from the parent's ShardMesh step.
+    ``settings`` are the parent's GROUP_SETTINGS."""
+    import zlib
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core import (AdaptiveConfig, GroupShardMesh,
+                                  bfs_sssp_batched_sharded,
+                                  bidirectional_bfs_batched_sharded,
+                                  hyperbolic_graph, partition_graph,
+                                  rmat_graph, run_kadabra)
+    from repro_torch.core.distributed import assert_replicated
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.frontier import kernel as frontier
+    from repro_torch.kernels.stopcheck import kernel as stopcheck
+    globals().update(settings)
+    libs = {}
+    t0 = time.perf_counter()
+    if torch.device(DEVICE).type == "cuda":
+        torch.cuda.set_device(0)
+        frontier.library(), stopcheck.library()   # the parent's builds
+        libs = {k: _build.build_report(k)["seconds"]
+                for k in ("frontier", "stopcheck")}
+    mesh = GroupShardMesh(DEVICE)
+    rmat = rmat_graph(RMAT_SCALE, EDGE_FACTOR, seed=SEED, device=DEVICE)
+    crc = zlib.crc32(rmat.indices.cpu().numpy().tobytes(),
+                     zlib.crc32(rmat.indptr.cpu().numpy().tobytes()))
+    assert_replicated(mesh, {"graph_crc32": crc, "n_edges": rmat.n_edges})
+    pg = partition_graph(rmat, GROUP_SHARDS, shard=rank)
+    torch.cuda.synchronize()
+    lay = pg.shards
+    out = {"rank": rank, "libs": libs, "staged": mesh.staged,
+           "setup_s": time.perf_counter() - t0,
+           "layout": {"crc32": layout_crc(
+               {k: getattr(lay, k).cpu() for k in LAYOUT_ARRAYS}, 0,
+               lay.n_edge_blocks, lay.block_e),
+               "n_edge_blocks": lay.n_edge_blocks},
+           "budget": pg.exchange_budget}
+
+    def load(name):
+        return torch.from_numpy(np.load(os.path.join(work, name + ".npy"))
+                                ).to(DEVICE)
+
+    # (a)-(c): one bidirectional batch, timed by part
+    s, t = group_pairs(rmat.n_nodes)
+    reset_counts()
+    mesh.traffic(reset=True)
+    torch.cuda.synchronize()
+    with LevelClock() as clock:
+        t1 = time.perf_counter()
+        res = bidirectional_bfs_batched_sharded(pg, s, t, mesh=mesh)
+        torch.cuda.synchronize()
+        search_s = time.perf_counter() - t1
+    counts = check_group_counts(f"rank {rank} bidirectional batch",
+                                res.n_iters, 0)
+    search_traffic = mesh.traffic(reset=True)
+    t1 = time.perf_counter()
+    full = {f: mesh.all_gather(getattr(res, f), what="state")
+            for f in GROUP_BIDIR}
+    torch.cuda.synchronize()
+    gather_s = time.perf_counter() - t1
+    out["bidir"] = {
+        "n_iters": res.n_iters, "exchange": res.exchange.tolist(),
+        "search_s": search_s, "level_call_s": clock.seconds,
+        "level_calls": clock.calls, "traffic": search_traffic,
+        "gather_s": gather_s, "gather_traffic": mesh.traffic(reset=True),
+        "counts": counts,
+        "crc32": tensor_crc(full["dist_s"], full["dist_t"], res.d,
+                            res.split),
+        "sigma_crc32": tensor_crc(full["sigma_s"], full["sigma_t"])}
+    for f in ("dist_s", "dist_t"):
+        if not torch.equal(full[f], load(f).int()):
+            raise AssertionError(f"rank {rank}: bidirectional {f} is not "
+                                 "the ShardMesh run's")
+    for f in ("d", "split"):
+        if not torch.equal(getattr(res, f), load(f)):
+            raise AssertionError(f"rank {rank}: bidirectional {f} differs")
+    out["bidir"]["cells"] = {f: check_cells(f"rank {rank} {f}", full[f],
+                                            load(f))
+                             for f in ("sigma_s", "sigma_t")}
+    del res, full
+    reset_counts()
+    res = bfs_sssp_batched_sharded(pg, s, mesh=mesh)
+    counts = check_group_counts(f"rank {rank} forward batch", res.n_iters, 0)
+    dist = mesh.all_gather(res.dist, what="state")
+    sigma = mesh.all_gather(res.sigma, what="state")
+    if not (torch.equal(dist, load("fwd_dist").int())
+            and torch.equal(res.levels, load("fwd_levels"))):
+        raise AssertionError(f"rank {rank}: forward dist or levels differ")
+    out["forward"] = {"n_iters": res.n_iters,
+                      "exchange": res.exchange.tolist(), "counts": counts,
+                      "crc32": tensor_crc(dist, res.levels),
+                      "sigma_crc32": tensor_crc(sigma),
+                      "cells": check_cells(f"rank {rank} forward sigma",
+                                           sigma, load("fwd_sigma"))}
+    del res, dist, sigma
+    torch.cuda.empty_cache()
+
+    # (d) the production cell at GROUP_MAX_EPOCHS
+    cfg = AdaptiveConfig(eps=MAIN_EPS, delta=MAIN_DELTA,
+                         sample_batch_size=BATCH,
+                         max_epochs=GROUP_MAX_EPOCHS)
+    reset_counts()
+    mesh.traffic(reset=True)
+    t1 = time.perf_counter()
+    res = run_kadabra(pg, config=cfg, seed=SEED, mesh=mesh)
+    out["run"] = {"btilde": res.btilde, "tau": res.tau,
+                  "n_epochs": res.n_epochs, "converged": res.converged,
+                  "bfs_levels": res.bfs_levels,
+                  "seconds": time.perf_counter() - t1,
+                  "phases": res.phase_seconds,
+                  "exchange": [s.exchange for s in res.stats],
+                  "traffic": mesh.traffic(reset=True),
+                  "counts": check_group_counts(f"rank {rank} run_kadabra",
+                                               res.bfs_levels,
+                                               len(res.stats))}
+    del rmat, pg, res
+    torch.cuda.empty_cache()
+
+    # (e) accuracy and resume on hyperbolic(HYPER_N)
+    hyper = hyperbolic_graph(HYPER_N, seed=SEED, device=DEVICE)
+    hpg = partition_graph(hyper, GROUP_SHARDS, shard=rank,
+                          block_v=HYPER_BLOCK_V)
+    hcfg = AdaptiveConfig(eps=HYPER_EPS, delta=0.1)
+
+    def hrun(label, config, ckpt=None):
+        reset_counts()
+        res = run_kadabra(hpg, config=config, seed=SEED, mesh=mesh,
+                          checkpoint_dir=ckpt)
+        check_group_counts(f"rank {rank} hyperbolic {label}",
+                           res.bfs_levels, len(res.stats))
+        return {"btilde": res.btilde, "tau": res.tau,
+                "n_epochs": res.n_epochs, "converged": res.converged,
+                "epochs": [s.epoch for s in res.stats]}
+
+    out["hyper"] = hrun("run", hcfg)
+    out["hyper_part"] = hrun("stopped", dataclasses.replace(hcfg,
+                                                            max_epochs=1),
+                             os.path.join(work, "own"))
+    out["hyper_resumed"] = hrun("resumed", hcfg, os.path.join(work, "own"))
+    out["hyper_cross"] = hrun("resumed from ShardMesh", hcfg,
+                              os.path.join(work, "shard_mesh"))
+    return out
+
+
+def group_same(label: str, a: dict, b) -> None:
+    """Two runs' btilde, tau, epochs and convergence bitwise (``b`` a
+    rank's dict or a BetweennessResult)."""
+    if not isinstance(b, dict):
+        b = {"btilde": b.btilde, "tau": b.tau, "n_epochs": b.n_epochs,
+             "converged": b.converged}
+    spmd_bitwise(label, a, b)
+
+
+def group_reference(pg, mesh, work: str) -> dict:
+    """The ShardMesh batches of (a) on the whole partition, saved under
+    ``work`` for the ranks (distances as int8: they fit); -> their
+    levels and seconds, and the level call's."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (bfs_sssp_batched_sharded,
+                                  bidirectional_bfs_batched_sharded)
+    s, t = group_pairs(pg.n_nodes)
+
+    def save(name, x):
+        x = x.cpu()
+        if name.startswith(("dist", "fwd_dist")):
+            x = x.to(torch.int8)
+        np.save(os.path.join(work, name + ".npy"), x.numpy())
+
+    res = bidirectional_bfs_batched_sharded(pg, s, t, mesh=mesh)   # warm
+    del res
+    torch.cuda.synchronize()
+    with LevelClock() as clock:
+        t0 = time.perf_counter()
+        res = bidirectional_bfs_batched_sharded(pg, s, t, mesh=mesh)
+        torch.cuda.synchronize()
+        search_s = time.perf_counter() - t0
+    out = {"n_iters": res.n_iters, "exchange": res.exchange.tolist(),
+           "search_s": search_s, "level_call_s": clock.seconds}
+    for f in GROUP_BIDIR:
+        save(f, mesh.all_gather(getattr(res, f)))
+    save("d", res.d)
+    save("split", res.split)
+    del res
+    res = bfs_sssp_batched_sharded(pg, s, mesh=mesh)
+    out["fwd_n_iters"] = res.n_iters
+    save("fwd_dist", mesh.all_gather(res.dist))
+    save("fwd_sigma", mesh.all_gather(res.sigma))
+    save("fwd_levels", res.levels)
+    return out
+
+
+def phase_sharded_group(one_card: dict) -> dict:
+    """[17] a-e: GROUP_SHARDS ranks spawned on the one card in a gloo
+    group, one vertex shard each (group_rank), checked against the
+    parent's ShardMesh(GROUP_SHARDS) runs, one another and exact
+    Brandes; then (f) a one-rank NCCL group in this process.
+    ``one_card`` is [14]'s level_breakdown, logged beside (c).  Returns
+    (d)'s launch counts, summed over the ranks."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.core import (AdaptiveConfig, ShardMesh, brandes_numpy,
+                                  hyperbolic_graph, partition_graph,
+                                  rmat_graph, run_kadabra)
+    from repro_torch.launch import spawn_local
+    work = tempfile.mkdtemp(prefix="chip_smoke_group_")
+    try:
+        rmat = rmat_graph(RMAT_SCALE, EDGE_FACTOR, seed=SEED, device=DEVICE)
+        pg = partition_graph(rmat, GROUP_SHARDS)
+        mesh = ShardMesh(GROUP_SHARDS, DEVICE)
+        log(f"  {GROUP_SHARDS} shards at the card's blocking: block_v "
+            f"{pg.shards.block_v}, shard_rows {pg.shard_rows}, v_pad "
+            f"{pg.v_pad}, {pg.shards.n_edge_blocks} edge blocks a shard "
+            f"(the largest), exchange chunks of {pg.exchange_chunk_rows} "
+            f"rows, budget {pg.exchange_budget} of "
+            f"{pg.exchange_chunks_per_shard}")
+        t0 = time.perf_counter()
+        ref = group_reference(pg, mesh, work)
+        # the whole partition's layout, for each rank's shard
+        arrays = {k: getattr(pg.shards, k).cpu() for k in LAYOUT_ARRAYS}
+        block_e, n_nodes, rows = (pg.shards.block_e, pg.n_nodes,
+                                  pg.shard_rows)
+        cfg = AdaptiveConfig(eps=MAIN_EPS, delta=MAIN_DELTA,
+                             sample_batch_size=BATCH,
+                             max_epochs=GROUP_MAX_EPOCHS)
+        base = [run_kadabra(pg, config=cfg, seed=SEED, mesh=mesh)
+                for _ in range(2)]
+        stable = same_run(base[0], base[1])
+        log(f"  ShardMesh({GROUP_SHARDS}) references in "
+            f"{time.perf_counter() - t0:.1f} s: one bidirectional batch "
+            f"{ref['n_iters']} levels in {ref['search_s'] * 1e3:.1f} ms "
+            f"({ref['search_s'] * 1e3 / ref['n_iters']:.3f} ms a level, the "
+            f"level call {ref['level_call_s'] * 1e3 / ref['n_iters']:.3f} "
+            f"ms), exchange tally {ref['exchange']}; forward batch "
+            f"{ref['fwd_n_iters']} levels; run_kadabra at max_epochs "
+            f"{GROUP_MAX_EPOCHS}: tau {base[0].tau}, {base[0].bfs_levels} "
+            f"levels, two runs bitwise alike: {stable}")
+        del pg
+        torch.cuda.empty_cache()
+        hyper = hyperbolic_graph(HYPER_N, seed=SEED, device=DEVICE)
+        hpg = partition_graph(hyper, GROUP_SHARDS, block_v=HYPER_BLOCK_V)
+        hcfg = AdaptiveConfig(eps=HYPER_EPS, delta=0.1)
+        hbase = run_kadabra(hpg, config=hcfg, seed=SEED, mesh=mesh)
+        run_kadabra(hpg, config=dataclasses.replace(hcfg, max_epochs=1),
+                    seed=SEED, mesh=mesh,
+                    checkpoint_dir=os.path.join(work, "shard_mesh"))
+        t0 = time.perf_counter()
+        ranks = spawn_local(group_rank, GROUP_SHARDS,
+                            args=(work, {k: globals()[k]
+                                         for k in GROUP_SETTINGS}),
+                            backend="gloo", timeout=GROUP_TIMEOUT,
+                            store_dir=work)
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    r0 = ranks[0]
+    log(f"  {GROUP_SHARDS} ranks spawned and done in {wall:.1f} s; rank 0 "
+        f"loaded the parent's builds (nvcc seconds {r0['libs']}), built "
+        f"R-MAT and its shard in {r0['setup_s']:.1f} s; tensors on the "
+        f"card staged through the host: {r0['staged']}")
+    for r in ranks:
+        if any(r["libs"].values()):
+            raise AssertionError(f"rank {r['rank']} rebuilt a kernel: "
+                                 f"{r['libs']}")
+        nb = r["layout"]["n_edge_blocks"]
+        pad = arrays["src"][r["rank"], nb * block_e:]
+        if r["layout"]["crc32"] != layout_crc(arrays, r["rank"], nb,
+                                              block_e) \
+                or not bool((pad == n_nodes).all()) \
+                or not bool((arrays["dst"][r["rank"], nb * block_e:]
+                             == rows).all()) \
+                or r["budget"] != r0["budget"]:
+            raise AssertionError(f"rank {r['rank']}: its shard is not row "
+                                 f"{r['rank']} of the parent's partition")
+    blocks = [r["layout"]["n_edge_blocks"] for r in ranks]
+    log(f"  (a) every rank's shard is its row of the parent's partition up "
+        f"to the inert padding (CRC32 of the layout; edge blocks {blocks}); "
+        f"budget {r0['budget']}")
+    for kind in ("bidir", "forward"):
+        for r in ranks:
+            a, b = r[kind], r0[kind]
+            if (a["crc32"], a["sigma_crc32"], a["exchange"], a["n_iters"]) \
+                    != (b["crc32"], b["sigma_crc32"], b["exchange"],
+                        b["n_iters"]):
+                raise AssertionError(f"{kind}: rank {r['rank']} is not "
+                                     "bitwise rank 0")
+    bd, fw = r0["bidir"], r0["forward"]
+    if bd["n_iters"] != ref["n_iters"] or fw["n_iters"] != ref["fwd_n_iters"]:
+        raise AssertionError(f"levels differ from the ShardMesh run: "
+                             f"{bd['n_iters']}, {fw['n_iters']} vs "
+                             f"{ref['n_iters']}, {ref['fwd_n_iters']}")
+    log(f"  (a) bidirectional batch of {BATCH}: {bd['n_iters']} levels, "
+        f"exchange {bd['exchange']} (levels, sparse); dist_s, dist_t, d "
+        f"and split bitwise the ShardMesh({GROUP_SHARDS}) run on every "
+        f"rank; sigma (exact cells, others, max |diff|) {bd['cells']}; "
+        f"forward batch {fw['n_iters']} levels, dist and levels bitwise, "
+        f"sigma {fw['cells']}; every rank bitwise rank 0 (CRC32 of the "
+        "gathered state)")
+    log(f"  (b) launches a rank: bidirectional {bd['counts']}, forward "
+        f"{fw['counts']}: one level launch and one words pass a level, no "
+        "flat or replicated node-blocked launch")
+    tr = bd["traffic"]
+    levels, sparse = bd["exchange"]
+    dense = levels - sparse
+    xch_s = sum(tr.get(k, {}).get("seconds", 0.0)
+                for k in ("bits", "pick", "dense", "sparse"))
+    red_s = tr.get("reduce", {}).get("seconds", 0.0)
+    rest = bd["search_s"] - xch_s - red_s - bd["level_call_s"]
+    rest_14 = (one_card["sharded_level_ms"] - one_card["exchange_ms"]
+               - one_card["wide_ms"])
+    log(f"  (c) rank 0, a level of the bidirectional batch: "
+        f"{bd['search_s'] * 1e3 / levels:.3f} ms = exchange "
+        f"{xch_s * 1e3 / levels:.3f} ms (bits, pick and the chosen "
+        f"protocol's gathers, staged) + the level call "
+        f"{bd['level_call_s'] * 1e3 / levels:.3f} ms + the reductions "
+        f"{red_s * 1e3 / levels:.3f} ms + the rest {rest * 1e3 / levels:.3f}"
+        f" ms; ShardMesh({GROUP_SHARDS}) on one card "
+        f"{ref['search_s'] * 1e3 / ref['n_iters']:.3f} ms a level (its "
+        f"level call {ref['level_call_s'] * 1e3 / ref['n_iters']:.3f} ms)"
+        f"; [14]'s one-card level ({SHARDS} shards, the mid-BFS state) "
+        f"{one_card['sharded_level_ms']:.3f} ms = exchange "
+        f"{one_card['exchange_ms']:.3f} + the level call "
+        f"{one_card['wide_ms']:.3f} + the rest {rest_14:.3f}")
+    for name, n in (("dense", dense), ("sparse", sparse)):
+        rec = tr.get(name)
+        if rec is None:
+            log(f"      {name}: 0 levels")
+            continue
+        log(f"      {name}: {n} levels, {rec['calls']} gathers, "
+            f"{rec['sent_bytes'] / max(n, 1):.0f} bytes sent and "
+            f"{rec['staged_bytes'] / max(n, 1):.0f} staged a level, "
+            f"{rec['seconds'] * 1e3 / max(n, 1):.3f} ms a level")
+    for name in ("bits", "pick", "reduce"):
+        rec = tr.get(name, {"calls": 0, "sent_bytes": 0,
+                            "staged_bytes": 0, "seconds": 0.0})
+        log(f"      {name}: {rec['calls']} calls, {rec['sent_bytes']} bytes "
+            f"sent, {rec['staged_bytes']} staged, {rec['seconds'] * 1e3:.3f}"
+            f" ms in all")
+    st = bd["gather_traffic"]["state"]
+    log(f"      the state's gather once a batch (4 tensors): "
+        f"{bd['gather_s']:.3f} s, {st['sent_bytes']} bytes sent, "
+        f"{st['staged_bytes']} staged")
+    if "dense" in tr and dense == 0 or "sparse" in tr and sparse == 0:
+        raise AssertionError(f"a protocol crossed the wire on no level of "
+                             f"its own: {tr}, tally {bd['exchange']}")
+
+    run = r0["run"]
+    for r in ranks[1:]:
+        spmd_bitwise(f"(d) rank {r['rank']} against rank 0", r["run"], run)
+    gap = float(np.abs(run["btilde"] - base[0].btilde).max())
+    if stable:
+        group_same("(d) against the ShardMesh run", run, base[0])
+    elif not gap < 2 * MAIN_EPS:
+        raise AssertionError(f"(d): max |b - b_ShardMesh| {gap} >= 2 eps")
+    rt = run["traffic"]
+    log(f"  (d) run_kadabra, max_epochs {GROUP_MAX_EPOCHS}: "
+        f"{run['seconds']:.1f} s, phases "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in run["phases"].items())
+        + f"; tau {run['tau']}, epochs {run['n_epochs']}, BFS levels "
+        f"{run['bfs_levels']}; every rank bitwise rank 0; against the "
+        f"ShardMesh run (two of which were bitwise alike: {stable}): "
+        f"max |diff| {gap}; launches a rank {run['counts']}")
+    for name, rec in sorted(rt.items()):
+        log(f"      {name}: {rec['calls']} calls, "
+            f"{rec['sent_bytes'] / 1e9:.3f} GB sent, "
+            f"{rec['staged_bytes'] / 1e9:.3f} GB staged, "
+            f"{rec['seconds']:.2f} s")
+
+    hyper_cpu = hyperbolic_graph(HYPER_N, seed=SEED, device="cpu")
+    err = float(np.abs(r0["hyper"]["btilde"]
+                       - brandes_numpy(hyper_cpu)).max())
+    for r in ranks:
+        spmd_bitwise(f"(e) rank {r['rank']} against rank 0", r["hyper"],
+                     r0["hyper"])
+        spmd_bitwise(f"(e) rank {r['rank']} resumed", r["hyper_resumed"],
+                     r["hyper"])
+        group_same(f"(e) rank {r['rank']} from the ShardMesh step",
+                   r["hyper_cross"], hbase)
+        if r["hyper_part"]["n_epochs"] != 1 or \
+                r["hyper_resumed"]["epochs"][:1] != [2] or \
+                r["hyper_cross"]["epochs"][:1] != [2]:
+            raise AssertionError(f"(e) rank {r['rank']}: the resumed runs "
+                                 "did not start at epoch 2")
+    group_same("(e) against the ShardMesh run", r0["hyper"], hbase)
+    log(f"  (e) hyperbolic({HYPER_N}) in {GROUP_SHARDS} ranks: tau "
+        f"{r0['hyper']['tau']}, {r0['hyper']['n_epochs']} epochs, max |b~ - "
+        f"b| = {err:.5f} (eps {HYPER_EPS}); stopped after 1 epoch and "
+        f"resumed, and resumed from the ShardMesh({GROUP_SHARDS}) step: "
+        f"bitwise on every rank, and bitwise the ShardMesh run")
+    if not (err < HYPER_EPS and r0["hyper"]["converged"]):
+        raise AssertionError(f"(e) hyperbolic: max error {err} >= "
+                             f"{HYPER_EPS}")
+    phase_nccl_group(rmat)
+    del rmat
+    torch.cuda.empty_cache()
+    keys = run["counts"]
+    return {k: sum(r["run"]["counts"][k] for r in ranks) for k in keys}
+
+
+def phase_nccl_group(rmat) -> None:
+    """[17f] a one-rank NCCL group in this process: one bidirectional
+    batch on ``partition_graph(rmat, 1, shard=0)`` over a GroupShardMesh
+    (collectives on the card, nothing staged) against the ShardMesh(1)
+    batch on the whole one-shard partition."""
+    import datetime
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import (GroupShardMesh, ShardMesh,
+                                  bidirectional_bfs_batched_sharded,
+                                  partition_graph)
+    s, t = group_pairs(rmat.n_nodes)
+    one = partition_graph(rmat, 1)
+    want = bidirectional_bfs_batched_sharded(one, s, t,
+                                             mesh=ShardMesh(1, DEVICE))
+    root = tempfile.mkdtemp(prefix="chip_smoke_nccl_group_")
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(root, "store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = GroupShardMesh(DEVICE)
+        local = partition_graph(rmat, 1, shard=0)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = bidirectional_bfs_batched_sharded(local, s, t, mesh=mesh)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = check_group_counts("[17f] NCCL batch", got.n_iters, 0)
+        traffic = mesh.traffic(reset=True)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+    if mesh.staged or any(v["staged_bytes"] for v in traffic.values()):
+        raise AssertionError(f"[17f] NCCL staged bytes: {traffic}")
+    for f in ("dist_s", "dist_t", "d", "split"):
+        if not torch.equal(getattr(got, f), getattr(want, f)):
+            raise AssertionError(f"[17f] NCCL {f} is not the ShardMesh(1) "
+                                 "batch's")
+    cells = {f: check_cells(f"[17f] {f}", getattr(got, f), getattr(want, f))
+             for f in ("sigma_s", "sigma_t")}
+    bitwise = all(torch.equal(getattr(got, f), getattr(want, f))
+                  for f in ("sigma_s", "sigma_t"))
+    log(f"  (f) one-rank NCCL GroupShardMesh, one bidirectional batch on "
+        f"partition_graph(rmat, 1, shard=0): {got.n_iters} levels in "
+        f"{ms:.1f} ms, collectives on the card, nothing staged; dist, d and "
+        f"split bitwise the ShardMesh(1) batch, sigma (exact cells, "
+        f"others, max |diff|) {cells}, all bitwise: {bitwise}; launches "
+        f"{counts}; collectives {sorted(traffic)}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2750,6 +3345,14 @@ def main() -> int:
         f"hyperbolic({HYPER_N}); then a one-rank NCCL group")
     paths["rmat_spmd"] = phase_spmd(main_res)
     phase_nccl(1 << RMAT_SCALE)
+
+    log(f"[17] sharded lane over torch.distributed: R-MAT 2^{RMAT_SCALE} x "
+        f"{EDGE_FACTOR}, B={BATCH}, in {GROUP_SHARDS} shards, one a rank, "
+        f"{GROUP_SHARDS} ranks spawned on the one card in a gloo group; a "
+        f"batch each way, run_kadabra at max_epochs {GROUP_MAX_EPOCHS}, "
+        f"hyperbolic({HYPER_N}) stopped and resumed; then a one-rank NCCL "
+        "group")
+    paths["rmat_group"] = phase_sharded_group(wide_row)
 
     # each row's launches: the run of the path that row's kernel carries;
     # the node-blocked rows' words pass beside it

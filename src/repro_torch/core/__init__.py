@@ -31,12 +31,13 @@ from .sampler import (ForwardSample, PathSample, sample_batch, sample_pairs,
                       sample_path_batched_sharded,
                       sample_path_forward_batched,
                       sample_path_forward_batched_sharded)
-from .shards import ShardMesh
+from .shards import GroupShardMesh, ShardMesh
 
 __all__ = [
     "AdaptiveConfig", "AdaptiveRunResult", "BFSResult", "BetweennessResult",
     "BidirResult", "CSCLayout", "DiameterEstimate", "EpochStats",
-    "ExchangePlan", "ForwardSample", "Graph", "KadabraParams", "PathSample",
+    "ExchangePlan", "ForwardSample", "Graph", "GroupShardMesh",
+    "KadabraParams", "PathSample",
     "PartitionedGraph", "SamplerMesh", "ShardMesh", "ShardedCSCLayout",
     "auto_exchange_budget", "available_metrics", "bfs_sssp",
     "bfs_sssp_batched", "bfs_sssp_batched_sharded", "bidirectional_bfs",

@@ -1,6 +1,7 @@
 """``run_kadabra``: the paper's KADABRA on one device, on the independent
 samplers of a :class:`SamplerMesh`, or cooperatively over the shards of
-a :class:`PartitionedGraph` (``repro.core.adaptive``), a thin mapping of
+a :class:`PartitionedGraph` on one device or one shard a process
+(``repro.core.adaptive``), a thin mapping of
 the engine's result onto :class:`BetweennessResult`; and
 ``run_fixed_sampling``, its fixed-count baseline."""
 from __future__ import annotations
@@ -52,7 +53,11 @@ def run_kadabra(graph, *, eps: Optional[float] = None,
     0.1).  ``device`` defaults to ``"cuda"`` and raises without a card
     unless ``device="cpu"`` is passed.  A :class:`PartitionedGraph` runs
     the sharded lane with ``mesh=ShardMesh(n_shards, device)``, on the
-    mesh's device; a :class:`Graph` with ``mesh=SamplerMesh(...)`` the
+    mesh's device, or, called on every rank of a group with the rank's
+    own shard (``partition_graph(graph, S, shard=rank)``), with
+    ``mesh=GroupShardMesh(device)``: one vertex shard a process, whose
+    ranks meet only in the mesh's collectives and all return the same
+    result.  A :class:`Graph` with ``mesh=SamplerMesh(...)`` runs the
     SPMD lane, called on every rank (``config.aggregation`` picks the
     aggregation).  ``checkpoint_dir`` and ``checkpoint_every`` make the
     run resumable, as in :func:`run_adaptive`.

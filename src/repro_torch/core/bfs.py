@@ -20,14 +20,15 @@ after the rescale, so that a count the rescale takes below float32's
 range still carries reach to its successors (``_floor_reached``).
 
 The ``*_sharded`` functions at the bottom run the same searches on a
-:class:`PartitionedGraph` over a :class:`ShardMesh`: the state is the
-stack (n_shards, shard_rows, B) of the shards' row slices, each level
-exchanges the masked frontier (dense, or bitmap-scheduled sparse) and
-every shard expands its own rows through the node-blocked kernel in
-wide_state mode, all shards in one level call (one words pass, one
-launch over the layout's real edge blocks).  On integer-valued sigma
-they give the replicated
-searches' bits, whichever protocol a level takes.
+:class:`PartitionedGraph` over a shard mesh (``core/shards.py``): the
+state is the stack (shards held, shard_rows, B) of the held shards' row
+slices (all of them on a ``ShardMesh``, this rank's alone on a
+``GroupShardMesh``), each level exchanges the masked frontier (dense, or
+bitmap-scheduled sparse) and every held shard expands its own rows
+through the node-blocked kernel in wide_state mode, in one level call
+(one words pass, one launch over the layout's real edge blocks).  On
+integer-valued sigma they give the replicated searches' bits, whichever
+protocol a level takes, on either mesh.
 """
 from __future__ import annotations
 
@@ -38,7 +39,7 @@ import torch
 from ..kernels.frontier import frontier_expand, frontier_source_block_bitmap
 from .graph import Graph
 from .partition import PartitionedGraph
-from .shards import ShardMesh
+from .shards import SHARD_MESHES
 
 __all__ = ["BFSResult", "BidirResult", "bfs_sssp", "bfs_sssp_batched",
            "bfs_sssp_batched_sharded", "bidirectional_bfs",
@@ -235,17 +236,28 @@ def bidirectional_bfs(graph: Graph, s, t, *,
 
 
 # ---------------------------------------------------------------------------
-# The sharded lane (a PartitionedGraph over a ShardMesh)
+# The sharded lane (a PartitionedGraph over a shard mesh)
 # ---------------------------------------------------------------------------
 #
-# State is the stack (S, R, B) of the shards' row slices (R = shard_rows);
-# every cross-shard step goes through the mesh's collectives.  Max, min
-# and integer sums split exactly into a local reduce and a cross-shard
-# one, the sparse exchange rebuilds the dense gather bit for bit, and a
-# shard adds each destination's contributions in the replicated layout's
-# order, so the lane gives the replicated searches' bits on integer sigma.
+# State is the stack (S, R, B) of the held shards' row slices (R =
+# shard_rows; S the shards held: all on a ShardMesh, 1 on a
+# GroupShardMesh); every cross-shard step goes through the mesh's
+# collectives.  Max, min and integer sums split exactly into a local
+# reduce and a cross-shard one, the sparse exchange rebuilds the dense
+# gather bit for bit, and a shard adds each destination's contributions
+# in the replicated layout's order, so the lane gives the replicated
+# searches' bits on integer sigma.  Every loop test and protocol pick
+# reads replicated values only (the results of collectives), so every
+# process of a group runs the same levels and collectives.
 
-def _init_state_sharded(pg: PartitionedGraph, mesh: ShardMesh, sources):
+def _held(mesh, x):
+    """(S, 1) positions of the held shards in the stack ``x`` (local),
+    and (S, 1) their global shard ids."""
+    local = torch.arange(x.shape[0], device=x.device)[:, None]
+    return local, mesh.axis_index()[:, None]
+
+
+def _init_state_sharded(pg: PartitionedGraph, mesh, sources):
     """(S, R, B) dist/sigma; rows at or past ``n_nodes`` hold -3/0, and a
     source lands only on its owner's slice."""
     b = sources.shape[0]
@@ -258,7 +270,7 @@ def _init_state_sharded(pg: PartitionedGraph, mesh: ShardMesh, sources):
     src = sources.long()[None, :]
     loc = (src - offset[:, None]).clamp(0, rows - 1)              # (S, B)
     own = (src >= offset[:, None]) & (src < offset[:, None] + rows)
-    shard = mesh.axis_index()[:, None].expand_as(loc)
+    shard = _held(mesh, dist)[0].expand_as(loc)
     cols = torch.arange(b, device=dev)[None, :].expand_as(loc)
     dist[shard, loc, cols] = torch.where(own, 0, dist[shard, loc, cols])
     sigma = torch.zeros(dist.shape, dtype=torch.float32, device=dev)
@@ -266,22 +278,23 @@ def _init_state_sharded(pg: PartitionedGraph, mesh: ShardMesh, sources):
     return dist, sigma
 
 
-def _read_rows_sharded(pg: PartitionedGraph, mesh: ShardMesh, state, idx):
+def _read_rows_sharded(pg: PartitionedGraph, mesh, state, idx):
     """``state[idx[b], b]`` at global rows: the owner gives its value,
     every other shard 0, one psum."""
     rows = pg.shard_rows
-    offset = mesh.axis_index()[:, None] * rows
+    local, shard_id = _held(mesh, state)
+    offset = shard_id * rows
     idx = idx.long()[None, :]
     loc = (idx - offset).clamp(0, rows - 1)                        # (S, B)
     own = (idx >= offset) & (idx < offset + rows)
-    shard = mesh.axis_index()[:, None].expand_as(loc)
+    shard = local.expand_as(loc)
     cols = torch.arange(loc.shape[1], device=mesh.device)[None, :]
     vals = torch.where(own, state[shard, loc, cols.expand_as(loc)], 0)
     return mesh.psum(vals)
 
 
-def _gather_frontier_sharded(pg: PartitionedGraph, mesh: ShardMesh, dist,
-                             sigma, level, active):
+def _gather_frontier_sharded(pg: PartitionedGraph, mesh, dist, sigma,
+                             level, active):
     """The level's exchange: ``(fvals, src_bits, took_sparse)``, with
     fvals the (v_pad, B) masked frontier ``sigma * [dist == level]`` of
     the active samples over the global rows, src_bits the (S * cps,)
@@ -296,8 +309,8 @@ def _gather_frontier_sharded(pg: PartitionedGraph, mesh: ShardMesh, dist,
     return _exchange_masked_values(pg, mesh, fvals_local, bits_local)
 
 
-def _exchange_masked_values(pg: PartitionedGraph, mesh: ShardMesh,
-                            fvals_local, bits_local):
+def _exchange_masked_values(pg: PartitionedGraph, mesh, fvals_local,
+                            bits_local):
     """The wire half of the exchange: (S, R, B) masked values, zero
     outside the chunks their (S, cps) bits mark, to the (v_pad, B)
     gathered view.
@@ -307,52 +320,59 @@ def _exchange_masked_values(pg: PartitionedGraph, mesh: ShardMesh,
     global chunk ids are gathered and scattered into a zeroed view, which
     is the dense gather bit for bit.  The break-even guard at this run's
     B can make the lane dense only; otherwise one pmax of the shards'
-    occupancy decides, for every shard at once, and on the device: both
-    protocols are built and the decision selects one, so the level needs
-    no host round trip.
+    occupancy decides, for every shard at once, through ``mesh.select``:
+    on a ``ShardMesh`` both protocols are built and the pick stays on the
+    device (no host round trip); on a ``GroupShardMesh`` the replicated
+    pick is read on the host and only the chosen protocol's collectives
+    run, as the reference's ``lax.cond``.
     """
     s, r, b = fvals_local.shape
     chunk = pg.exchange_chunk_rows
     cps = pg.exchange_chunks_per_shard
     budget = pg.exchange_budget
     dev = mesh.device
-    src_bits = mesh.all_gather(bits_local)
-    dense = mesh.all_gather(fvals_local)
+    src_bits = mesh.all_gather(bits_local, what="bits")
     if budget <= 0 or budget * (chunk * b + 1) >= cps * chunk * b:
-        return dense, src_bits, torch.zeros((), dtype=torch.int32,
-                                            device=dev)
-    n_gchunks = s * cps
-    fits = mesh.pmax(bits_local.sum(dim=1, dtype=torch.int32)) <= budget
-    # pack: active chunk j -> slot cumsum(bits)[j] - 1; a chunk past the
-    # budget (the level does not fit) and every inactive one -> the
-    # dump slot, cut off below
-    pos = torch.cumsum(bits_local, dim=1) - 1
-    slot = torch.where((bits_local == 1) & (pos < budget), pos, budget)
-    chk_of_slot = torch.full((s, budget + 1), cps, dtype=torch.int64,
-                             device=dev)
-    chk_of_slot.scatter_(1, slot.long(),
-                         torch.arange(cps, device=dev).expand(s, cps))
-    chk_of_slot = chk_of_slot[:, :budget]
-    chunks = torch.cat([fvals_local.view(s, cps, chunk, b),
-                        fvals_local.new_zeros((s, 1, chunk, b))], dim=1)
-    shard = mesh.axis_index()[:, None]
-    send_vals = chunks[shard, chk_of_slot]             # (S, budget, chunk, B)
-    send_idx = torch.where(chk_of_slot < cps, shard * cps + chk_of_slot,
-                           n_gchunks)                  # sentinel: dump row
-    g_vals = mesh.all_gather(send_vals)
-    g_idx = mesh.all_gather(send_idx)
-    # padded slots carry zero chunks onto the sentinel row; the active
-    # chunks are unique across shards
-    view = fvals_local.new_zeros((n_gchunks + 1, chunk, b))
-    view[g_idx] = g_vals
-    sparse = view[:n_gchunks].view(n_gchunks * chunk, b)
-    return torch.where(fits, sparse, dense), src_bits, fits.to(torch.int32)
+        return (mesh.all_gather(fvals_local, what="dense"), src_bits,
+                torch.zeros((), dtype=torch.int32, device=dev))
+    n_gchunks = pg.n_shards * cps
+    fits = mesh.pmax(bits_local.sum(dim=1, dtype=torch.int32),
+                     what="pick") <= budget
+
+    def sparse():
+        # pack: active chunk j -> slot cumsum(bits)[j] - 1; a chunk past
+        # the budget (the level does not fit) and every inactive one ->
+        # the dump slot, cut off below
+        pos = torch.cumsum(bits_local, dim=1) - 1
+        slot = torch.where((bits_local == 1) & (pos < budget), pos, budget)
+        chk_of_slot = torch.full((s, budget + 1), cps, dtype=torch.int64,
+                                 device=dev)
+        chk_of_slot.scatter_(1, slot.long(),
+                             torch.arange(cps, device=dev).expand(s, cps))
+        chk_of_slot = chk_of_slot[:, :budget]
+        chunks = torch.cat([fvals_local.view(s, cps, chunk, b),
+                            fvals_local.new_zeros((s, 1, chunk, b))], dim=1)
+        local, shard = _held(mesh, fvals_local)
+        send_vals = chunks[local, chk_of_slot]     # (S, budget, chunk, B)
+        send_idx = torch.where(chk_of_slot < cps, shard * cps + chk_of_slot,
+                               n_gchunks).to(torch.int32)  # sentinel: dump
+        g_vals = mesh.all_gather(send_vals, what="sparse")
+        g_idx = mesh.all_gather(send_idx, what="sparse").long()
+        # padded slots carry zero chunks onto the sentinel row; the active
+        # chunks are unique across shards
+        view = fvals_local.new_zeros((n_gchunks + 1, chunk, b))
+        view[g_idx] = g_vals
+        return view[:n_gchunks].view(n_gchunks * chunk, b)
+
+    gathered = mesh.select(
+        fits, sparse, lambda: mesh.all_gather(fvals_local, what="dense"))
+    return gathered, src_bits, fits.to(torch.int32)
 
 
-def _expand_level_sharded(pg: PartitionedGraph, mesh: ShardMesh, dist,
-                          sigma, level, active):
-    """One sharded level: the exchange, then every shard's rows at once
-    through the dispatcher's ``shards=`` route from the gathered values
+def _expand_level_sharded(pg: PartitionedGraph, mesh, dist, sigma, level,
+                          active):
+    """One sharded level: the exchange, then every held shard's rows at
+    once through the dispatcher's ``shards=`` route from the gathered values
     (the frontier is where a value is above +0: a reached frontier vertex
     has sigma > 0), then the replicated lane's update with a global
     rescale guard.  Returns (dist, sigma, n_new (B,), took_sparse)."""
@@ -370,17 +390,19 @@ def _expand_level_sharded(pg: PartitionedGraph, mesh: ShardMesh, dist,
     return dist, sigma, n_new, took
 
 
-def _check_mesh(pg: PartitionedGraph, mesh: ShardMesh) -> None:
-    if not isinstance(mesh, ShardMesh):
-        raise TypeError(f"mesh must be a ShardMesh, got {type(mesh)}")
+def _check_mesh(pg: PartitionedGraph, mesh) -> None:
+    if not isinstance(mesh, SHARD_MESHES):
+        raise TypeError(f"mesh must be a ShardMesh or a GroupShardMesh, got "
+                        f"{type(mesh)}")
     mesh.check(pg)
 
 
-def bfs_sssp_batched_sharded(pg: PartitionedGraph, sources, *,
-                             mesh: ShardMesh, stop_nodes=None) -> BFSResult:
-    """The sharded :func:`bfs_sssp_batched`: dist/sigma come back as the
-    (S, shard_rows, B) stack (``mesh.all_gather`` gives the (v_pad, B)
-    view), ``levels`` once, ``exchange`` the level tally."""
+def bfs_sssp_batched_sharded(pg: PartitionedGraph, sources, *, mesh,
+                             stop_nodes=None) -> BFSResult:
+    """The sharded :func:`bfs_sssp_batched` over ``mesh`` (a
+    ``ShardMesh`` or ``GroupShardMesh``): dist/sigma come back as the
+    (shards held, shard_rows, B) stack (``mesh.all_gather`` gives the
+    (v_pad, B) view), ``levels`` once, ``exchange`` the level tally."""
     _check_mesh(pg, mesh)
     dev = mesh.device
     sources = torch.as_tensor(sources, dtype=torch.int32,
@@ -413,13 +435,13 @@ def bfs_sssp_batched_sharded(pg: PartitionedGraph, sources, *,
     return BFSResult(dist, sigma, settled, n_iters, xch)
 
 
-def bidirectional_bfs_batched_sharded(pg: PartitionedGraph, s, t, *,
-                                      mesh: ShardMesh,
+def bidirectional_bfs_batched_sharded(pg: PartitionedGraph, s, t, *, mesh,
                                       max_levels: int | None = None
                                       ) -> BidirResult:
     """The sharded :func:`bidirectional_bfs_batched`: global frontier
     sizes (psum) pick each sample's side, the meeting test is a psum,
-    ``d`` a pmin; both sides come back as (S, shard_rows, B) stacks."""
+    ``d`` a pmin; both sides come back as (shards held, shard_rows, B)
+    stacks."""
     _check_mesh(pg, mesh)
     dev = mesh.device
     max_levels = pg.n_nodes if max_levels is None else max_levels

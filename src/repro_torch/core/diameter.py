@@ -19,9 +19,10 @@ lowest vertices, largest component first.  On a connected graph this is
 the reference's bound, bit for bit.
 
 :func:`estimate_diameter_sharded` runs the same chains through the
-sharded BFS on a :class:`PartitionedGraph` (the components from its
-replicated CSR), with the same departure; it gives the bits of
-:func:`estimate_diameter` on the graph the partition was built from.
+sharded BFS on a :class:`PartitionedGraph` over either shard mesh (the
+components from its replicated CSR), with the same departure; it gives
+the bits of :func:`estimate_diameter` on the graph the partition was
+built from, on every process of a ``GroupShardMesh``.
 """
 from __future__ import annotations
 
@@ -80,8 +81,9 @@ def _sweep_batched(graph: Graph, seeds):
 
 def _sweep_batched_sharded(pg, mesh, seeds):
     """A sweep on the sharded BFS: the farthest vertex is the two-level
-    argmax (each shard's lowest farthest row, then the lowest shard of
-    the farthest), so ties break towards the lowest global id as in
+    argmax (each shard's lowest farthest row, then the lowest global id
+    among the shards holding the farthest distance: one pmax, one pmin),
+    so ties break towards the lowest global id as in
     :func:`_sweep_batched`.  The dist returned is the gathered (v_pad,
     K) one."""
     res = bfs_sssp_batched_sharded(pg, seeds, mesh=mesh)
@@ -90,13 +92,11 @@ def _sweep_batched_sharded(pg, mesh, seeds):
     rows = torch.arange(pg.shard_rows, device=mesh.device)[None, :, None]
     loc_far = torch.where(masked == loc_val[:, None, :], rows,
                           pg.shard_rows).amin(dim=1)           # (S, K)
-    shard = mesh.axis_index()[:, None]
-    best = torch.where(loc_val == mesh.pmax(loc_val), shard,
-                       pg.n_shards).amin(dim=0)                # (K,)
-    cols = torch.arange(seeds.shape[0], device=mesh.device)
-    far = best * pg.shard_rows + loc_far[best, cols]
+    gid = mesh.axis_index()[:, None] * pg.shard_rows + loc_far
+    far = mesh.pmin(torch.where(loc_val == mesh.pmax(loc_val), gid,
+                                pg.v_pad))                     # (K,)
     return res.levels, far.to(torch.int32), res.n_iters, \
-        mesh.all_gather(res.dist)
+        mesh.all_gather(res.dist, what="state")
 
 
 def _seeds(n_nodes: int, gen, n_sweeps: int, seeds, device):
@@ -127,8 +127,8 @@ def estimate_diameter_sharded(pg, mesh, gen: torch.Generator | None = None,
                               n_sweeps: int = 2, *, seeds=None,
                               return_dist: bool = False):
     """:func:`estimate_diameter` on a :class:`PartitionedGraph` over a
-    :class:`ShardMesh`, every sweep through the sharded BFS; the same
-    seed draw and the same bounds.
+    shard mesh, every sweep through the sharded BFS; the same seed draw
+    and the same bounds.
 
     ``return_dist=True`` also returns the first chains' second sweep's
     gathered dist, (v_pad, K) int32 with -1 on unreached and padding

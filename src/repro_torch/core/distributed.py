@@ -264,17 +264,20 @@ AGGREGATIONS = {"hierarchical": hierarchical_allreduce,
                 "root": reduce_to_root_and_broadcast}
 
 
-def allreduce_ints(values, mesh: SamplerMesh, op=dist.ReduceOp.SUM):
-    """A started all_reduce of host ints, as int64 on the collectives'
-    device (nothing staged); ``wait()`` gives the (n,) tensor there."""
+def allreduce_ints(values, mesh, op=dist.ReduceOp.SUM):
+    """A started all_reduce of host ints over ``mesh``'s group (a
+    :class:`SamplerMesh` or a ``GroupShardMesh``), as int64 on the
+    collectives' device (nothing staged); ``wait()`` gives the (n,)
+    tensor there."""
     t = torch.tensor(list(values), dtype=torch.int64,
                      device=mesh.comm_device)
     return Aggregation(t, t, dist.all_reduce(t, op=op, group=mesh.group,
                                              async_op=True))
 
 
-def assert_replicated(mesh: SamplerMesh, values: dict) -> None:
-    """Raise ``RuntimeError`` unless every rank holds the same int for
+def assert_replicated(mesh, values: dict) -> None:
+    """Raise ``RuntimeError`` unless every rank of ``mesh`` (a
+    :class:`SamplerMesh` or a ``GroupShardMesh``) holds the same int for
     each name of ``values``: one all_reduce of the max of (x, -x)."""
     names = list(values)
     got = allreduce_ints([*values.values(), *(-v for v in values.values())],
@@ -283,6 +286,7 @@ def assert_replicated(mesh: SamplerMesh, values: dict) -> None:
     differ = {k: (-got[n + i], got[i]) for i, k in enumerate(names)
               if got[i] != -got[n + i]}
     if differ:
-        raise RuntimeError(f"the ranks of the SamplerMesh disagree on "
+        raise RuntimeError(f"the ranks of the {type(mesh).__name__} "
+                           f"disagree on "
                            f"{differ} (min, max): a rank-dependent bit "
                            "would split their loops")

@@ -26,12 +26,19 @@ engine does; on the card each evaluation is one launch of the stop-check
 kernel.
 
 The sharded lane takes a :class:`PartitionedGraph` with
-``mesh=ShardMesh(n_shards)``: every search is sharded over the mesh
-(which holds all shards on one device), the mesh draws one stream of
+``mesh=ShardMesh(n_shards)`` (all shards on one device) or
+``mesh=GroupShardMesh()`` (one shard a process of a ``torch.distributed``
+group, each rank calling the run with its own local partition,
+``partition_graph(graph, S, shard=rank)``, and the same arguments):
+every search is sharded over the mesh, the mesh draws one stream of
 samples cooperatively, and each epoch's stats carry the priced frontier
 exchange.  Its diameter phase resolves an ``"auto"`` exchange budget;
 calibration draws ``calib_samples_per_device * n_shards`` samples, as in
-the reference.
+the reference.  On a ``GroupShardMesh`` the state each batch gathers,
+and so every draw, fold and stop rule, is the same on every rank: the
+ranks check after calibration that they hold the same diameter, budget,
+B, n0 and parameters, rank 0 alone writes checkpoints, and a step
+resumes on either mesh of the same shard count.
 
 With ``checkpoint_dir`` the loop's state is published every
 ``checkpoint_every`` epochs (:class:`_EngineCheckpointer`), and a run
@@ -85,7 +92,7 @@ from .partition import (PartitionedGraph, auto_exchange_budget,
 from .sampler import (sample_path_batched, sample_path_batched_sharded,
                       sample_path_forward_batched,
                       sample_path_forward_batched_sharded)
-from .shards import ShardMesh, canonical_device
+from .shards import SHARD_MESHES, GroupShardMesh, canonical_device
 
 __all__ = ["DEFAULT_SAMPLE_BATCH_SIZE", "AdaptiveConfig",
            "AdaptiveRunResult", "EngineEpochStats", "FoldResult",
@@ -245,7 +252,7 @@ def draw_fold(graph, gen: torch.Generator, n_samples: int, *,
     samples of the last round (valid i.i.d. draws) are folded into a
     separate frame, which the engine carries into the next epoch.
     ``carry`` ((C, V+1) counts, tau) is added to the returned frame.
-    With ``mesh`` (a :class:`ShardMesh`) ``graph`` is a
+    With ``mesh`` (a ``ShardMesh`` or ``GroupShardMesh``) ``graph`` is a
     :class:`PartitionedGraph`, every round's search is sharded, and the
     result carries the rounds' exchange tally.
     """
@@ -532,6 +539,10 @@ class _EngineCheckpointer:
             device=self.devices)
         if out is None:
             return state, frozen_c, frozen_tau, stop_epoch, 0
+        return self._unpack(out, gen)
+
+    @staticmethod
+    def _unpack(out, gen):
         lv, step, meta = out
         gen.set_state(lv[9])
         state = (lv[0], int(lv[1]), lv[2], int(lv[3]), lv[4], int(lv[5]))
@@ -546,6 +557,71 @@ class _EngineCheckpointer:
 
     def wait(self) -> None:
         self.mgr.wait()
+
+
+def _agree_on_step(mesh, mgr, like, root: str, schema: str, device):
+    """Rank 0's restore into ``like`` on ``device`` (or None) and the
+    step every rank of ``mesh`` reads: -1 for none.  Rank 0 alone reads
+    the store (it may quarantine a damaged step) and broadcasts the
+    step's number; a failure on rank 0 raises on every rank, of the same
+    class where it is a checkpoint error."""
+    from ..checkpoint.store import (CheckpointError, CheckpointLayoutError,
+                                    CheckpointSchemaError)
+    kinds = (CheckpointSchemaError, CheckpointLayoutError, CheckpointError,
+             RuntimeError)
+    out, code, failure = None, -1, None
+    if mesh.rank == 0:
+        try:
+            out = mgr.restore_or_none(like, device=device)
+            code = -1 if out is None else out[1]
+        except Exception as e:  # noqa: BLE001 - every rank must hear
+            failure = e
+            code = -2 - next(i for i, k in enumerate(kinds)
+                             if isinstance(e, k) or k is RuntimeError)
+    t = torch.tensor([code], dtype=torch.int64, device=mesh.comm_device)
+    torch.distributed.broadcast(t, src=mesh.root, group=mesh.group)
+    code = int(t[0])
+    if failure is not None:
+        raise failure
+    if code < -1:
+        raise kinds[-2 - code](
+            f"rank 0 of the {type(mesh).__name__} could not restore the "
+            f"checkpoint under {root} (schema {schema!r}); see its error")
+    return out, code
+
+
+class _GroupCheckpointer(_EngineCheckpointer):
+    """The checkpoint of the sharded lane on a :class:`GroupShardMesh`:
+    the lane's state is replicated (the mesh is one sampler), so a step
+    holds :class:`_EngineCheckpointer`'s 10 leaves under the one-card
+    lane's schema (``sharded<S>``) and resumes on ``ShardMesh(S)`` or on
+    S ranks alike.  Rank 0 alone publishes; on resume it picks the
+    newest step that verifies and broadcasts its number (or its
+    failure), and every other rank restores that step."""
+
+    def __init__(self, checkpoint_dir: str, checkpoint_every: int,
+                 schema: str, mesh: GroupShardMesh):
+        super().__init__(checkpoint_dir, checkpoint_every, schema,
+                         mesh.device)
+        self.mesh, self.root, self.schema = mesh, checkpoint_dir, schema
+
+    def restore_state(self, state, frozen_c, frozen_tau, stop_epoch, gen):
+        from ..checkpoint.store import restore
+        like = self.leaves(state, frozen_c, frozen_tau, stop_epoch, gen)
+        out, step = _agree_on_step(self.mesh, self.mgr, like, self.root,
+                                   self.schema, self.devices)
+        if step == -1:
+            return state, frozen_c, frozen_tau, stop_epoch, 0
+        if out is None:
+            out = restore(self.root, like, step=step, device=self.devices,
+                          expect_schema=self.schema)
+        return self._unpack(out, gen)
+
+    def save_state(self, epoch: int, state, frozen_c, frozen_tau,
+                   stop_epoch, gen, done: bool) -> None:
+        if self.mesh.rank == 0:
+            super().save_state(epoch, state, frozen_c, frozen_tau,
+                               stop_epoch, gen, done)
 
 
 class _SpmdCheckpointer:
@@ -592,35 +668,6 @@ class _SpmdCheckpointer:
             self.mgr.maybe_save(epoch, leaves,
                                 metadata={"epoch": epoch, "done": bool(done)})
 
-    def _agree_on_step(self, like):
-        """Rank 0's restore (or None) and the step every rank reads: -1
-        for none; a failure on rank 0 raises on every rank, of the same
-        class where it is a checkpoint error."""
-        from ..checkpoint.store import (CheckpointError, CheckpointLayoutError,
-                                        CheckpointSchemaError)
-        kinds = (CheckpointSchemaError, CheckpointLayoutError,
-                 CheckpointError, RuntimeError)
-        m = self.mesh
-        out, code, failure = None, -1, None
-        if m.rank == 0:
-            try:
-                out = self.mgr.restore_or_none(like, device="cpu")
-                code = -1 if out is None else out[1]
-            except Exception as e:  # noqa: BLE001 - every rank must hear
-                failure = e
-                code = -2 - next(i for i, k in enumerate(kinds)
-                                 if isinstance(e, k) or k is RuntimeError)
-        t = torch.tensor([code], dtype=torch.int64, device=m.comm_device)
-        torch.distributed.broadcast(t, src=m.root, group=m.group)
-        code = int(t[0])
-        if failure is not None:
-            raise failure
-        if code < -1:
-            raise kinds[-2 - code](
-                f"rank 0 of the SamplerMesh could not restore the checkpoint "
-                f"under {self.root} (schema {self.schema!r}); see its error")
-        return out, code
-
     def restore_state(self, state, frozen_c, frozen_tau, stop_epoch, gen):
         """As :meth:`_EngineCheckpointer.restore_state`, each rank
         taking its own row of the stacked leaves."""
@@ -631,7 +678,8 @@ class _SpmdCheckpointer:
         like = (agg_c, np.int64(0), fr_c.new_empty((w, *fr_c.shape)),
                 np.int64(0), sur_c.new_empty((w, *sur_c.shape)), np.int64(0),
                 frozen_c, frozen_tau, stop_epoch, g.new_empty((w, g.numel())))
-        out, step = self._agree_on_step(like)
+        out, step = _agree_on_step(self.mesh, self.mgr, like, self.root,
+                                   self.schema, "cpu")
         if step == -1:
             return state, frozen_c, frozen_tau, stop_epoch, 0
         if out is None:
@@ -663,13 +711,16 @@ def _not_ported(**args) -> None:
 
 def _resolve_lane(graph, mesh, device):
     """(graph on the run's device, mesh or None, device).  A
-    PartitionedGraph needs a ShardMesh with its shard count on its own
-    device; a plain Graph with a SamplerMesh of more than one rank is
-    the SPMD lane, on the mesh's device (one rank: the single lane)."""
+    PartitionedGraph needs a shard mesh with its shard count on its own
+    device: a ShardMesh holding all its shards, or a GroupShardMesh the
+    size of the partition's shard count, each rank holding its own
+    shard; a plain Graph with a SamplerMesh of more than one rank is the
+    SPMD lane, on the mesh's device (one rank: the single lane)."""
     if isinstance(mesh, SamplerMesh):
         if isinstance(graph, PartitionedGraph):
             raise TypeError("a SamplerMesh samples a replicated Graph; a "
-                            "PartitionedGraph needs a ShardMesh")
+                            "PartitionedGraph needs a ShardMesh or a "
+                            "GroupShardMesh")
         if device is not None and canonical_device(device) != mesh.device:
             raise ValueError(f"device={device!r} differs from the mesh's "
                              f"{mesh.device}")
@@ -679,10 +730,11 @@ def _resolve_lane(graph, mesh, device):
         if mesh is None:
             raise ValueError(
                 "a PartitionedGraph needs the mesh its shards map onto "
-                "(mesh=ShardMesh(...)); use a plain Graph for the "
-                "single-device lane")
-        if not isinstance(mesh, ShardMesh):
-            raise TypeError(f"mesh must be a ShardMesh, got {type(mesh)}")
+                "(mesh=ShardMesh(...) or GroupShardMesh(...)); use a plain "
+                "Graph for the single-device lane")
+        if not isinstance(mesh, SHARD_MESHES):
+            raise TypeError(f"mesh must be a ShardMesh or a GroupShardMesh, "
+                            f"got {type(mesh)}")
         if device is not None and canonical_device(device) != mesh.device:
             raise ValueError(f"device={device!r} differs from the mesh's "
                              f"{mesh.device}")
@@ -711,9 +763,12 @@ def run_adaptive(graph, metrics=("betweenness",), *,
     ``graph`` is a :class:`Graph`, moved to ``device`` (``None`` means
     ``"cuda"``, which raises without a card; pass ``device="cpu"`` for
     the CPU), or a :class:`PartitionedGraph` with
-    ``mesh=ShardMesh(n_shards, device)``: the sharded lane, on the
-    mesh's device, where the graph must already lie (``device``, if
-    given, must name it).  A :class:`Graph` with
+    ``mesh=ShardMesh(n_shards, device)`` or, called on every rank of a
+    group with the rank's own shard
+    (``partition_graph(graph, S, shard=rank)``),
+    ``mesh=GroupShardMesh(device)``: the sharded lane, on the mesh's
+    device, where the graph must already lie (``device``, if given, must
+    name it); every rank returns the same result.  A :class:`Graph` with
     ``mesh=SamplerMesh(...)`` is the SPMD lane: every rank of the mesh
     calls the run with the same graph and arguments, on the mesh's
     device, and every rank returns the same result (module docstring).
@@ -728,8 +783,10 @@ def run_adaptive(graph, metrics=("betweenness",), *,
     run's at the same seed.  A step of another metric set, lane or
     generator device raises ``CheckpointSchemaError``; on the SPMD lane
     the mesh's rank 0 writes the steps, and a step of another world size
-    raises too.  Resuming a completed run draws nothing and reports the
-    same result.
+    raises too; on a ``GroupShardMesh`` rank 0 writes them, and a step
+    resumes on ``ShardMesh`` and ``GroupShardMesh`` alike at the same
+    shard count (another count raises).  Resuming a completed run draws
+    nothing and reports the same result.
     """
     _not_ported(on_epoch=on_epoch, telemetry=telemetry)
     if int(checkpoint_every) < 1:
@@ -749,6 +806,7 @@ def run_adaptive(graph, metrics=("betweenness",), *,
     n_est = len(estimators)
 
     spmd = isinstance(mesh, SamplerMesh)
+    group = isinstance(mesh, GroupShardMesh)
 
     # ---- phase 1: diameter ---------------------------------------------
     if spmd:
@@ -760,7 +818,7 @@ def run_adaptive(graph, metrics=("betweenness",), *,
     ctx = RunContext(graph.n_nodes, lane.vd)
     bsz = resolve_sample_batch_size(cfg.sample_batch_size, ctx.n_nodes,
                                     ctx.vertex_diameter)
-    xplan = (exchange_plan(graph, bsz) if isinstance(mesh, ShardMesh)
+    xplan = (exchange_plan(graph, bsz) if isinstance(mesh, SHARD_MESHES)
              else None)
     bfs_levels = lane.diam_levels
 
@@ -778,12 +836,15 @@ def run_adaptive(graph, metrics=("betweenness",), *,
     # ---- phase 3: the adaptive loop --------------------------------------
     n0 = epoch_length(lane.n_samplers, base=cfg.n0_base,
                       exponent=cfg.n0_exponent)
-    if spmd:
+    if spmd or group:
         # every rank must run the same loop: a rank-dependent bit here
         # would leave the others waiting in a collective
-        assert_replicated(mesh, {
-            "vertex_diameter": ctx.vertex_diameter, "batch": bsz, "n0": n0,
-            "calibration_tau": cal.tau, "params_crc32": _params_crc(params)})
+        same = {"vertex_diameter": ctx.vertex_diameter, "batch": bsz,
+                "n0": n0, "calibration_tau": cal.tau,
+                "params_crc32": _params_crc(params)}
+        if group:
+            same["exchange_budget"] = graph.exchange_budget
+        assert_replicated(mesh, same)
     epoch_step = lane.make_epoch(params, ctx, n0, bsz)
     state = lane.init_state(ctx)
     # which metric owns each channel row (the frozen snapshot's row masks)
@@ -799,10 +860,15 @@ def run_adaptive(graph, metrics=("betweenness",), *,
                      if spmd else f"sharded{graph.n_shards}")
         schema = frame_schema_id(estimators, lane=lane_name,
                                  generator=lane.gen.device.type)
-        ckpt = (_SpmdCheckpointer(checkpoint_dir, int(checkpoint_every),
-                                  schema, mesh) if spmd else
-                _EngineCheckpointer(checkpoint_dir, int(checkpoint_every),
-                                    schema, dev))
+        if spmd:
+            ckpt = _SpmdCheckpointer(checkpoint_dir, int(checkpoint_every),
+                                     schema, mesh)
+        elif group:
+            ckpt = _GroupCheckpointer(checkpoint_dir, int(checkpoint_every),
+                                      schema, mesh)
+        else:
+            ckpt = _EngineCheckpointer(checkpoint_dir, int(checkpoint_every),
+                                       schema, dev)
         state, frozen_c, frozen_tau, stop_epoch, epoch = ckpt.restore_state(
             state, frozen_c, frozen_tau, stop_epoch, lane.gen)
     stopped = stop_epoch >= 0
@@ -888,7 +954,8 @@ def run_fixed(graph, n_samples: int, *, metrics=("betweenness",),
 
     ``batch_size=None`` takes ``DEFAULT_SAMPLE_BATCH_SIZE``.  The
     diameter is swept only when a metric normalizes by it (closeness),
-    and always on a :class:`PartitionedGraph` (with ``mesh=``, as in
+    and always on a :class:`PartitionedGraph` (with ``mesh=`` a
+    ``ShardMesh`` or, on every rank, a ``GroupShardMesh``, as in
     :func:`run_adaptive`), where it also resolves an ``"auto"`` budget.
     With ``mesh=SamplerMesh(...)`` (W ranks) each rank draws ``ceil(n /
     W)`` samples from its own generator and one all_reduce sums them:
@@ -902,7 +969,7 @@ def run_fixed(graph, n_samples: int, *, metrics=("betweenness",),
     needs_vd = stream == "forward" and any(e.needs_diameter
                                            for e in estimators)
     vd = 0
-    if isinstance(mesh, ShardMesh):
+    if isinstance(mesh, SHARD_MESHES):
         diam, graph = _sharded_diameter(graph, mesh, gen, 2)
         vd = int(diam.vertex_diameter) if needs_vd else 0
     elif needs_vd:

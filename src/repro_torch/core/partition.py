@@ -22,8 +22,14 @@ Sharding contract, as in the JAX package:
 
 :class:`PartitionedGraph` carries the shards and the replicated CSR
 arrays (``indptr``/``indices``/``degree``) that the backward path walk
-reads on the gathered state.  On the card all shards lie on one device:
-the mesh is an axis of the state (``repro_torch.core.shards``).
+reads on the gathered state.  On a ``ShardMesh`` all shards lie on one
+device: the mesh is an axis of the state (``repro_torch.core.shards``).
+On a ``GroupShardMesh`` each process holds one shard: its partition is
+*local* (``partition_graph(..., shard=rank)``), a stack of one row whose
+``first_shard`` names it, the counterpart of the JAX layout's
+``local()`` inside ``shard_map``.  The global metadata (``n_shards``,
+``shard_rows``, ``v_pad``, the exchange chunks and budget) stays that of
+the whole partition; only ``n_local_shards`` counts the rows held.
 
 The frontier exchange of the sharded BFS comes in two protocols, dense
 (the whole masked slice) and bitmap-scheduled sparse (only the source
@@ -74,8 +80,10 @@ class ShardedCSCLayout:
     block_e: int
     blocks_per_shard: int
     n_edge_blocks: int
-    n_shards: int
+    n_shards: int              # of the whole partition
     n_nodes: int
+    # the global shard of the stack's first row (a local layout's own)
+    first_shard: int = 0
     _cache: dict = dataclasses.field(default_factory=dict, repr=False,
                                      compare=False)
 
@@ -91,13 +99,19 @@ class ShardedCSCLayout:
     def e_slots_per_shard(self) -> int:
         return self.n_edge_blocks * self.block_e
 
+    @property
+    def n_local_shards(self) -> int:
+        """Shards held in the stack: ``n_shards``, or 1 in a local
+        layout."""
+        return self.src.shape[0]
+
     def shard(self, s: int) -> CSCLayout:
-        """Shard ``s`` as a :class:`CSCLayout` of views (no copy): its
-        vertex space is the LOCAL row range (``v_pad == shard_rows``),
-        ``src`` stays global, ``n_nodes`` global (the sink the padding
-        slots point at) and ``n_src_blocks`` tiles the global rows.  The
-        operand of the dispatcher's ``shard=`` route; the counterpart of
-        the JAX layout's ``local()`` on the device at position ``s``."""
+        """Row ``s`` of the stack as a :class:`CSCLayout` of views (no
+        copy): its vertex space is the LOCAL row range (``v_pad ==
+        shard_rows``), ``src`` stays global, ``n_nodes`` global (the sink
+        the padding slots point at) and ``n_src_blocks`` tiles the global
+        rows.  The operand of the dispatcher's ``shard=`` route; the
+        counterpart of the JAX layout's ``shard(s)``."""
         return CSCLayout(
             src=self.src[s], dst=self.dst[s], block_nb=self.block_nb[s],
             block_sb=self.block_sb[s], block_first=self.block_first[s],
@@ -312,8 +326,8 @@ def max_active_source_chunks(pg: PartitionedGraph, frontier_rows) -> int:
 
 def partition_graph(graph: Graph, n_shards: int, *,
                     block_v: int | None = None, block_e: int | None = None,
-                    exchange_budget: "int | str | None" = None
-                    ) -> PartitionedGraph:
+                    exchange_budget: "int | str | None" = None,
+                    shard: int | None = None) -> PartitionedGraph:
     """Split ``graph`` into ``n_shards`` destination-owned vertex shards,
     on the graph's device.
 
@@ -325,10 +339,15 @@ def partition_graph(graph: Graph, n_shards: int, *,
     B).  ``exchange_budget``: ``None`` the default policy, ``0`` dense only,
     an int clamped to ``chunks_per_shard - 1``, ``"auto"`` the default
     now and flagged for the sharded lane to derive after the diameter
-    sweeps.
+    sweeps.  ``shard=s`` builds shard ``s``'s buckets alone (a local
+    partition, the one process ``s`` of a ``GroupShardMesh`` holds),
+    padded to its own edge blocks: its arrays are row ``s`` of the whole
+    partition's up to the inert padding.
     """
     if n_shards < 1:
         raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+    if shard is not None and not 0 <= int(shard) < n_shards:
+        raise ValueError(f"shard {shard} is not one of {n_shards} shards")
     if getattr(graph, "weight", None) is not None:
         raise NotImplementedError(_WEIGHTED)
     budget_auto = isinstance(exchange_budget, str) and exchange_budget == "auto"
@@ -350,8 +369,9 @@ def partition_graph(graph: Graph, n_shards: int, *,
     bounds = torch.searchsorted(
         owner[order], torch.arange(n_shards + 1, device=dev)).tolist()
     sink_sb = n // block_v
+    built = range(n_shards) if shard is None else (int(shard),)
     per_shard = []
-    for s in range(n_shards):
+    for s in built:
         lo, hi = bounds[s], bounds[s + 1]
         s_dst = dst_o[lo:hi] - s * shard_rows
         per_shard.append(bucket_layout(
@@ -360,19 +380,21 @@ def partition_graph(graph: Graph, n_shards: int, *,
             sink_src_block=sink_sb))
     eb_max = max(p[2].shape[0] for p in per_shard)
     i32 = dict(dtype=torch.int32, device=dev)
-    out = {"src": torch.full((n_shards, eb_max * block_e), n, **i32),
-           "dst": torch.full((n_shards, eb_max * block_e), shard_rows, **i32),
+    n_loc = len(per_shard)
+    out = {"src": torch.full((n_loc, eb_max * block_e), n, **i32),
+           "dst": torch.full((n_loc, eb_max * block_e), shard_rows, **i32),
            # inert padding blocks add zeros into the last local tile
-           "block_nb": torch.full((n_shards, eb_max), bps - 1, **i32),
-           "block_sb": torch.full((n_shards, eb_max), sink_sb, **i32),
-           "block_first": torch.zeros((n_shards, eb_max), **i32)}
+           "block_nb": torch.full((n_loc, eb_max), bps - 1, **i32),
+           "block_sb": torch.full((n_loc, eb_max), sink_sb, **i32),
+           "block_first": torch.zeros((n_loc, eb_max), **i32)}
     for s, arrays in enumerate(per_shard):
         for name, a in zip(("src", "dst", "block_nb", "block_sb",
                             "block_first"), arrays):
             out[name][s, : a.shape[0]] = a
     shards = ShardedCSCLayout(
         **out, block_v=block_v, block_e=block_e, blocks_per_shard=int(bps),
-        n_edge_blocks=int(eb_max), n_shards=int(n_shards), n_nodes=int(n))
+        n_edge_blocks=int(eb_max), n_shards=int(n_shards), n_nodes=int(n),
+        first_shard=built[0])
     return PartitionedGraph(
         indptr=graph.indptr, indices=graph.indices, degree=graph.degree,
         shards=shards, n_nodes=int(n), n_edges=int(graph.n_edges),

@@ -32,10 +32,13 @@ streams do not equal ``jax.random``'s, so the two packages agree in
 distribution, not draw for draw.
 
 The ``*_sharded`` samplers run the search on a :class:`PartitionedGraph`
-over a :class:`ShardMesh` (the sharded BFS), then gather the state once
+over a shard mesh (the sharded BFS), then gather the state once a batch
 and draw and walk over the replicated CSR exactly as the replicated
 samplers do: on the same generator state, and BFS state of the same
-bits, the two lanes draw the same samples.
+bits, the two lanes draw the same samples.  On a ``GroupShardMesh``
+every process holds the gathered state and makes the same generator
+calls from the same seed, so the draws and walks run replicated and
+every rank takes the same samples.
 """
 from __future__ import annotations
 
@@ -191,8 +194,9 @@ def sample_path_batched_sharded(pg, gen: torch.Generator, batch: int, *,
     then the replicated lane's draws and walks."""
     s, t = sample_pairs(gen, pg.n_nodes, batch)
     res = bidirectional_bfs_batched_sharded(pg, s, t, mesh=mesh)
-    full = res._replace(**{k: mesh.all_gather(getattr(res, k)) for k in
-                           ("dist_s", "dist_t", "sigma_s", "sigma_t")})
+    full = res._replace(**{k: mesh.all_gather(getattr(res, k), what="state")
+                           for k in ("dist_s", "dist_t", "sigma_s",
+                                     "sigma_t")})
     return _finish_paths(pg, gen, full)._replace(exchange=res.exchange)
 
 
@@ -234,8 +238,8 @@ def sample_path_forward_batched_sharded(pg, gen: torch.Generator,
     ``dist`` is the gathered (v_pad, B) one."""
     s, t = sample_pairs(gen, pg.n_nodes, batch)
     res = bfs_sssp_batched_sharded(pg, s, mesh=mesh)
-    full = res._replace(dist=mesh.all_gather(res.dist),
-                        sigma=mesh.all_gather(res.sigma))
+    full = res._replace(dist=mesh.all_gather(res.dist, what="state"),
+                        sigma=mesh.all_gather(res.sigma, what="state"))
     return _finish_forward_paths(pg, gen, s, t, full)._replace(
         exchange=res.exchange)
 
@@ -258,7 +262,7 @@ def sample_batch(graph, gen: torch.Generator, n_samples: int, *,
     also the surplus frame ``(counts, tau)`` of the last round's samples
     past ``n_samples``, which a later call folds in through ``carry``.
     The betweenness fold of the engine's :func:`draw_fold`.  With
-    ``mesh`` (a :class:`ShardMesh`), ``graph`` is a
+    ``mesh`` (a ``ShardMesh`` or ``GroupShardMesh``), ``graph`` is a
     :class:`PartitionedGraph` and every round's search is sharded.
     """
     # the engine imports this module: import it at call time

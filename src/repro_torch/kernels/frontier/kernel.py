@@ -315,10 +315,12 @@ def frontier_expand_node_blocked(csc, dist, sigma, levels, *,
 
 
 def frontier_expand_sharded_level(shards, fvals, levels):
-    """One BFS level of every shard of ``shards`` (a ``ShardedCSCLayout``)
-    from the gathered masked frontier values: the (S, shard_rows, B)
-    stack of the shards' tiles, each the sum over the shard's edges of
-    ``fvals[src]`` where it is above +0.
+    """One BFS level of every shard held in ``shards`` (a
+    ``ShardedCSCLayout``, whole or local) from the gathered masked
+    frontier values: the (n_local_shards, shard_rows, B) stack of the
+    held shards' tiles, each the sum over the shard's edges of
+    ``fvals[src]`` where it is above +0.  The source ids are global, so
+    a local layout (one process's shard) reads the same gathered rows.
 
     ``fvals`` is (>= v_pad, B) float32, the lane's gathered values (zero
     off the frontier); ``levels`` (B,) only shapes the plain version's
@@ -346,17 +348,19 @@ def frontier_expand_sharded_level(shards, fvals, levels):
         raise ValueError(f"block_e={shards.block_e} stages {smem} bytes of "
                          f"shared memory, over the card's {MAX_SMEM_BYTES}")
     real = shards.real_blocks()
-    words, out = _level_buffers(fvals, shards.v_pad)
-    # one C call launches both kernels
+    n_loc = shards.n_local_shards
+    words, out = _level_buffers(fvals, n_loc * shards.shard_rows)
+    # one C call launches both kernels; the stack's rows are the held
+    # shards, so a block's tile index is local
     code = library().frontier_nb_sharded_level_launch(
         shards.src.data_ptr(), shards.dst.data_ptr(),
         shards.block_nb.data_ptr(), real.data_ptr(), real.shape[0],
         fvals.data_ptr(), words.data_ptr(), out.data_ptr(), rows,
-        shards.shard_rows, shards.n_shards, shards.n_edge_blocks,
+        shards.shard_rows, n_loc, shards.n_edge_blocks,
         shards.block_e, shards.block_v, batch,
         _build.raw_stream(fvals.device))
     _build.check(code, "frontier_words_kernel / frontier_nb_kernel "
                  "(sharded level) launch")
     launch_counts[NODE_BLOCKED_WIDE] += 1
     launch_counts[WORDS] += 1
-    return out.view(shards.n_shards, shards.shard_rows, batch)
+    return out.view(n_loc, shards.shard_rows, batch)

@@ -78,7 +78,8 @@ def frontier_expand_sharded_ref(shard, dist, sigma, levels):
 
 
 def frontier_expand_sharded_level_ref(shards, fvals, levels):
-    """Every shard's tile of the level, stacked (S, shard_rows, B): the
+    """Every held shard's tile of the level, stacked (n_local_shards,
+    shard_rows, B): the
     per-shard version over ``shards.shard(s)`` with the gathered masked
     values ``fvals`` as sigma and their synthesized dist
     ``where(fvals > 0, levels, -1)``, as the reference hands each device
@@ -86,7 +87,7 @@ def frontier_expand_sharded_level_ref(shards, fvals, levels):
     fdist = torch.where(fvals > 0.0, levels[None, :], -1).to(torch.int32)
     return torch.stack([
         frontier_expand_sharded_ref(shards.shard(s), fdist, fvals, levels)
-        for s in range(shards.n_shards)])
+        for s in range(shards.n_local_shards)])
 
 
 def frontier_pull_ref(plan, dist, sigma, levels):

@@ -124,6 +124,24 @@ def test_guard_walks_the_spmd_slice_modules():
             "repro_torch.launch.mesh"} <= set(_submodules())
 
 
+def test_guard_walks_the_sharded_group_slice():
+    """The import guard reaches the shard meshes and the partition, and
+    the scripts a spawned shard rank or the card's phase imports name
+    no JAX either."""
+    assert {"repro_torch.core.shards", "repro_torch.core.partition",
+            "repro_torch.core.bfs"} <= set(_submodules())
+    root = SRC.parents[1]
+    for path in (root / "tests" / "_torch_sharded_ranks.py",
+                 root / "tools" / "sharded_group_phase.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, (ast.Import, ast.ImportFrom)):
+                names = ([a.name for a in node.names]
+                         if isinstance(node, ast.Import)
+                         else [node.module or ""])
+                assert not any(n.split(".")[0] in ("jax", "jaxlib", "repro")
+                               for n in names), (path.name, node.lineno)
+
+
 def test_guard_walks_the_checkpoint_slice_modules():
     """The import guard reaches the store, the schema stamp's module and
     the betweenness config."""
@@ -192,7 +210,8 @@ def test_scaling_example_runs_on_the_cpu(capsys, monkeypatch):
     # imported by its name, so that the ranks it spawns import it too
     monkeypatch.syspath_prepend(str(EXAMPLES))
     scaling = importlib.import_module("betweenness_scaling_torch")
-    results = scaling.main(["--device", "cpu", "--scale", "8"])
+    results = scaling.main(["--device", "cpu", "--scale", "8", "--half",
+                            "spmd"])["spmd"]
     assert len(results) == 8
     out = capsys.readouterr().out
     assert out.rstrip().endswith("OK") and out.count("the same bits: True") \

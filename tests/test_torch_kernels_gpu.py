@@ -424,6 +424,30 @@ def test_sharded_level_kernel_matches_plain(cuda, name, batch):
     assert 0 < real.shape[0] <= n_shards * pg.shards.n_edge_blocks
 
 
+@pytest.mark.parametrize("name", ["rmat", "grid"])
+def test_sharded_level_kernel_on_one_rank_shard(cuda, name):
+    """A local layout (one process's shard, ``partition_graph(...,
+    shard=s)``): one words pass and one launch over that shard's real
+    blocks into its (1, shard_rows, B) tile, which is row s of the whole
+    layout's call (same gathered values, global source ids)."""
+    make, n_shards, block_v, block_e = _SHARDED[name]
+    graph = make(cuda)
+    pg = tc.partition_graph(graph, n_shards, block_v=block_v,
+                            block_e=block_e)
+    _fdist, fvals, levels = _wide_state(graph, pg, 64, seed=3)
+    whole = tf.frontier_expand_sharded_level_ref(pg.shards, fvals, levels)
+    for s in (0, n_shards - 1):
+        local = tc.partition_graph(graph, n_shards, block_v=block_v,
+                                   block_e=block_e, shard=s)
+        tf.reset_launch_counts()
+        got = tf.frontier_expand_sharded_level(local.shards, fvals, levels)
+        torch.cuda.synchronize()
+        assert tf.launch_counts == {tf.FLAT: 0, tf.NODE_BLOCKED: 0,
+                                    tf.NODE_BLOCKED_WIDE: 1, tf.WORDS: 1}
+        assert got.shape == (1, pg.shard_rows, 64)
+        _exact_equal(got[0], whole[s])
+
+
 def test_sharded_level_kernel_leaves_the_next_tile_and_canary_rows(cuda):
     """Shards whose destinations point past their tile (frontier sources
     included): shard 1's would land in shard 2's tile, the last shard's
