@@ -7,8 +7,9 @@ Needs one CUDA card and ``nvcc``; exits non-zero without them, and on
 any failed phase.  Phases:
 
 1. the device: name, count, and ``nvidia-smi`` name and power limit;
-2. build the frontier, stop-check, gather-segment-sum and
-   flash-attention kernels from their ``csrc/`` sources (one nvcc each,
+2. build the frontier, weighted-lane (``relax.cu``), stop-check,
+   gather-segment-sum and flash-attention kernels from their ``csrc/``
+   sources (one nvcc each,
    started together; sm_90a) and print the build seconds and the
    ``ptxas`` register, spill, shared-memory and warning lines;
 3. hold each kernel against its plain PyTorch version at main-path
@@ -145,7 +146,11 @@ any failed phase.  Phases:
    (c) rank 0's seconds drawing, blocked in ``wait()`` and bytes staged,
    each epoch, and the run's seconds and max |b - b_[4]| beside [4]'s;
    (d) the hierarchical run stopped after RESUME_AT epochs and resumed,
-   bitwise (a)'s; (e) hyperbolic(1000) within eps 0.05 of exact Brandes.
+   bitwise (a)'s; (e) hyperbolic(1000) within eps 0.05 of exact Brandes,
+   then the same graph with dyadic weights on the weighted stream in the
+   hierarchical mode: bitwise on every rank (and one distance cap),
+   within eps 0.05 of exact weighted Brandes, every round one W1 launch
+   and every DAG round one W2 launch.
    A rank that raises, or a group that outlasts SPMD_TIMEOUT, fails the
    smoke.  (f) In this process, a one-rank NCCL group runs the three
    aggregations on a (1, v_pad) frame on the card: bitwise its input,
@@ -182,12 +187,43 @@ any failed phase.  Phases:
    no check that (d) does not make.  (e) hyperbolic(1000) in 4 ranks to
    its stop rule within eps 0.05 of exact Brandes; the same run stopped
    after one epoch and resumed, and resumed from a step written by the
-   parent's ``ShardMesh(4)`` run, both bitwise, and bitwise that run.
+   parent's ``ShardMesh(4)`` run, both bitwise, and bitwise that run;
+   then one weighted batch of B on the same graph with dyadic weights,
+   a shard a rank: dist, sigma, levels and buckets bitwise the parent's
+   ``ShardMesh(4)`` batch, one W1 launch a round and one W2 a DAG round.
    A rank that raises, or a group that outlasts GROUP_TIMEOUT, fails
    the smoke.  (f) In this process, a one-rank NCCL group (the
    collectives on the card, nothing staged) runs one bidirectional
    batch on ``partition_graph(graph, 1, shard=0)``: dist, d and split
-   bitwise the ``ShardMesh(1)`` batch, sigma as in (a).
+   bitwise the ``ShardMesh(1)`` batch, sigma as in (a);
+18. the weighted delta-stepping lane, after [17]: R-MAT 2^20 x 30 with
+   the JAX package's dyadic weights (``symmetric_dyadic_weights``, seed
+   0), B=64.  (a) One batch from 64 seeded sources with a neighbour,
+   its state captured half way through the relaxation rounds and half
+   way through the DAG rounds: W1 (``relax_pull_kernel``, the min-plus
+   round) bitwise its plain version there (min is exact), W2
+   (``dag_sigma_pull_kernel``, one round of the DAG count) bitwise its
+   plain version on the path's counts (exact integers) and, on
+   non-integer sigma, the same bits twice within the summation-order
+   bound; each timed a call beside its kernels' device time, its plain
+   version and its bound (the plan, the weights and the state once at
+   3.35 TB/s; no single PyTorch call computes either, so library
+   null); the batch's distances from two sources bitwise scipy's
+   Dijkstra; one batch under the profiler (W1 and W2 a round against
+   the rest of the host loop).  (b) ``run_adaptive(...,
+   stream="weighted")`` betweenness on it, single lane, eps
+   WEIGHTED_EPS = 0.03 (cut from the cell's 0.01 to fit the phase; the
+   log projects 0.01 from the measured seconds a sample), delta 0.1:
+   every relaxation round one W1 launch, every DAG round one W2
+   launch, one K3 a check, nothing else.  (e) One batch on
+   ``ShardMesh(8)`` of the same graph: dist, levels and buckets bitwise
+   the replicated batch, sigma bitwise where exact; one W1 launch a
+   round over the 8 shards.  (c) A connected weighted ER(1500) at eps
+   0.05 within eps of exact weighted Brandes (scipy Dijkstra and the
+   distance-ordered DP, normalized by n(n-1), ``weighted_brandes``).
+   (d) R5: the 64 x 64 grid with unit weights, delta 1, from corner 0:
+   levels 126, the BFS lane's (through K1), dist and buckets equal, and
+   sigma within 1e-5 relative of the BFS lane's.
 
 Every run resets the launch counts just before it and reads them just
 after: each kernel of the run must have carried all of its work.
@@ -328,6 +364,12 @@ SPMD_SETTINGS = ("DEVICE", "SEED", "RMAT_SCALE", "EDGE_FACTOR", "BATCH",
 # (phase [17]'s docstring says why not to the stop rule); a rank that
 # raises, or a group that outlasts GROUP_TIMEOUT seconds, fails the smoke
 GROUP_SHARDS, GROUP_MAX_EPOCHS, GROUP_TIMEOUT = 4, 2, 400
+# the weighted lane: the production graph with the JAX package's dyadic
+# weights; its run at eps WEIGHTED_EPS, cut from the cell's 0.01 to fit
+# the phase (the log projects the cell's eps from the measured rate); a
+# weighted ER(ER_N) at WER_EPS against exact weighted Brandes; R5's unit
+# grid of WGRID_SIDE^2
+WEIGHTED_EPS, WER_EPS, WGRID_SIDE = 0.03, 0.05, 64
 GROUP_SETTINGS = ("DEVICE", "SEED", "RMAT_SCALE", "EDGE_FACTOR", "BATCH",
                   "MAIN_EPS", "MAIN_DELTA", "HYPER_N", "HYPER_EPS",
                   "HYPER_BLOCK_V", "GROUP_SHARDS", "GROUP_MAX_EPOCHS")
@@ -410,8 +452,9 @@ def phase_build():
     from repro_torch.kernels.segsum import kernel as segsum
     from repro_torch.kernels.stopcheck import kernel as stopcheck
     t0 = time.perf_counter()
-    libs = {"frontier": frontier.library, "stopcheck": stopcheck.library,
-            "segsum": segsum.library, "flashattn": flashattn.library}
+    libs = {"frontier": frontier.library, "relax": frontier.relax_library,
+            "stopcheck": stopcheck.library, "segsum": segsum.library,
+            "flashattn": flashattn.library}
     with ThreadPoolExecutor(len(libs)) as pool:
         for fut in [pool.submit(build) for build in libs.values()]:
             fut.result()
@@ -757,7 +800,7 @@ def phase_profile(label: str, graph, rounds: int, batch: int,
 
 def reset_counts() -> None:
     from repro_torch.kernels import flashattn, frontier, segsum, stopcheck
-    frontier.reset_launch_counts()
+    frontier.reset_launch_counts()      # the weighted lane's counts too
     stopcheck.reset_launch_counts()
     segsum.reset_launch_counts()
     flashattn.reset_launch_counts()
@@ -765,8 +808,9 @@ def reset_counts() -> None:
 
 def all_counts() -> dict:
     from repro_torch.kernels import flashattn, frontier, segsum, stopcheck
-    return {**frontier.launch_counts, **stopcheck.launch_counts,
-            **segsum.launch_counts, **flashattn.launch_counts}
+    return {**frontier.launch_counts, **frontier.weighted_launch_counts,
+            **stopcheck.launch_counts, **segsum.launch_counts,
+            **flashattn.launch_counts}
 
 
 def read_counts(label: str, kernel_name: str, bfs_levels: int,
@@ -2438,7 +2482,8 @@ def spmd_rank(rank: int, ckpt_root: str, settings: dict) -> dict:
     import numpy as np
     import torch
     from repro_torch.core import (AdaptiveConfig, SamplerMesh,
-                                  hyperbolic_graph, rmat_graph, run_kadabra)
+                                  hyperbolic_graph, rmat_graph, run_adaptive,
+                                  run_kadabra)
     from repro_torch.core.distributed import assert_replicated
     from repro_torch.kernels import _build
     from repro_torch.kernels.frontier import kernel as frontier
@@ -2448,9 +2493,10 @@ def spmd_rank(rank: int, ckpt_root: str, settings: dict) -> dict:
     t0 = time.perf_counter()
     if torch.device(DEVICE).type == "cuda":
         torch.cuda.set_device(0)
-        frontier.library(), stopcheck.library()   # the parent's builds
+        # the parent's builds
+        frontier.library(), frontier.relax_library(), stopcheck.library()
         libs = {k: _build.build_report(k)["seconds"]
-                for k in ("frontier", "stopcheck")}
+                for k in ("frontier", "relax", "stopcheck")}
     mesh = SamplerMesh(SPMD_SHAPE, SPMD_AXES, device=DEVICE)
     t_setup = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -2493,6 +2539,20 @@ def spmd_rank(rank: int, ckpt_root: str, settings: dict) -> dict:
     check_spmd_counts(f"rank {rank} hyperbolic", res)
     out["hyperbolic"] = {"btilde": res.btilde, "tau": res.tau,
                          "n_epochs": res.n_epochs}
+    # the weighted stream on the same graph with dyadic weights
+    reset_counts()
+    res = run_adaptive(weighted_graph(hyper), ("betweenness",),
+                       stream="weighted", seed=SEED, mesh=mesh,
+                       config=AdaptiveConfig(eps=HYPER_EPS, delta=0.1,
+                                             aggregation="hierarchical"))
+    out["weighted"] = {
+        "btilde": res.reports[0].scores, "tau": res.tau,
+        "n_epochs": res.n_epochs, "converged": res.converged,
+        "distance_cap": res.distance_cap, "rounds": res.bfs_levels,
+        "dag_rounds": res.dag_rounds,
+        "counts": check_weighted_counts(f"rank {rank} weighted",
+                                        res.bfs_levels, res.dag_rounds,
+                                        len(res.stats))}
     return out
 
 
@@ -2604,6 +2664,24 @@ def phase_spmd(main_res) -> dict:
     if not err < HYPER_EPS:
         raise AssertionError(f"SPMD hyperbolic: max error {err} >= "
                              f"{HYPER_EPS}")
+    wr = r0["weighted"]
+    for r in ranks[1:]:
+        spmd_bitwise(f"weighted: rank {r['rank']} against rank 0",
+                     r["weighted"], wr)
+        if r["weighted"]["distance_cap"] != wr["distance_cap"]:
+            raise AssertionError("weighted: the ranks' distance caps differ")
+    exact, _ = weighted_brandes(weighted_graph(hyper))
+    err = float(np.abs(wr["btilde"] - exact).max())
+    log(f"  [16e] weighted hyperbolic({HYPER_N}) (dyadic weights), "
+        f"hierarchical, on {SPMD_RANKS} ranks: tau {wr['tau']}, "
+        f"{wr['n_epochs']} epochs, distance cap {wr['distance_cap']}, "
+        f"{wr['rounds']} relaxation rounds and {wr['dag_rounds']} DAG rounds "
+        f"a rank; bitwise on every rank; max |b~ - b| = {err:.5f} against "
+        f"exact weighted Brandes (eps {HYPER_EPS}); launches a rank "
+        f"{wr['counts']}")
+    if not (err < HYPER_EPS and wr["converged"]):
+        raise AssertionError(f"SPMD weighted hyperbolic: max error {err} "
+                             f">= {HYPER_EPS}")
     keys = r0["hierarchical"]["counts"]
     return {k: sum(r["hierarchical"]["counts"][k] for r in ranks)
             for k in keys}
@@ -2742,6 +2820,7 @@ def group_rank(rank: int, work: str, settings: dict) -> dict:
     from repro_torch.core import (AdaptiveConfig, GroupShardMesh,
                                   bfs_sssp_batched_sharded,
                                   bidirectional_bfs_batched_sharded,
+                                  delta_sssp_batched_sharded,
                                   hyperbolic_graph, partition_graph,
                                   rmat_graph, run_kadabra)
     from repro_torch.core.distributed import assert_replicated
@@ -2753,9 +2832,10 @@ def group_rank(rank: int, work: str, settings: dict) -> dict:
     t0 = time.perf_counter()
     if torch.device(DEVICE).type == "cuda":
         torch.cuda.set_device(0)
-        frontier.library(), stopcheck.library()   # the parent's builds
+        # the parent's builds
+        frontier.library(), frontier.relax_library(), stopcheck.library()
         libs = {k: _build.build_report(k)["seconds"]
-                for k in ("frontier", "stopcheck")}
+                for k in ("frontier", "relax", "stopcheck")}
     mesh = GroupShardMesh(DEVICE)
     rmat = rmat_graph(RMAT_SCALE, EDGE_FACTOR, seed=SEED, device=DEVICE)
     crc = zlib.crc32(rmat.indices.cpu().numpy().tobytes(),
@@ -2875,6 +2955,28 @@ def group_rank(rank: int, work: str, settings: dict) -> dict:
     out["hyper_resumed"] = hrun("resumed", hcfg, os.path.join(work, "own"))
     out["hyper_cross"] = hrun("resumed from ShardMesh", hcfg,
                               os.path.join(work, "shard_mesh"))
+
+    # one weighted batch on the same graph with dyadic weights, a shard
+    # a rank, against the parent's ShardMesh batch
+    wpg = partition_graph(weighted_graph(hyper), GROUP_SHARDS, shard=rank,
+                          block_v=HYPER_BLOCK_V)
+    s = group_pairs(HYPER_N)[0]
+    reset_counts()
+    res = delta_sssp_batched_sharded(wpg, s, mesh=mesh)
+    counts = check_weighted_counts(f"rank {rank} weighted batch",
+                                   res.n_iters, res.n_dag_rounds, 0)
+    dist = mesh.all_gather(res.dist, what="state")
+    sigma = mesh.all_gather(res.sigma, what="state")
+    for f, got in (("w_dist", dist), ("w_levels", res.levels),
+                   ("w_buckets", res.buckets), ("w_sigma", sigma)):
+        if not torch.equal(got, load(f)):
+            raise AssertionError(f"rank {rank}: weighted batch {f} is not "
+                                 "the ShardMesh run's")
+    out["weighted"] = {"n_iters": res.n_iters,
+                       "n_dag_rounds": res.n_dag_rounds,
+                       "exchange": res.exchange.tolist(), "counts": counts,
+                       "crc32": tensor_crc(dist, sigma, res.levels,
+                                           res.buckets)}
     return out
 
 
@@ -2939,6 +3041,7 @@ def phase_sharded_group(one_card: dict) -> dict:
     import numpy as np
     import torch
     from repro_torch.core import (AdaptiveConfig, ShardMesh, brandes_numpy,
+                                  delta_sssp_batched_sharded,
                                   hyperbolic_graph, partition_graph,
                                   rmat_graph, run_kadabra)
     from repro_torch.launch import spawn_local
@@ -2983,6 +3086,15 @@ def phase_sharded_group(one_card: dict) -> dict:
         run_kadabra(hpg, config=dataclasses.replace(hcfg, max_epochs=1),
                     seed=SEED, mesh=mesh,
                     checkpoint_dir=os.path.join(work, "shard_mesh"))
+        wpg = partition_graph(weighted_graph(hyper), GROUP_SHARDS,
+                              block_v=HYPER_BLOCK_V)
+        wres = delta_sssp_batched_sharded(wpg, group_pairs(HYPER_N)[0],
+                                          mesh=mesh)
+        for f, x in (("w_dist", mesh.all_gather(wres.dist)),
+                     ("w_sigma", mesh.all_gather(wres.sigma)),
+                     ("w_levels", wres.levels),
+                     ("w_buckets", wres.buckets)):
+            np.save(os.path.join(work, f + ".npy"), x.cpu().numpy())
         t0 = time.perf_counter()
         ranks = spawn_local(group_rank, GROUP_SHARDS,
                             args=(work, {k: globals()[k]
@@ -3129,6 +3241,22 @@ def phase_sharded_group(one_card: dict) -> dict:
     if not (err < HYPER_EPS and r0["hyper"]["converged"]):
         raise AssertionError(f"(e) hyperbolic: max error {err} >= "
                              f"{HYPER_EPS}")
+    wb = r0["weighted"]
+    for r in ranks:
+        if (r["weighted"]["crc32"], r["weighted"]["exchange"]) != \
+                (wb["crc32"], wb["exchange"]):
+            raise AssertionError(f"(e) weighted: rank {r['rank']} is not "
+                                 "bitwise rank 0")
+    if (wb["n_iters"], wb["n_dag_rounds"]) != (wres.n_iters,
+                                               wres.n_dag_rounds):
+        raise AssertionError("(e) weighted: the rounds differ from the "
+                             "ShardMesh batch's")
+    log(f"  (e) one weighted batch of {BATCH} on the weighted "
+        f"hyperbolic({HYPER_N}) in {GROUP_SHARDS} ranks: {wb['n_iters']} "
+        f"relaxation rounds, {wb['n_dag_rounds']} DAG rounds, exchange "
+        f"{wb['exchange']}; dist, sigma, levels and buckets bitwise the "
+        f"ShardMesh({GROUP_SHARDS}) batch on every rank; launches a rank "
+        f"{wb['counts']}")
     phase_nccl_group(rmat)
     del rmat
     torch.cuda.empty_cache()
@@ -3187,6 +3315,479 @@ def phase_nccl_group(rmat) -> None:
         f"split bitwise the ShardMesh(1) batch, sigma (exact cells, "
         f"others, max |diff|) {cells}, all bitwise: {bitwise}; launches "
         f"{counts}; collectives {sorted(traffic)}")
+
+
+
+# ---------------------------------------------------------------------------
+# [18] the weighted delta-stepping lane: W1 and W2
+# ---------------------------------------------------------------------------
+
+def check_weighted_counts(label: str, rounds: int, dag_rounds: int,
+                          stop_checks: int) -> dict:
+    """The launches of the weighted run just made: every relaxation round
+    one W1 launch, every DAG round one W2 launch, ``stop_checks`` K3,
+    nothing else (no BFS level, no words pass)."""
+    from repro_torch.kernels import frontier, stopcheck
+    counts = all_counts()
+    want = {k: 0 for k in counts}
+    want.update({frontier.RELAX: rounds, frontier.DAG_SIGMA: dag_rounds,
+                 stopcheck.STOPCHECK: stop_checks})
+    if counts != want or rounds == 0 or dag_rounds == 0:
+        raise AssertionError(f"{label}: launches {counts}, expected {want}")
+    return counts
+
+
+def weighted_graph(graph):
+    """``graph`` with the JAX package's dyadic weights at SEED (multiples
+    of 1/16 in [1/16, 2], both directions of an edge alike)."""
+    from repro_torch.core import symmetric_dyadic_weights, with_weights
+    return with_weights(graph, symmetric_dyadic_weights(graph, seed=SEED))
+
+
+def weighted_brandes(graph):
+    """Exact weighted betweenness normalized by n(n-1) (the oracle of
+    tests/test_weighted.py: scipy's Dijkstra, then per source the
+    distance-ordered DP), on the host.  A source's on-DAG edges are taken
+    in groups of equal destination distance: every in-edge of a group
+    comes from a strictly nearer vertex (weights > 0), so each group's
+    counts (forward) and dependencies (backward) are one np.add.at."""
+    import numpy as np
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import dijkstra
+    n, e = graph.n_nodes, graph.n_edges
+    src = graph.src[:e].cpu().numpy().astype(np.int64)
+    dst = graph.dst[:e].cpu().numpy().astype(np.int64)
+    w = graph.weight[:e].cpu().numpy().astype(np.float64)
+    dist = dijkstra(sp.csr_matrix((w, (src, dst)), shape=(n, n)),
+                    directed=True)
+    bc = np.zeros(n)
+    for s in range(n):
+        d = dist[s]
+        on = np.isfinite(d[src]) & (d[src] + w == d[dst])
+        es, ed = src[on], dst[on]
+        idx = np.argsort(d[ed], kind="stable")
+        es, ed = es[idx], ed[idx]
+        key = d[ed]
+        bounds = np.concatenate([[0], np.flatnonzero(np.diff(key)) + 1,
+                                 [key.size]])
+        sigma = np.zeros(n)
+        sigma[s] = 1.0
+        for lo, hi in zip(bounds[:-1], bounds[1:]):
+            np.add.at(sigma, ed[lo:hi], sigma[es[lo:hi]])
+        dep = np.zeros(n)
+        for lo, hi in zip(bounds[-2::-1], bounds[:0:-1]):
+            u, v = es[lo:hi], ed[lo:hi]
+            np.add.at(dep, u, sigma[u] / sigma[v] * (1.0 + dep[v]))
+        dep[s] = 0.0
+        bc += dep
+    return bc / (n * (n - 1)), dist
+
+
+def linked_sources(graph, batch: int, seed: int):
+    """``batch`` seeded sources among the vertices with a neighbour."""
+    import torch
+    gen = torch.Generator(device=graph.device).manual_seed(seed)
+    linked = torch.nonzero(graph.degree > 0)[:, 0]
+    pick = torch.randint(0, linked.shape[0], (batch,), generator=gen,
+                         device=graph.device)
+    return linked[pick].to(torch.int32)
+
+
+def mid_weighted_state(graph, sources):
+    """One weighted batch from ``sources``, its state captured half way
+    through the relaxation rounds (tent, the round's bucket) and half way
+    through the DAG rounds (tent, sigma, final): the inputs W1 and W2
+    see on the main path.  -> (captures, the batch's SSSPResult)."""
+    import torch
+    from repro_torch.core import bfs as core_bfs
+    from repro_torch.kernels.frontier import dag_sigma, frontier_relax
+    probe = core_bfs.delta_sssp_batched(graph, sources)
+    half_r, half_d = probe.n_iters // 2, max(probe.n_dag_rounds // 2, 1)
+    seen = {"relax": 0, "dag": 0}
+    cap = {}
+    relax0, dag0 = core_bfs.frontier_relax, core_bfs.dag_sigma
+
+    def relax(src, dst, weight, tent, active, **kw):
+        if seen["relax"] == half_r:
+            cap["relax"] = (tent.clone(), active.clone())
+        seen["relax"] += 1
+        return frontier_relax(src, dst, weight, tent, active, **kw)
+
+    def dag(src, dst, weight, tent, sigma, final, **kw):
+        seen["dag"] += 1
+        if seen["dag"] == half_d:
+            cap["dag"] = (tent.clone(), sigma.clone(), final.clone())
+        return dag_sigma(src, dst, weight, tent, sigma, final, **kw)
+
+    core_bfs.frontier_relax, core_bfs.dag_sigma = relax, dag
+    try:
+        res = core_bfs.delta_sssp_batched(graph, sources)
+    finally:
+        core_bfs.frontier_relax, core_bfs.dag_sigma = relax0, dag0
+    torch.cuda.synchronize()
+    for f in ("dist", "sigma", "levels", "buckets"):
+        if not torch.equal(getattr(res, f), getattr(probe, f)):
+            raise AssertionError(f"two weighted batches differ in {f}")
+    return cap, res
+
+
+def plan_bytes(rplan) -> int:
+    p = rplan.plan
+    return sum(t.numel() * t.element_size() for t in (
+        p.ids_sorted, p.offsets, p.item_begin, p.item_end, p.split_seg,
+        p.split_first, rplan.weight, rplan.item_row))
+
+
+def check_relax_kernel(graph, tent, active) -> dict:
+    """W1 at the captured round against its plain version (min is exact:
+    bitwise), timed a call beside its kernels' device time, the plain
+    version, and the bound of the function on this round's bucket (not
+    of the pull's traffic): the bucket mask, tent at its cells, the
+    bucket rows' out-edges (CSR offsets, targets, weights) and the
+    output once, an add and a min for each edge and active column of
+    its source."""
+    import torch
+    from repro_torch.kernels.frontier import (frontier_relax_batched_ref,
+                                              frontier_relax_pull)
+    rplan = graph.relax_plan()
+    rows, batch = tent.shape
+    got = frontier_relax_pull(rplan, tent, active)
+    want = frontier_relax_batched_ref(graph.src, graph.dst, graph.weight,
+                                      tent, active)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        bad = int((got != want).sum())
+        raise AssertionError(f"W1: {bad} cells differ from its plain version")
+    n_act = int(active.any(dim=1).sum())
+    log(f"  W1 frontier_relax: bitwise its plain version ({n_act} rows in "
+        f"the bucket, {int(torch.isfinite(got).sum())} finite candidates)")
+    ms = cuda_time_ms(lambda: frontier_relax_pull(rplan, tent, active), 20)
+    device = kernel_device_ms(lambda: frontier_relax_pull(rplan, tent,
+                                                          active),
+                              20, ("relax_pull_kernel",
+                                   "relax_pull_combine_kernel"))
+    plain = cuda_time_ms(lambda: frontier_relax_batched_ref(
+        graph.src, graph.dst, graph.weight, tent, active), 3)
+    act = active[: graph.n_nodes].sum(dim=1, dtype=torch.int64)
+    deg = torch.diff(graph.indptr.long())
+    n_act_cells = int(act.sum())
+    n_act_edges = int(deg[act > 0].sum())
+    n_edge_cells = int((deg * act).sum())
+    n_bytes = (rows * batch + 4 * n_act_cells + 8 * n_act
+               + 8 * n_act_edges + 4 * rows * batch)
+    b_ms, b_by = bound(n_bytes, 2.0 * n_edge_cells)
+    log(f"  W1 bound's work: {n_act_cells} bucket cells, {n_act_edges} "
+        f"out-edges of the bucket rows, {n_edge_cells} (edge, active "
+        f"column) pairs; the pull's plan alone is {plan_bytes(rplan)} "
+        f"bytes")
+    log(f"  W1: {ms:.3f} ms a call; device time "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in device.items())
+        + f"; plain {plain:.3f} ms, bound {b_ms:.3f} ms ({b_by}, "
+        f"{n_bytes} bytes); library: none")
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "device_ms": device}
+
+
+def check_dag_kernel(graph, tent, sigma, final) -> dict:
+    """W2 at the captured DAG round against its plain version: bitwise on
+    the path's counts (exact integers: every order gives the same bits),
+    and on non-integer sigma the same bits twice and within the
+    summation-order bound; timed beside its plain version and bound."""
+    import torch
+    from repro_torch.kernels.frontier import (dag_round_batched_ref,
+                                              dag_sigma_pull)
+    rplan = graph.relax_plan()
+    rows, batch = tent.shape
+    got = dag_sigma_pull(rplan, tent, sigma, final)
+    want = dag_round_batched_ref(graph.src, graph.dst, graph.weight, tent,
+                                 sigma, final)
+    torch.cuda.synchronize()
+    exact = bool(want[0].max() < EXACT_LIMIT) and bool(
+        torch.equal(want[0], torch.round(want[0])))
+    if not (exact and torch.equal(got[0], want[0])
+            and torch.equal(got[1], want[1])):
+        raise AssertionError(f"W2: not bitwise its plain version (exact "
+                             f"integer sums: {exact})")
+    log(f"  W2 dag_sigma: bitwise its plain version on the path's counts "
+        f"(exact integers; {int(final.sum())} of {final.numel()} cells "
+        f"final, {int(got[1].sum())} waiting, "
+        f"{int(((got[0] > 0) & ~got[1]).sum())} finalizing)")
+    gen = torch.Generator(device=tent.device).manual_seed(SEED + 18)
+    noisy = (sigma * (0.5 + torch.rand(sigma.shape, generator=gen,
+                                       device=tent.device))).contiguous()
+    a = dag_sigma_pull(rplan, tent, noisy, final)
+    b = dag_sigma_pull(rplan, tent, noisy, final)
+    ref = dag_round_batched_ref(graph.src, graph.dst, graph.weight, tent,
+                                noisy, final)
+    torch.cuda.synchronize()
+    if not (torch.equal(a[0], b[0]) and torch.equal(a[1], ref[1])):
+        raise AssertionError("W2: two launches on non-integer sigma differ")
+    counts = torch.diff(rplan.plan.offsets)
+    counts = torch.cat([counts, counts.new_zeros(rows - counts.shape[0])])
+    tol = 2.0 * counts[:, None].float() * U32 * ref[0]
+    gap = (a[0] - ref[0]).abs()
+    if not bool((gap <= tol).all()):
+        raise AssertionError(f"W2: max |diff| {float(gap.max())} beyond "
+                             "the summation-order bound")
+    log(f"  W2 on non-integer sigma: the same bits twice; max |diff| "
+        f"{float(gap.max()):.3g} from the plain version (atomics), within "
+        f"the order bound")
+    ms = cuda_time_ms(lambda: dag_sigma_pull(rplan, tent, sigma, final), 20)
+    device = kernel_device_ms(lambda: dag_sigma_pull(rplan, tent, sigma,
+                                                     final),
+                              20, ("dag_sigma_pull_kernel",
+                                   "dag_sigma_pull_combine_kernel"))
+    plain = cuda_time_ms(lambda: dag_round_batched_ref(
+        graph.src, graph.dst, graph.weight, tent, sigma, final), 3)
+    n_bytes = plan_bytes(rplan) + rows * batch * (4 + 4 + 1 + 4 + 1)
+    b_ms, b_by = bound(n_bytes, 3.0 * graph.n_edges * batch)
+    log(f"  W2: {ms:.3f} ms a call; device time "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in device.items())
+        + f"; plain {plain:.3f} ms, bound {b_ms:.3f} ms ({b_by}, "
+        f"{n_bytes} bytes); library: none")
+    return {"max_abs_err": 0.0, "noisy_max_abs_err": float(gap.max()),
+            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "device_ms": device}
+
+
+def check_dijkstra(graph, sources, dist) -> None:
+    """The distances of two of a batch's sources bitwise scipy's float64
+    Dijkstra over the graph's CSR, cast to float32."""
+    import numpy as np
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import dijkstra
+    n = graph.n_nodes
+    indptr = graph.indptr.cpu().numpy()
+    e = int(indptr[-1])
+    csr = sp.csr_matrix((graph.weight[:e].cpu().numpy().astype(np.float64),
+                         graph.indices[:e].cpu().numpy(), indptr),
+                        shape=(n, n))
+    t0 = time.perf_counter()
+    want = dijkstra(csr, directed=True, indices=sources[:2].tolist())
+    got = dist[:n, :2].cpu().numpy().T
+    want = np.where(np.isfinite(want), want, -1.0).astype(np.float32)
+    if not np.array_equal(got, want):
+        raise AssertionError(f"weighted distances differ from scipy's "
+                             f"Dijkstra at {int((got != want).sum())} cells")
+    log(f"  distances from sources {sources[:2].tolist()} bitwise scipy's "
+        f"Dijkstra ({int((want >= 0).sum())} reached; scipy took "
+        f"{time.perf_counter() - t0:.1f} s)")
+
+
+def weighted_round_split(graph, sources) -> dict:
+    """One weighted batch under the profiler: W1's and W2's device time
+    against the batch's wall time, by round."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import delta_sssp_batched
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = delta_sssp_batched(graph, sources)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = {"relax": 0.0, "dag": 0.0, "other": 0.0}
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = evt.self_device_time_total / 1e3
+        key = ("relax" if "relax_pull" in evt.key else
+               "dag" if "dag_sigma_pull" in evt.key else "other")
+        dev[key] += ms
+    rounds = res.n_iters + res.n_dag_rounds
+    out = {"wall_ms": wall, "rounds": res.n_iters,
+           "dag_rounds": res.n_dag_rounds,
+           "w1_ms_a_round": dev["relax"] / max(res.n_iters, 1),
+           "w2_ms_a_round": dev["dag"] / max(res.n_dag_rounds, 1),
+           "other_device_ms": dev["other"],
+           "idle_share": 1.0 - sum(dev.values()) / wall,
+           "rest_ms_a_round": (wall - dev["relax"] - dev["dag"]) / rounds}
+    log(f"  one batch of {sources.shape[0]} under the profiler: wall "
+        f"{wall:.1f} ms for {res.n_iters} relaxation rounds and "
+        f"{res.n_dag_rounds} DAG rounds: W1 {out['w1_ms_a_round']:.3f} ms "
+        f"a round, W2 {out['w2_ms_a_round']:.3f} ms a round, the rest "
+        f"(the host loop's PyTorch ops and its sync) "
+        f"{out['rest_ms_a_round']:.3f} ms a round; other device time "
+        f"{dev['other']:.1f} ms, device idle share {out['idle_share']:.3f}")
+    return out
+
+
+def phase_weighted():
+    """[18] a-e: the weighted lane on the card (module docstring).
+    Returns (W1's row, W2's row, the paths' launch counts)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (AdaptiveConfig, ShardMesh,
+                                  bfs_sssp_batched, compute_omega,
+                                  delta_sssp_batched,
+                                  delta_sssp_batched_sharded,
+                                  erdos_renyi_graph, grid_graph,
+                                  partition_graph, rmat_graph, run_adaptive,
+                                  with_weights)
+    from repro_torch.kernels.frontier import FLAT, launch_counts
+    paths = {}
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    graph = weighted_graph(rmat_graph(RMAT_SCALE, EDGE_FACTOR, seed=SEED,
+                                      device=DEVICE))
+    rplan = graph.relax_plan()
+    torch.cuda.synchronize()
+    log(f"  weighted R-MAT 2^{RMAT_SCALE} x {EDGE_FACTOR} and its relax plan "
+        f"built in {time.perf_counter() - t0:.1f} s: {rplan.plan.n_items} "
+        f"items in {rplan.plan.split_seg.shape[0]} cut rows, mean weight "
+        f"{float(graph.weight.double().sum()) / graph.n_edges:.6f}")
+
+    # (a) W1 and W2 at a mid-SSSP state of the production graph, B = 64
+    sources = linked_sources(graph, BATCH, SEED + 180)
+    cap, batch = mid_weighted_state(graph, sources)
+    log(f"[18a] a batch of {BATCH}: {batch.n_iters} relaxation rounds, "
+        f"{batch.n_dag_rounds} DAG rounds, buckets "
+        f"{batch.buckets.tolist()[:8]}..., DAG depth "
+        f"{batch.levels.tolist()[:8]}...")
+    w1 = check_relax_kernel(graph, *cap["relax"])
+    w2 = check_dag_kernel(graph, *cap["dag"])
+    check_dijkstra(graph, sources.cpu(), batch.dist)
+    split = weighted_round_split(graph, sources)
+    del cap
+    torch.cuda.empty_cache()
+
+    # (b) the production graph's run, single lane, eps cut to fit
+    config = AdaptiveConfig(eps=WEIGHTED_EPS, delta=MAIN_DELTA,
+                            sample_batch_size=BATCH,
+                            max_epochs=MAIN_MAX_EPOCHS)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = run_adaptive(graph, ("betweenness",), stream="weighted",
+                       config=config, seed=SEED, device=DEVICE)
+    seconds = time.perf_counter() - t0
+    paths["weighted"] = check_weighted_counts(
+        "weighted run", res.bfs_levels, res.dag_rounds, len(res.stats))
+    scores = res.reports[0].scores
+    if not (np.isfinite(scores).all() and (scores >= 0).all()
+            and (scores <= 1).all() and scores.shape == (graph.n_nodes,)):
+        raise AssertionError("weighted run: scores not finite in [0, 1]")
+    n_batches = -(-res.tau // BATCH)
+    samp = res.phase_seconds["sampling"]
+    per_sample = samp / max(sum(s.samples for s in res.stats), 1)
+    omega = float(compute_omega(res.vertex_diameter, MAIN_EPS, MAIN_DELTA))
+    proj = min(res.tau * (WEIGHTED_EPS / MAIN_EPS) ** 2, omega)
+    log(f"[18b] run_adaptive betweenness, stream='weighted', R-MAT "
+        f"2^{RMAT_SCALE} x {EDGE_FACTOR}, B={BATCH}, eps={WEIGHTED_EPS} "
+        f"(cut from the cell's {MAIN_EPS} to fit the phase), delta "
+        f"{MAIN_DELTA}: {seconds:.1f} s, phases "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in res.phase_seconds.items())
+        + f"; tau {res.tau}, epochs {res.n_epochs}, converged "
+        f"{res.converged}, vertex diameter {res.vertex_diameter}, distance "
+        f"cap {res.distance_cap}; {res.bfs_levels} relaxation rounds and "
+        f"{res.dag_rounds} DAG rounds in all (about "
+        f"{res.bfs_levels / max(n_batches, 1):.1f} and "
+        f"{res.dag_rounds / max(n_batches, 1):.1f} a batch, phase 1 and "
+        f"calibration included); launches {paths['weighted']} (K3 one a "
+        f"check, {len(res.stats)} checks)")
+    log(f"  projection to eps {MAIN_EPS}: tau ~ {res.tau} x "
+        f"({WEIGHTED_EPS}/{MAIN_EPS})^2, at most omega {omega:.0f}: "
+        f"~{proj:.0f} samples at {per_sample * 1e3:.3f} ms a sample "
+        f"(measured, sampling phase) = ~{proj * per_sample:.0f} s of "
+        "sampling (not measured)")
+    weighted_run = {"seconds": seconds, "tau": res.tau,
+                    "n_epochs": res.n_epochs, "phases": res.phase_seconds,
+                    "rounds": res.bfs_levels, "dag_rounds": res.dag_rounds,
+                    "split": split}
+
+    # (e) one sharded batch on ShardMesh(SHARDS) of the same graph
+    t0 = time.perf_counter()
+    pg = partition_graph(graph, SHARDS)
+    mesh = ShardMesh(SHARDS, DEVICE)
+    pg.shards.relax_plan()
+    torch.cuda.synchronize()
+    t_part = time.perf_counter() - t0
+    reset_counts()
+    t0 = time.perf_counter()
+    sh = delta_sssp_batched_sharded(pg, sources, mesh=mesh)
+    torch.cuda.synchronize()
+    t_sh = time.perf_counter() - t0
+    counts = check_weighted_counts("sharded batch", sh.n_iters,
+                                   sh.n_dag_rounds, 0)
+    v1 = graph.n_nodes + 1
+    dist = mesh.all_gather(sh.dist)[:v1]
+    for f, got in (("dist", dist), ("levels", sh.levels),
+                   ("buckets", sh.buckets)):
+        if not torch.equal(got, getattr(batch, f)):
+            raise AssertionError(f"sharded batch: {f} differs from the "
+                                 "replicated batch")
+    cells = check_cells("sharded sigma", mesh.all_gather(sh.sigma)[:v1],
+                        batch.sigma)
+    log(f"[18e] one batch on ShardMesh({SHARDS}) (partitioned with weights "
+        f"and its relax plan in {t_part:.1f} s): {t_sh * 1e3:.1f} ms, "
+        f"{sh.n_iters} rounds (one W1 launch each over all {SHARDS} "
+        f"shards), {sh.n_dag_rounds} DAG rounds, exchange "
+        f"{sh.exchange.tolist()}; dist, levels and buckets bitwise the "
+        f"replicated batch; sigma (exact cells, others, max |diff|) "
+        f"{cells}; launches {counts}")
+    del pg, mesh, sh, dist, graph, rplan, batch
+    torch.cuda.empty_cache()
+
+    # (c) accuracy against exact weighted Brandes
+    for seed in range(SEED, SEED + 20):
+        er = erdos_renyi_graph(ER_N, ER_DEGREE, seed=seed, device=DEVICE)
+        if np.isfinite(dense_distances(er)).all():
+            break
+    else:
+        raise AssertionError("no connected Erdos-Renyi instance in 20 seeds")
+    er = weighted_graph(er)
+    reset_counts()
+    res = run_adaptive(er, ("betweenness",), stream="weighted",
+                       eps=WER_EPS, delta=0.1, seed=SEED, device=DEVICE)
+    paths["weighted_er"] = check_weighted_counts(
+        "weighted ER", res.bfs_levels, res.dag_rounds, len(res.stats))
+    t0 = time.perf_counter()
+    exact, _ = weighted_brandes(er)
+    err = float(np.abs(res.reports[0].scores - exact).max())
+    log(f"[18c] weighted ER({ER_N}, seed {seed}) betweenness at eps "
+        f"{WER_EPS}: tau {res.tau}, {res.n_epochs} epochs, converged "
+        f"{res.converged}; max |b~ - b| = {err:.5f} against exact weighted "
+        f"Brandes (scipy Dijkstra + DP, {time.perf_counter() - t0:.1f} s)")
+    if not (err < WER_EPS and res.converged):
+        raise AssertionError(f"weighted ER: max error {err} >= {WER_EPS}")
+
+    # (d) R5 on the card: the unit grid against the BFS lane
+    grid = grid_graph(WGRID_SIDE, WGRID_SIDE, device=DEVICE)
+    unit = with_weights(grid, torch.ones(grid.n_edges, device=DEVICE))
+    reset_counts()
+    got = delta_sssp_batched(unit, [0], delta=1.0)
+    check_weighted_counts("unit grid", got.n_iters, got.n_dag_rounds, 0)
+    bfs = bfs_sssp_batched(grid, [0])
+    torch.cuda.synchronize()
+    rel = float(((got.sigma - bfs.sigma).abs()
+                 / bfs.sigma.clamp(min=1e-30)).max())
+    want_levels = 2 * (WGRID_SIDE - 1)
+    if not (int(got.levels[0]) == int(bfs.levels[0]) == want_levels
+            and torch.equal(got.dist, bfs.dist.float())
+            and int(got.buckets[0]) == int(bfs.levels[0]) and rel < 1e-5
+            and launch_counts[FLAT] == bfs.n_iters):
+        raise AssertionError(f"unit grid: levels {got.levels.tolist()} vs "
+                             f"BFS {bfs.levels.tolist()}, sigma rel {rel}")
+    log(f"[18d] R5: {WGRID_SIDE} x {WGRID_SIDE} grid, unit weights, delta 1,"
+        f" from corner 0: levels {int(got.levels[0])} (the BFS lane's "
+        f"{int(bfs.levels[0])}; the reference stops at its sweep cap, "
+        f"{WGRID_SIDE ** 2 + 1}), dist and buckets the BFS lane's, sigma "
+        f"within {rel:.3g} relative of the BFS lane's (K1 on the card)")
+    log(f"  [18] took {time.perf_counter() - t_phase:.1f} s")
+    source = "src/repro_torch/kernels/frontier/csrc/relax.cu"
+    shape = f"R-MAT 2^{RMAT_SCALE} x {EDGE_FACTOR} weighted, B={BATCH}"
+    rows = [
+        {"name": "frontier_relax", "route": "cuda", "source": source,
+         "replaces": "src/repro/kernels/frontier/ref.py:110",
+         "replaces_kind": "XLA-only function (no Pallas kernel)",
+         "launches": 0, **w1, "shape": shape, "run": weighted_run},
+        {"name": "dag_sigma", "route": "cuda", "source": source,
+         "replaces": "src/repro/kernels/frontier/ref.py:147",
+         "replaces_kind": "XLA-only function (no Pallas kernel)",
+         "launches": 0, **w2, "shape": shape},
+    ]
+    return rows, paths
 
 
 def main() -> int:
@@ -3353,6 +3954,15 @@ def main() -> int:
         f"hyperbolic({HYPER_N}) stopped and resumed; then a one-rank NCCL "
         "group")
     paths["rmat_group"] = phase_sharded_group(wide_row)
+    torch.cuda.empty_cache()
+
+    log(f"[18] weighted delta-stepping lane: R-MAT 2^{RMAT_SCALE} x "
+        f"{EDGE_FACTOR} with dyadic weights, B={BATCH}: W1 and W2 at a "
+        f"mid-search state, run_adaptive at eps {WEIGHTED_EPS}, one "
+        f"ShardMesh({SHARDS}) batch; weighted ER({ER_N}) against exact "
+        f"Brandes; R5's {WGRID_SIDE} x {WGRID_SIDE} unit grid")
+    weighted_rows, weighted_paths = phase_weighted()
+    paths.update(weighted_paths)
 
     # each row's launches: the run of the path that row's kernel carries;
     # the node-blocked rows' words pass beside it
@@ -3368,6 +3978,12 @@ def main() -> int:
         row["words_launches"] = paths[main_path][WORDS]
         row["words_launches_by_path"] = {k: c[WORDS]
                                          for k, c in paths.items()}
+    # the weighted lane's kernels: launches of [18b]'s run
+    for row in weighted_rows:
+        row["launches"] = paths["weighted"][row["name"]]
+        row["launches_by_path"] = {k: c.get(row["name"], 0)
+                                   for k, c in paths.items()}
+    rows.extend(weighted_rows)
     log(f"[13] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

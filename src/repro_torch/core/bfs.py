@@ -19,6 +19,21 @@ reached vertex's sigma is floored at float32's smallest normal number
 after the rescale, so that a count the rescale takes below float32's
 range still carries reach to its successors (``_floor_reached``).
 
+:func:`delta_sssp_batched` is the weighted lane's search: B concurrent
+delta-stepping SSSPs in float32 (one min-plus relaxation round a loop
+step through the weighted dispatcher), then the shortest-path-DAG count
+in rounds (:func:`_dag_count`, below).  It departs from the JAX package
+in three faults of the reference that it does not inherit: the window
+index is corrected so that k * delta <= m < (k + 1) * delta holds
+exactly (R1: a reciprocal multiply could leave the window behind and
+stall the loop), and fresh vertices left at the round cap raise; the
+DAG count finalizes a vertex once every DAG in-neighbour is final, so
+the rounds end after the DAG's hop depth whatever the rescale does (R5:
+the reference's fixed point never settles once a column is rescaled,
+and leaves sigma in an arbitrary state at its sweep cap); the sharded
+round ships a bucket's distances bit for bit (R6: the reference ships
+``tent + 1`` and reads back ``fvals - 1``, which rounds).
+
 The ``*_sharded`` functions at the bottom run the same searches on a
 :class:`PartitionedGraph` over a shard mesh (``core/shards.py``): the
 state is the stack (shards held, shard_rows, B) of the held shards' row
@@ -36,14 +51,17 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..kernels.frontier import frontier_expand, frontier_source_block_bitmap
+from ..kernels.frontier import (dag_sigma, frontier_expand, frontier_relax,
+                                frontier_source_block_bitmap)
 from .graph import Graph
 from .partition import PartitionedGraph
 from .shards import SHARD_MESHES
 
-__all__ = ["BFSResult", "BidirResult", "bfs_sssp", "bfs_sssp_batched",
-           "bfs_sssp_batched_sharded", "bidirectional_bfs",
-           "bidirectional_bfs_batched", "bidirectional_bfs_batched_sharded"]
+__all__ = ["BFSResult", "BidirResult", "SSSPResult", "bfs_sssp",
+           "bfs_sssp_batched", "bfs_sssp_batched_sharded",
+           "bidirectional_bfs", "bidirectional_bfs_batched",
+           "bidirectional_bfs_batched_sharded", "delta_sssp_batched",
+           "delta_sssp_batched_sharded"]
 
 _RESCALE_THRESHOLD = 1e30
 _SINK_DIST = -3
@@ -79,6 +97,24 @@ class BidirResult(NamedTuple):
     split: torch.Tensor   # (B,) | () int32
     n_iters: int
     exchange: Optional[torch.Tensor] = None   # as BFSResult.exchange
+
+
+class SSSPResult(NamedTuple):
+    """B weighted searches run to exhaustion.  ``dist`` is the public
+    float encoding (-1 unreached, -3 sink and padding rows); ``levels``
+    the DAG hop depth of each column (its longest shortest path in
+    edges); ``buckets`` the window advances each column took (0 when
+    delta is +inf).  ``n_iters`` counts the relaxation rounds,
+    ``n_dag_rounds`` the DAG rounds.  The sharded search returns dist
+    and sigma as the (shards held, shard_rows, B) stack and its exchange
+    tally, as :class:`BFSResult`."""
+    dist: torch.Tensor     # (rows, B) float32
+    sigma: torch.Tensor    # (rows, B) float32, rescaled path counts
+    levels: torch.Tensor   # (B,) int32
+    buckets: torch.Tensor  # (B,) int32
+    n_iters: int
+    n_dag_rounds: int
+    exchange: Optional[torch.Tensor] = None
 
 
 def _state_rows(graph: Graph) -> int:
@@ -491,3 +527,269 @@ def bidirectional_bfs_batched_sharded(pg: PartitionedGraph, s, t, *, mesh,
     split = torch.where(connected, split, 0)
     return BidirResult(dist_s, dist_t, sigma_s, sigma_t, d, split, n_iters,
                        xch)
+
+
+# ---------------------------------------------------------------------------
+# The weighted lane: delta-stepping and the shortest-path-DAG count
+# ---------------------------------------------------------------------------
+
+_INF = float("inf")
+
+
+def _default_delta(weight, n_edges: int) -> torch.Tensor:
+    """The mean edge weight as a () float32 (the pad slots hold 0.0): the
+    float32 division of the weights' sum, taken in float64 and rounded
+    once, by the edge count."""
+    total = weight.double().sum().to(torch.float32)
+    return total / torch.tensor(float(max(int(n_edges), 1)),
+                                dtype=torch.float32, device=weight.device)
+
+
+def _delta_tensor(delta, weight, n_edges: int, device) -> torch.Tensor:
+    if delta is None:
+        return _default_delta(weight, n_edges)
+    d = torch.as_tensor(delta, dtype=torch.float32, device=device).reshape(())
+    if not bool(d > 0):
+        raise ValueError(f"delta must be > 0, got {float(d)}")
+    return d
+
+
+def _window_start(m, delta):
+    """ws = k * delta with k * delta <= m < k * delta + delta in float32:
+    k = floor(m / delta), corrected by one either way (a true division
+    can still round across an integer)."""
+    k = torch.floor(m / delta)
+    k = torch.where(k * delta > m, k - 1.0, k)
+    k = torch.where(k * delta + delta <= m, k + 1.0, k)
+    return k * delta
+
+
+def _finalize_weighted_dist(tent, grow, n_nodes: int):
+    """+inf -> -1 (unreached); rows at or past ``n_nodes`` (``grow`` their
+    global ids, broadcast against ``tent``) -> -3."""
+    dist = torch.where(torch.isfinite(tent), tent, -1.0)
+    return torch.where(grow >= n_nodes, -3.0, dist)
+
+
+def _delta_stepping(tent, fresh, delta, max_rounds: int, relax, colsum,
+                    colmin):
+    """The delta-stepping loop over a state of any leading shape with B
+    columns last: ``relax(tent, mask) -> cand``, ``colsum(bool) -> (B,)
+    int32`` and ``colmin(float) -> (B,)`` the column reductions (local,
+    or across shards).  One host sync a round.  Returns (tent, buckets
+    (B,), rounds)."""
+    b = tent.shape[-1]
+    dev = tent.device
+    ws = torch.zeros(b, dtype=torch.float32, device=dev)
+    nbuckets = torch.zeros(b, dtype=torch.int32, device=dev)
+    bellman_ford = bool(torch.isinf(delta))
+    anyfresh = colsum(fresh) > 0
+    rounds = 0
+    while bool(anyfresh.any()):
+        if rounds >= max_rounds:
+            raise RuntimeError(
+                f"delta-stepping left fresh vertices after the round cap "
+                f"{max_rounds}; the distances are not final")
+        hi = ws + delta
+        mask = fresh & (tent < hi)
+        cand = relax(tent, mask)
+        improved = cand < tent
+        tent = torch.where(improved, cand, tent)
+        # a relaxed vertex stays fresh only when this round improved it
+        fresh = (fresh & ~mask) | improved
+        settled = colsum(fresh & (tent < hi)) == 0
+        m = colmin(torch.where(fresh, tent, _INF))
+        # slide to the window of the closest fresh vertex (Bellman-Ford
+        # never slides: its window covers everything)
+        ws_next = m if bellman_ford else _window_start(m, delta)
+        adv = settled & torch.isfinite(m)
+        ws = torch.where(adv, ws_next, ws)
+        if not bellman_ford:
+            nbuckets = torch.where(adv, nbuckets + 1, nbuckets)
+        anyfresh = colsum(fresh) > 0
+        rounds += 1
+    return tent, nbuckets, rounds
+
+
+def _dag_count(tent, sigma, final, step, colsum, colmax):
+    """Shortest-path counts on converged ``tent`` in rounds: ``step(tent,
+    sigma, final) -> (sums, waiting)`` (the weighted dispatcher's DAG
+    round) for the local rows, ``sigma`` and ``final`` holding the
+    sources (1.0, final) and the unreached cells (final).  A round
+    finalizes every cell no on-DAG in-neighbour keeps waiting and takes
+    its sum; then the BFS lane's rescale over the round's new cells and
+    its floor (a final reached cell keeps sigma >= float32's smallest
+    normal).  The rounds run until every cell is final: round k
+    finalizes the vertices whose longest DAG path has k edges, so a
+    column with open cells finalizes at least one a round unless its DAG
+    has a cycle (a weight absorbed beside a distance in float32,
+    ``tent[u] + w == tent[u]``), which raises at the first round that
+    finalizes none.  One host sync a round.  Returns (sigma, depth (B,)
+    int32: the last round that finalized a cell of the column,
+    rounds)."""
+    b = tent.shape[-1]
+    reached = torch.isfinite(tent)
+    depth = torch.zeros(b, dtype=torch.int32, device=tent.device)
+    rounds = 0
+    n_open = colsum(~final)
+    go = bool((n_open > 0).any())
+    while go:
+        sums, waiting = step(tent, sigma, final)
+        new = ~final & ~waiting
+        n_new = colsum(new)
+        rounds += 1
+        sigma = torch.where(new, sums, sigma)
+        final = final | new
+        m = colmax(torch.where(new, sigma, 0.0))
+        scale = torch.where(m > _RESCALE_THRESHOLD, 1.0 / m, 1.0)
+        sigma = sigma * scale
+        sigma = torch.where(final & reached, sigma.clamp_min(_SIGMA_FLOOR),
+                            sigma)
+        depth = torch.where(n_new > 0, rounds, depth).to(torch.int32)
+        stuck = ((n_open > 0) & (n_new == 0)).any()
+        n_open = colsum(~final)
+        stuck, go = torch.stack([stuck, (n_open > 0).any()]).tolist()
+        if stuck:
+            raise RuntimeError(
+                f"the DAG count finalized no cell in round {rounds} while "
+                f"cells were open: the shortest-path DAG has a cycle (a "
+                f"weight absorbed by a float32 distance)")
+    return sigma, depth, rounds
+
+
+def delta_sssp_batched(graph: Graph, sources, *, delta=None) -> SSSPResult:
+    """B concurrent weighted SSSPs (bucketed delta-stepping) with
+    shortest-path counting.
+
+    Needs ``graph.weight`` (:func:`~repro_torch.core.graph.with_weights`).
+    ``delta`` is the bucket width: the mean edge weight by default,
+    ``float("inf")`` for batched Bellman-Ford.  Every round relaxes, for
+    each column, the fresh vertices inside its window [ws, ws + delta)
+    through :func:`~repro_torch.kernels.frontier.frontier_relax` (on the
+    card W1 over ``graph.relax_plan()``); a column's window moves to the
+    bucket of its closest fresh vertex once no fresh vertex is left
+    inside it.  Then the DAG count runs in rounds through
+    :func:`~repro_torch.kernels.frontier.dag_sigma` (W2).
+    """
+    if graph.weight is None:
+        raise ValueError("delta_sssp_batched needs per-edge weights; attach "
+                         "them with repro_torch.core.graph.with_weights")
+    sources = _as_index(sources, graph).reshape(-1)
+    b = sources.shape[0]
+    dev = graph.device
+    rows = _state_rows(graph)
+    delta_t = _delta_tensor(delta, graph.weight, graph.n_edges, dev)
+    cols = torch.arange(b, device=dev)
+    src_rows = sources.long()
+    tent = torch.full((rows, b), _INF, dtype=torch.float32, device=dev)
+    tent[src_rows, cols] = 0.0
+    fresh = torch.zeros((rows, b), dtype=torch.bool, device=dev)
+    fresh[src_rows, cols] = True
+
+    def relax(t, mask):
+        return frontier_relax(graph.src, graph.dst, graph.weight, t, mask,
+                              plan=graph.relax_plan)
+
+    def colsum(x):
+        return x.sum(dim=0, dtype=torch.int32)
+
+    tent, nbuckets, n_iters = _delta_stepping(
+        tent, fresh, delta_t, 4 * graph.n_nodes + 8, relax, colsum,
+        lambda x: x.amin(dim=0))
+    sigma = torch.zeros((rows, b), dtype=torch.float32, device=dev)
+    sigma[src_rows, cols] = 1.0
+    final = ~torch.isfinite(tent)
+    final[src_rows, cols] = True
+
+    def step(t, sg, fin):
+        return dag_sigma(graph.src, graph.dst, graph.weight, t, sg, fin,
+                         plan=graph.relax_plan)
+
+    sigma, depth, n_dag = _dag_count(tent, sigma, final, step, colsum,
+                                     lambda x: x.amax(dim=0))
+    grow = torch.arange(rows, device=dev)[:, None]
+    return SSSPResult(_finalize_weighted_dist(tent, grow, graph.n_nodes),
+                      sigma, depth, nbuckets, n_iters, n_dag)
+
+
+def _relax_round_sharded(pg: PartitionedGraph, mesh, tent, mask):
+    """One sharded relaxation round: the bucket (the ``mask`` cells of
+    ``tent``) ships through the frontier exchange with the chunks holding
+    an active cell as its bits; every held shard's rows are then relaxed
+    from the gathered values in one launch.  A bucket cell travels as its
+    float32 bits plus one, read back as a float32 (a source sits at 0, and
+    the exchange zeroes everything off its chunks): a finite ``tent >= 0``
+    maps one to one onto the positive bit patterns, so the relaxation
+    starts from the exact distance, where ``tent + 1 - 1`` would round
+    (0.1 comes back as 0.10000002).  Returns (cand (S, R, B),
+    took_sparse)."""
+    s, r, b = tent.shape
+    fvals_local = torch.where(mask, tent.view(torch.int32) + 1, 0).view(
+        torch.float32)
+    bits_local = mask.any(dim=2).view(
+        s, pg.exchange_chunks_per_shard, pg.exchange_chunk_rows).any(
+        dim=2).to(torch.int32)
+    fvals, _src_bits, took = _exchange_masked_values(pg, mesh, fvals_local,
+                                                     bits_local)
+    bits = fvals.view(torch.int32)
+    active_g = bits > 0
+    tent_g = torch.where(active_g, (bits - 1).view(torch.float32), _INF)
+    cand = frontier_relax(None, None, None, tent_g, active_g,
+                          shards=pg.shards)
+    return cand, took
+
+
+def delta_sssp_batched_sharded(pg: PartitionedGraph, sources, *, mesh,
+                               delta=None) -> SSSPResult:
+    """The sharded :func:`delta_sssp_batched` over ``mesh`` (a
+    ``ShardMesh`` or ``GroupShardMesh``): the state stays sharded, a
+    round exchanges only its bucket (:func:`_relax_round_sharded`), and
+    the window decision reads replicated values (one psum of the cells
+    left in the window, one pmin of the closest fresh distance), so every
+    shard slides in lockstep.  The DAG count gathers the distances once,
+    then each round the sigma state (final cells as their sigma, open
+    ones as -1).  dist and sigma come back as the (shards held,
+    shard_rows, B) stack; levels, buckets and the exchange tally once."""
+    _check_mesh(pg, mesh)
+    if pg.weight is None or pg.shards.weight is None:
+        raise ValueError("delta_sssp_batched_sharded needs a weighted "
+                         "partition; partition a graph built with "
+                         "with_weights")
+    dev = mesh.device
+    sources = torch.as_tensor(sources, dtype=torch.int32,
+                              device=dev).reshape(-1)
+    b = sources.shape[0]
+    delta_t = _delta_tensor(delta, pg.weight, pg.n_edges, dev)
+    dist0, sigma = _init_state_sharded(pg, mesh, sources)
+    own = dist0 == 0                                    # the sources' cells
+    tent = torch.where(own, 0.0, _INF)
+    xch = torch.zeros(2, dtype=torch.int32, device=dev)
+
+    def relax(t, mask):
+        cand, took = _relax_round_sharded(pg, mesh, t, mask)
+        xch[0] += 1
+        xch[1] += took
+        return cand
+
+    def colsum(x):
+        return mesh.psum(x.sum(dim=1, dtype=torch.int32))
+
+    tent, nbuckets, n_iters = _delta_stepping(
+        tent, own.clone(), delta_t, 4 * pg.n_nodes + 8, relax, colsum,
+        lambda x: mesh.pmin(x.amin(dim=1)))
+    tent_g = mesh.all_gather(tent, what="state")
+    final = own | ~torch.isfinite(tent)
+
+    def step(_t, sg, fin):
+        # the open cells' sigma is never read by a cell that finalizes
+        packed = mesh.all_gather(torch.where(fin, sg, -1.0), what="state")
+        return dag_sigma(None, None, None, tent_g, packed, packed >= 0.0,
+                         shards=pg.shards)
+
+    sigma, depth, n_dag = _dag_count(tent, sigma, final, step, colsum,
+                                     lambda x: mesh.pmax(x.amax(dim=1)))
+    rows = pg.shard_rows
+    grow = (mesh.axis_index()[:, None] * rows
+            + torch.arange(rows, device=dev)[None, :])[:, :, None]
+    return SSSPResult(_finalize_weighted_dist(tent, grow, pg.n_nodes),
+                      sigma, depth, nbuckets, n_iters, n_dag, xch)

@@ -23,6 +23,15 @@ sharded BFS on a :class:`PartitionedGraph` over either shard mesh (the
 components from its replicated CSR), with the same departure; it gives
 the bits of :func:`estimate_diameter` on the graph the partition was
 built from, on every process of a ``GroupShardMesh``.
+
+:func:`estimate_diameter_weighted` (and its sharded twin) is the weighted
+lane's phase 1: the same chains and seed draw, each sweep a batched
+delta-stepping SSSP, giving float32 bounds on the weighted diameter
+(``upper`` is the weighted stream's distance cap) and a vertex-diameter
+bound from the sweeps' DAG hop depths.  The same component handling
+applies: a chainless component is bounded by its size (vertices on a
+path) and by size - 1 times the largest weight (distance), and chains
+start in the components that could exceed either bound.
 """
 from __future__ import annotations
 
@@ -30,11 +39,14 @@ from typing import NamedTuple
 
 import torch
 
-from .bfs import bfs_sssp_batched, bfs_sssp_batched_sharded
+from .bfs import (bfs_sssp_batched, bfs_sssp_batched_sharded,
+                  delta_sssp_batched, delta_sssp_batched_sharded)
 from .graph import Graph
 
-__all__ = ["DiameterEstimate", "connected_components", "estimate_diameter",
-           "estimate_diameter_sharded"]
+__all__ = ["DiameterEstimate", "WeightedDiameterEstimate",
+           "connected_components", "estimate_diameter",
+           "estimate_diameter_sharded", "estimate_diameter_weighted",
+           "estimate_diameter_weighted_sharded"]
 
 # chains added per round while chainless components can exceed the bound
 _EXTRA_CHAINS = 64
@@ -170,5 +182,130 @@ def _double_sweeps(graph, seeds, sweep):
         if open_roots.numel() == 0:
             return (DiameterEstimate(lower, upper, upper + 1, n_levels),
                     first_dist)
+        order = torch.argsort(size[open_roots], descending=True, stable=True)
+        seeds = open_roots[order[:_EXTRA_CHAINS]]
+
+
+# ---------------------------------------------------------------------------
+# The weighted lane
+# ---------------------------------------------------------------------------
+
+class WeightedDiameterEstimate(NamedTuple):
+    """Double-sweep bounds on the weighted diameter (float32 values) and
+    a hop bound on the vertices of a weighted shortest path (omega's),
+    from the sweeps' DAG hop depths by the unweighted bound's arithmetic:
+    an estimate, as the reference's (two shortest paths end to end need
+    not be shortest)."""
+    lower: float           # a realized weighted distance
+    upper: float           # weighted-diameter bound: the distance cap
+    vertex_diameter: int   # hop bound + 1
+    n_levels: int          # relaxation rounds the sweeps ran
+    n_dag_rounds: int      # DAG rounds the sweeps ran
+
+
+def _sweep_weighted(graph: Graph, seeds, delta):
+    """One weighted sweep: K seeds -> (weighted ecc (K,) float32, DAG hop
+    depth (K,), farthest vertex (K,), rounds, DAG rounds, dist).  The
+    farthest reached vertex breaks ties towards the lowest id."""
+    res = delta_sssp_batched(graph, seeds, delta=delta)
+    d = torch.where(res.dist >= 0, res.dist, -1.0)[: graph.n_nodes]
+    wecc = d.clamp(min=0.0).amax(dim=0)
+    ids = torch.arange(graph.n_nodes, device=d.device)[:, None]
+    far = torch.where(d == d.amax(dim=0, keepdim=True), ids,
+                      graph.n_nodes).amin(dim=0)
+    return (wecc, res.levels, far.to(torch.int32), res.n_iters,
+            res.n_dag_rounds, res.dist)
+
+
+def _sweep_weighted_sharded(pg, mesh, seeds, delta):
+    """A weighted sweep on the sharded search, with the two-level argmax
+    of :func:`_sweep_batched_sharded`; the dist returned is the gathered
+    (v_pad, K) one."""
+    res = delta_sssp_batched_sharded(pg, seeds, mesh=mesh, delta=delta)
+    masked = torch.where(res.dist >= 0, res.dist, -1.0)        # (S, R, K)
+    loc_val = masked.amax(dim=1)                               # (S, K)
+    rows = torch.arange(pg.shard_rows, device=mesh.device)[None, :, None]
+    loc_far = torch.where(masked == loc_val[:, None, :], rows,
+                          pg.shard_rows).amin(dim=1)
+    gid = mesh.axis_index()[:, None] * pg.shard_rows + loc_far
+    far = mesh.pmin(torch.where(loc_val == mesh.pmax(loc_val), gid,
+                                pg.v_pad))
+    wecc = mesh.pmax(masked.clamp(min=0.0).amax(dim=1))
+    return (wecc, res.levels, far.to(torch.int32), res.n_iters,
+            res.n_dag_rounds, mesh.all_gather(res.dist, what="state"))
+
+
+def estimate_diameter_weighted(graph: Graph,
+                               gen: torch.Generator | None = None,
+                               n_sweeps: int = 2, *, seeds=None,
+                               delta=None) -> WeightedDiameterEstimate:
+    """Weighted double-sweep bounds on a graph with weights: the chains
+    and seed draw of :func:`estimate_diameter`, each sweep a batched
+    delta-stepping SSSP (bucket width ``delta``, the mean weight by
+    default)."""
+    seeds = _seeds(graph.n_nodes, gen, n_sweeps, seeds, graph.device)
+    return _weighted_double_sweeps(
+        graph, seeds, lambda k: _sweep_weighted(graph, k, delta))[0]
+
+
+def estimate_diameter_weighted_sharded(pg, mesh,
+                                       gen: torch.Generator | None = None,
+                                       n_sweeps: int = 2, *, seeds=None,
+                                       delta=None, return_dist: bool = False):
+    """:func:`estimate_diameter_weighted` on a weighted
+    :class:`PartitionedGraph` over a shard mesh: the same seeds and
+    bounds, every sweep through the sharded search.  ``return_dist=True``
+    also returns the first chains' second sweep's gathered dist, (v_pad,
+    K) float32 with -1 on unreached and padding rows."""
+    seeds = _seeds(pg.n_nodes, gen, n_sweeps, seeds, mesh.device)
+    est, dist = _weighted_double_sweeps(
+        pg, seeds, lambda k: _sweep_weighted_sharded(pg, mesh, k, delta))
+    if return_dist:
+        return est, torch.where(dist >= 0, dist, -1.0)
+    return est
+
+
+def _weighted_double_sweeps(graph, seeds, sweep):
+    """The chains of :func:`estimate_diameter_weighted` with ``sweep(seeds)
+    -> (wecc, depth, far, rounds, DAG rounds, dist)``: per component the
+    least bounds of its chains; the graph's the max over components, a
+    chainless one bounded by its size; returns the estimate and the first
+    round's second-sweep dist."""
+    comp = connected_components(graph)
+    size = torch.bincount(comp, minlength=graph.n_nodes)  # > 0 at roots
+    w_max = float(graph.weight.max())
+    comp_upper = torch.full(size.shape, float("inf"), dtype=torch.float32,
+                            device=size.device)
+    # no clamp at n: on a connected graph the bound is the reference's
+    comp_vd = torch.full_like(size, torch.iinfo(torch.int64).max)
+    chained = torch.zeros_like(size, dtype=torch.bool)
+    lower = torch.zeros((), dtype=torch.float32, device=size.device)
+    hop = 0
+    n_levels = n_dag = 0
+    first_dist = None
+    while True:
+        wecc0, h0, far0, i0, r0, _ = sweep(seeds)
+        wecc1, h1, _far1, i1, r1, dist1 = sweep(far0)
+        if first_dist is None:
+            first_dist = dist1
+        n_levels += i0 + i1
+        n_dag += r0 + r1
+        uppers = torch.maximum(2.0 * torch.minimum(wecc0, wecc1), wecc1)
+        vds = torch.maximum(2 * torch.minimum(h0, h1), h1)
+        roots = comp[seeds.long()]
+        comp_upper.scatter_reduce_(0, roots, uppers.to(torch.float32),
+                                   reduce="amin")
+        comp_vd.scatter_reduce_(0, roots, vds.long(), reduce="amin")
+        chained[roots] = True
+        lower = torch.maximum(lower, wecc1.max())
+        hop = max(hop, int(h1.max()))
+        upper = torch.maximum(comp_upper[chained].max(), lower)
+        vd = max(int(comp_vd[chained].max()), hop) + 1
+        open_roots = torch.nonzero(
+            ((size > vd) | ((size - 1).double() * w_max > float(upper)))
+            & ~chained & (size > 0))[:, 0]
+        if open_roots.numel() == 0:
+            return (WeightedDiameterEstimate(float(lower), float(upper), vd,
+                                             n_levels, n_dag), first_dist)
         order = torch.argsort(size[open_roots], descending=True, stable=True)
         seeds = open_roots[order[:_EXTRA_CHAINS]]

@@ -20,7 +20,11 @@ estimator channel, with host-side int sample counts.  Randomness comes
 from one ``torch.Generator`` on the run's device, seeded from ``seed``;
 the JAX ``lax.scan`` over rounds is a Python loop here.  One draw stream
 feeds every estimator: the bidirectional one, or the forward one when
-an estimator reads distance columns (closeness, harmonic).  Every
+an estimator reads distance columns (closeness, harmonic), or, asked for
+by name on a graph with weights, the weighted one (delta-stepping
+searches and DAG walks): its phase 1 is the weighted double sweep, whose
+hop bound sets omega and whose weighted-diameter bound is the run's
+``RunContext.distance_cap``, which closeness normalizes by.  Every
 epoch evaluates every estimator's stop rule, stopped or not, as the JAX
 engine does; on the card each evaluation is one launch of the stop-check
 kernel.
@@ -63,8 +67,8 @@ sum and evaluates every stop rule on it, on every rank.  Frames are
 single-device lane.
 
 Not ported yet (each raises ``NotImplementedError`` naming the ROADMAP
-§1 item that adds it): the weighted stream (item 13), and the
-supervision hook and telemetry (14), on every lane.
+§1 item that adds it): the supervision hook and telemetry (item 14), on
+every lane.
 """
 from __future__ import annotations
 
@@ -79,7 +83,10 @@ import numpy as np
 import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
-from .diameter import estimate_diameter, estimate_diameter_sharded
+from .bfs import _default_delta, _window_start
+from .diameter import (estimate_diameter, estimate_diameter_sharded,
+                       estimate_diameter_weighted,
+                       estimate_diameter_weighted_sharded)
 from .distributed import (AGGREGATIONS, SamplerMesh, allreduce_ints,
                           assert_replicated, flat_allreduce,
                           sampler_generator)
@@ -91,7 +98,9 @@ from .partition import (PartitionedGraph, auto_exchange_budget,
                         exchange_plan, max_active_source_chunks)
 from .sampler import (sample_path_batched, sample_path_batched_sharded,
                       sample_path_forward_batched,
-                      sample_path_forward_batched_sharded)
+                      sample_path_forward_batched_sharded,
+                      sample_path_weighted_batched,
+                      sample_path_weighted_batched_sharded)
 from .shards import SHARD_MESHES, GroupShardMesh, canonical_device
 
 __all__ = ["DEFAULT_SAMPLE_BATCH_SIZE", "AdaptiveConfig",
@@ -161,7 +170,10 @@ class AdaptiveRunResult(NamedTuple):
     vertex_diameter: int
     stats: list           # list[EngineEpochStats]
     phase_seconds: dict   # diameter / calibration / sampling
-    bfs_levels: int       # frontier expansions of the whole run
+    bfs_levels: int       # frontier expansions (relaxation rounds on the
+                          # weighted stream) of the whole run
+    dag_rounds: int = 0   # the weighted stream's DAG rounds
+    distance_cap: float = 0.0   # the weighted stream's distance bound
 
 
 def resolve_estimators(metrics) -> tuple:
@@ -178,16 +190,22 @@ def resolve_estimators(metrics) -> tuple:
     return tuple(ests)
 
 
-def resolve_stream(estimators, stream: Optional[str] = None) -> str:
+def resolve_stream(estimators, stream: Optional[str] = None,
+                   graph=None) -> str:
     """The draw stream: ``"bidir"`` (KADABRA's bidirectional search)
-    unless an estimator needs the forward stream's distance columns.  A
-    forward estimator on an explicit ``"bidir"`` raises ``ValueError``;
-    ``"weighted"`` is not ported yet."""
+    unless an estimator needs the forward stream's distance columns.
+    ``"weighted"`` is taken only when asked for, and needs a ``graph``
+    with weights (else ``ValueError``).  A forward estimator on an
+    explicit ``"bidir"`` raises ``ValueError``."""
     need_fwd = [e.name for e in estimators if e.needs_forward]
     if stream is None:
         return "forward" if need_fwd else "bidir"
     if stream == "weighted":
-        raise NotImplementedError("stream='weighted' is ROADMAP §1 item 13")
+        if graph is not None and getattr(graph, "weight", None) is None:
+            raise ValueError("stream='weighted' needs a graph with weights: "
+                             "attach them with repro_torch.core.graph."
+                             "with_weights (and partition that graph)")
+        return stream
     if stream not in ("bidir", "forward"):
         raise ValueError(f"unknown stream {stream!r} (expected 'bidir', "
                          "'forward' or 'weighted')")
@@ -235,18 +253,19 @@ class FoldResult(NamedTuple):
     tau: int
     sur_counts: torch.Tensor  # (C, V+1) float32
     sur_tau: int
-    n_levels: int             # BFS levels the rounds expanded
+    n_levels: int             # BFS levels (relaxation rounds) expanded
     # (2,) int32 [levels exchanged, of which sparse] summed over the
     # rounds, on the device (sharded draws); None otherwise
     exchange: Optional[torch.Tensor] = None
+    n_dag_rounds: int = 0     # the weighted stream's DAG rounds
 
 
 def draw_fold(graph, gen: torch.Generator, n_samples: int, *,
               estimators, ctx: RunContext, stream: str = "bidir",
               batch_size: int = 1, carry=None, mesh=None) -> FoldResult:
     """Take exactly ``n_samples`` new samples in rounds of ``batch_size``
-    from ``stream`` (``"bidir"`` or ``"forward"``) and fold them through
-    every estimator's ``accumulate``.
+    from ``stream`` (``"bidir"``, ``"forward"`` or ``"weighted"``) and
+    fold them through every estimator's ``accumulate``.
 
     When ``batch_size`` does not divide ``n_samples``, the surplus
     samples of the last round (valid i.i.d. draws) are folded into a
@@ -258,15 +277,18 @@ def draw_fold(graph, gen: torch.Generator, n_samples: int, *,
     """
     if mesh is None:
         draws = {"bidir": sample_path_batched,
-                 "forward": sample_path_forward_batched}
+                 "forward": sample_path_forward_batched,
+                 "weighted": sample_path_weighted_batched}
     else:
         draws = {"bidir": partial(sample_path_batched_sharded, mesh=mesh),
                  "forward": partial(sample_path_forward_batched_sharded,
-                                    mesh=mesh)}
+                                    mesh=mesh),
+                 "weighted": partial(sample_path_weighted_batched_sharded,
+                                     mesh=mesh)}
     draw = draws.get(stream)
     if draw is None:
-        raise ValueError(f"unknown stream {stream!r} (expected 'bidir' or "
-                         "'forward')")
+        raise ValueError(f"unknown stream {stream!r} (expected 'bidir', "
+                         "'forward' or 'weighted')")
     batch_size = max(1, min(int(batch_size), int(n_samples)))
     rounds = -(-n_samples // batch_size)
     dev = graph.device
@@ -280,10 +302,11 @@ def draw_fold(graph, gen: torch.Generator, n_samples: int, *,
     if carry is not None:
         counts = counts + carry[0]
         tau = int(carry[1])
-    n_levels = 0
+    n_levels = n_dag = 0
     for r in range(rounds):
         ps = draw(graph, gen, batch_size)
         n_levels += ps.n_levels
+        n_dag += getattr(ps, "n_dag_rounds", 0)
         if xch is not None:
             xch += ps.exchange
         batch = DrawBatch(ps.internal, ps.valid, ps.length,
@@ -298,7 +321,7 @@ def draw_fold(graph, gen: torch.Generator, n_samples: int, *,
             sur_counts = sur_counts + torch.cat(
                 [e.accumulate(batch, ~keep, ctx) for e in estimators])
     return FoldResult(counts, tau, sur_counts,
-                      rounds * batch_size - n_samples, n_levels, xch)
+                      rounds * batch_size - n_samples, n_levels, xch, n_dag)
 
 
 def _check_all(estimators, offsets, agg_counts, agg_tau, params, ctx):
@@ -321,23 +344,47 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _sharded_diameter(pg: PartitionedGraph, mesh, gen, n_sweeps: int):
-    """The double sweep on the sharded BFS -> (DiameterEstimate, pg).
-    With ``exchange_budget="auto"`` the second sweeps' levels are the
-    occupancy sample: the returned pg carries the derived budget."""
+def _sharded_diameter(pg: PartitionedGraph, mesh, gen, n_sweeps: int,
+                      weighted: bool = False):
+    """The double sweep on the sharded search -> (estimate, pg): the BFS
+    one, or with ``weighted`` the weighted one.  With
+    ``exchange_budget="auto"`` the second sweeps' levels (the weighted
+    sweeps' buckets, [k delta, (k+1) delta) of the mean weight delta)
+    are the occupancy sample: the returned pg carries the derived
+    budget."""
+    sweeps = (estimate_diameter_weighted_sharded if weighted
+              else estimate_diameter_sharded)
     if not pg.exchange_budget_auto:
-        return estimate_diameter_sharded(pg, mesh, gen, n_sweeps), pg
-    est, dist = estimate_diameter_sharded(pg, mesh, gen, n_sweeps,
-                                          return_dist=True)
+        return sweeps(pg, mesh, gen, n_sweeps), pg
+    est, dist = sweeps(pg, mesh, gen, n_sweeps, return_dist=True)
+    if weighted:
+        # the search's own windows: its default delta, its window index
+        delta = _default_delta(pg.weight, pg.n_edges).to(dist.device)
+        dist = torch.where(dist >= 0, _window_start(dist, delta), -1.0)
     dist = dist.cpu().numpy()
     occupancies = []
-    for lvl in range(int(dist.max(initial=-1)) + 1):
+    for lvl in np.unique(dist[dist >= 0]):
         rows = (dist == lvl).any(axis=1)
-        if rows.any():
-            occupancies.append(max_active_source_chunks(pg, rows))
+        occupancies.append(max_active_source_chunks(pg, rows))
     return est, dataclasses.replace(
         pg, exchange_budget=auto_exchange_budget(pg, occupancies),
         exchange_budget_auto=False)
+
+
+def _phase_one(graph, mesh, gen, n_sweeps: int, stream: str):
+    """Phase 1 of a lane -> (vertex diameter, distance cap, levels, DAG
+    rounds, graph): the BFS double sweep, or on the weighted stream the
+    weighted one (its hop bound, and its weighted-diameter bound as the
+    cap; 0.0 otherwise).  On a sharded lane the graph returned carries
+    an "auto" budget resolved from the sweeps."""
+    weighted = stream == "weighted"
+    if mesh is None:
+        est = (estimate_diameter_weighted if weighted
+               else estimate_diameter)(graph, gen, n_sweeps=n_sweeps)
+    else:
+        est, graph = _sharded_diameter(graph, mesh, gen, n_sweeps, weighted)
+    return (int(est.vertex_diameter), float(est.upper) if weighted else 0.0,
+            est.n_levels, getattr(est, "n_dag_rounds", 0), graph)
 
 
 def _lane(graph, mesh, cfg: AdaptiveConfig, estimators, stream, gen,
@@ -349,16 +396,12 @@ def _lane(graph, mesh, cfg: AdaptiveConfig, estimators, stream, gen,
     ns = SimpleNamespace()
     dev = graph.device
     t0 = time.perf_counter()
-    if mesh is None:
-        diam = estimate_diameter(graph, gen, n_sweeps=cfg.diameter_sweeps)
-        n_cal = cfg.calib_samples_per_device
-    else:
-        diam, graph = _sharded_diameter(graph, mesh, gen,
-                                        cfg.diameter_sweeps)
-        n_cal = cfg.calib_samples_per_device * graph.n_shards
+    ns.vd, ns.dist_cap, ns.diam_levels, ns.diam_dag, graph = _phase_one(
+        graph, mesh, gen, cfg.diameter_sweeps, stream)
+    n_cal = cfg.calib_samples_per_device * (1 if mesh is None
+                                            else graph.n_shards)
     _sync(dev)
     ns.graph, ns.gen, ns.n_samplers = graph, gen, 1
-    ns.vd, ns.diam_levels = int(diam.vertex_diameter), diam.n_levels
     ns.t_diam = time.perf_counter() - t0
 
     def calibrate(bsz, ctx):
@@ -376,8 +419,7 @@ def _lane(graph, mesh, cfg: AdaptiveConfig, estimators, stream, gen,
             checks = _check_all(estimators, offsets, agg_c, agg_t, params,
                                 ctx)
             return ((agg_c, agg_t, fold.counts, fold.tau, fold.sur_counts,
-                     fold.sur_tau), checks, fold.n_levels, fold.exchange,
-                    None)
+                     fold.sur_tau), checks, fold, None)
         return epoch_step
 
     def flush(state):
@@ -412,11 +454,11 @@ def _spmd_lane(graph, mesh: SamplerMesh, cfg: AdaptiveConfig, estimators,
     v_pad = _pad_len(graph.n_nodes, mesh.size)
     agg = make_agg_fn(mesh, cfg.aggregation)
     t0 = time.perf_counter()
-    diam = estimate_diameter(graph, gen, n_sweeps=cfg.diameter_sweeps)
+    ns.vd, ns.dist_cap, ns.diam_levels, ns.diam_dag, _ = _phase_one(
+        graph, None, gen, cfg.diameter_sweeps, stream)
     _sync(dev)
     ns.graph, ns.n_samplers = graph, mesh.size
     ns.gen = sampler_generator(seed, mesh.rank, dev)
-    ns.vd, ns.diam_levels = int(diam.vertex_diameter), diam.n_levels
     ns.t_diam = time.perf_counter() - t0
 
     def calibrate(bsz, ctx):
@@ -453,7 +495,8 @@ def _spmd_lane(graph, mesh: SamplerMesh, cfg: AdaptiveConfig, estimators,
             timing = {"start_s": t1 - t0, "draw_s": t2 - t1,
                       "wait_s": t3 - t2, "staged_bytes": inc_c.staged_bytes}
             return ((agg_c, agg_t, new_c, fold.tau, fold.sur_counts,
-                     fold.sur_tau), checks, fold.n_levels, None, timing)
+                     fold.sur_tau), checks, fold._replace(exchange=None),
+                    timing)
         return epoch_step
 
     def flush(state):
@@ -798,7 +841,7 @@ def run_adaptive(graph, metrics=("betweenness",), *,
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     estimators = resolve_estimators(metrics)
-    stream = resolve_stream(estimators, stream)
+    stream = resolve_stream(estimators, stream, graph)
     graph, mesh, dev = _resolve_lane(graph, mesh, device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
@@ -815,17 +858,18 @@ def run_adaptive(graph, metrics=("betweenness",), *,
     else:
         lane = _lane(graph, mesh, cfg, estimators, stream, gen, offsets)
     graph = lane.graph
-    ctx = RunContext(graph.n_nodes, lane.vd)
+    ctx = RunContext(graph.n_nodes, lane.vd, lane.dist_cap)
     bsz = resolve_sample_batch_size(cfg.sample_batch_size, ctx.n_nodes,
                                     ctx.vertex_diameter)
     xplan = (exchange_plan(graph, bsz) if isinstance(mesh, SHARD_MESHES)
              else None)
-    bfs_levels = lane.diam_levels
+    bfs_levels, dag_rounds = lane.diam_levels, lane.diam_dag
 
     # ---- phase 2: calibration ------------------------------------------
     t0 = time.perf_counter()
     cal = lane.calibrate(bsz, ctx)
     bfs_levels += cal.n_levels
+    dag_rounds += cal.n_dag_rounds
     params = tuple(
         est.make_params(graph, ctx, cfg.eps, cfg.delta,
                         cal.counts[off: off + est.n_channels], cal.tau)
@@ -841,6 +885,8 @@ def run_adaptive(graph, metrics=("betweenness",), *,
         # would leave the others waiting in a collective
         same = {"vertex_diameter": ctx.vertex_diameter, "batch": bsz,
                 "n0": n0, "calibration_tau": cal.tau,
+                "distance_cap_bits": int(np.float64(
+                    ctx.distance_cap).view(np.int64)),
                 "params_crc32": _params_crc(params)}
         if group:
             same["exchange_budget"] = graph.exchange_budget
@@ -859,7 +905,8 @@ def run_adaptive(graph, metrics=("betweenness",), *,
         lane_name = ("single" if mesh is None else f"spmd{mesh.size}"
                      if spmd else f"sharded{graph.n_shards}")
         schema = frame_schema_id(estimators, lane=lane_name,
-                                 generator=lane.gen.device.type)
+                                 generator=lane.gen.device.type,
+                                 stream=stream)
         if spmd:
             ckpt = _SpmdCheckpointer(checkpoint_dir, int(checkpoint_every),
                                      schema, mesh)
@@ -886,8 +933,10 @@ def run_adaptive(graph, metrics=("betweenness",), *,
     try:
         while not stopped.all() and epoch < cfg.max_epochs:
             te = time.perf_counter()
-            state, (done, mf, mg), n_levels, xch, timing = epoch_step(state)
-            bfs_levels += n_levels
+            state, (done, mf, mg), fold, timing = epoch_step(state)
+            bfs_levels += fold.n_levels
+            dag_rounds += fold.n_dag_rounds
+            xch = fold.exchange
             epoch += 1
             newly = done & ~stopped
             if newly.any():
@@ -939,7 +988,7 @@ def run_adaptive(graph, metrics=("betweenness",), *,
         reports, tau_total, epoch, bool(converged.all()),
         ctx.vertex_diameter, stats,
         {"diameter": lane.t_diam, "calibration": t_cal,
-         "sampling": t_samp}, bfs_levels)
+         "sampling": t_samp}, bfs_levels, dag_rounds, ctx.distance_cap)
 
 
 def run_fixed(graph, n_samples: int, *, metrics=("betweenness",),
@@ -953,28 +1002,30 @@ def run_fixed(graph, n_samples: int, *, metrics=("betweenness",),
     run), ``omega`` NaN and ``stop_epoch`` 0.
 
     ``batch_size=None`` takes ``DEFAULT_SAMPLE_BATCH_SIZE``.  The
-    diameter is swept only when a metric normalizes by it (closeness),
-    and always on a :class:`PartitionedGraph` (with ``mesh=`` a
-    ``ShardMesh`` or, on every rank, a ``GroupShardMesh``, as in
-    :func:`run_adaptive`), where it also resolves an ``"auto"`` budget.
+    diameter is swept only when a metric normalizes by it (closeness;
+    on the weighted stream the weighted sweep, whose bound is the
+    distance cap), and always on a :class:`PartitionedGraph` (with
+    ``mesh=`` a ``ShardMesh`` or, on every rank, a ``GroupShardMesh``,
+    as in :func:`run_adaptive`), where it also resolves an ``"auto"``
+    budget.
     With ``mesh=SamplerMesh(...)`` (W ranks) each rank draws ``ceil(n /
     W)`` samples from its own generator and one all_reduce sums them:
     ``tau`` is ``W * ceil(n / W)``, the same on every rank.
     """
     estimators = resolve_estimators(metrics)
-    stream = resolve_stream(estimators, stream)
+    stream = resolve_stream(estimators, stream, graph)
     graph, mesh, dev = _resolve_lane(graph, mesh, device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
-    needs_vd = stream == "forward" and any(e.needs_diameter
-                                           for e in estimators)
-    vd = 0
-    if isinstance(mesh, SHARD_MESHES):
-        diam, graph = _sharded_diameter(graph, mesh, gen, 2)
-        vd = int(diam.vertex_diameter) if needs_vd else 0
-    elif needs_vd:
-        vd = int(estimate_diameter(graph, gen, n_sweeps=2).vertex_diameter)
-    ctx = RunContext(graph.n_nodes, vd)
+    needs_vd = stream in ("forward", "weighted") and any(
+        e.needs_diameter for e in estimators)
+    vd, cap = 0, 0.0
+    sharded = isinstance(mesh, SHARD_MESHES)
+    if sharded or needs_vd:
+        vd, cap, _, _, graph = _phase_one(graph, mesh if sharded else None,
+                                          gen, 2, stream)
+    ctx = RunContext(graph.n_nodes, vd if needs_vd else 0,
+                     cap if needs_vd else 0.0)
     bsz = DEFAULT_SAMPLE_BATCH_SIZE if batch_size is None else batch_size
     if isinstance(mesh, SamplerMesh):
         fold = draw_fold(graph, sampler_generator(seed, mesh.rank, dev),

@@ -12,18 +12,22 @@ def epoch_length(n_devices: int, *, base: int = 1000,
     return max(minimum, round(base / (max(n_devices, 1) ** exponent)))
 
 
-def frame_schema_id(estimators, *, lane: str, generator: str) -> str:
+def frame_schema_id(estimators, *, lane: str, generator: str,
+                    stream: str) -> str:
     """The checkpoint ``schema`` stamp of the engine's state, e.g.
-    ``"epoch-state-torch-v1:single:cuda:betweenness[path_counts]"``.
+    ``"epoch-state-torch-v1:single:cuda:bidir:betweenness[path_counts]"``.
 
     It names the lane (``single``, ``spmd<W>`` for W ranks, each with its
     own generator, or ``sharded<S>``: the lanes draw different streams),
     the random generator's device type (a CPU
     generator's state is 5,056 bytes of MT19937, a CUDA one's 16 bytes
-    of Philox seed and offset) and every estimator with its channels, in
-    channel-row order.  It differs from the JAX engine's
+    of Philox seed and offset), the draw stream (``bidir``, ``forward``
+    or ``weighted``: a frame of one stream's samples does not continue
+    another's) and every estimator with its channels, in channel-row
+    order.  It differs from the JAX engine's
     ``epoch-state-v2:`` stamp, whose random state is a JAX key: restoring
     a state of another layout raises ``CheckpointSchemaError`` before any
     shape check."""
     parts = [f"{e.name}[{','.join(e.channels)}]" for e in estimators]
-    return f"epoch-state-torch-v1:{lane}:{generator}:" + "+".join(parts)
+    return (f"epoch-state-torch-v1:{lane}:{generator}:{stream}:"
+            + "+".join(parts))

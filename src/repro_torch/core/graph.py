@@ -13,6 +13,14 @@ JAX package, array for array:
   multiple of ``block_e``.  It drives the node-blocked frontier kernel,
   which skips edge blocks that hold no frontier source.
 
+A weighted graph (the weighted delta-stepping lane) carries one strictly
+positive float32 ``weight`` a directed edge, in CSR/COO order (pad slots
+0.0), and its layout the same weights in bucketed order; attach them with
+:func:`with_weights` (:func:`symmetric_dyadic_weights` draws the JAX
+package's dyadic weights bit for bit).  The weighted lane relaxes over
+:meth:`Graph.relax_plan`, the in-edge plan with the weights in plan
+order.
+
 The builders run the JAX package's algorithms with torch operations on
 the target device (deduplication, the stable sort by source, the block
 bucketing), so a graph of 57M directed edges is built on the card in
@@ -43,7 +51,7 @@ __all__ = [
     "Graph", "CSCLayout", "bucket_layout", "build_graph", "build_csc_layout",
     "choose_csc_blocks", "with_csc_layout", "from_edge_list",
     "graph_from_numpy", "rmat_graph", "hyperbolic_graph", "grid_graph",
-    "erdos_renyi_graph",
+    "erdos_renyi_graph", "symmetric_dyadic_weights", "with_weights",
 ]
 
 # The card's node-blocked blocking: 2^14 rows per node block gives 65
@@ -68,6 +76,9 @@ class CSCLayout:
     n_edge_blocks: int
     n_nodes: int
     n_src_blocks: int
+    # (n_edge_blocks * block_e,) float32 weights in bucketed order (pad
+    # slots 0.0); None on an unweighted graph
+    weight: Optional[torch.Tensor] = None
 
     @property
     def v_pad(self) -> int:
@@ -82,16 +93,19 @@ class CSCLayout:
         return dataclasses.replace(
             self, src=self.src.to(dev), dst=self.dst.to(dev),
             block_nb=self.block_nb.to(dev), block_sb=self.block_sb.to(dev),
-            block_first=self.block_first.to(dev))
+            block_first=self.block_first.to(dev),
+            weight=None if self.weight is None else self.weight.to(dev))
 
 
 @dataclasses.dataclass(frozen=True)
 class Graph:
-    """An undirected, unweighted graph in CSR + COO form (torch tensors).
+    """An undirected graph in CSR + COO form (torch tensors).
 
     ``n_nodes``/``n_edges`` are the logical sizes (``n_edges`` counts
     directed slots, both directions of every edge); arrays are padded to
-    ``e_pad`` slots with sink edges.
+    ``e_pad`` slots with sink edges.  ``weight`` (optional) holds one
+    strictly positive float32 weight a directed edge in CSR/COO order,
+    pad slots 0.0.
     """
 
     indptr: torch.Tensor   # (V+1,) int32
@@ -103,6 +117,7 @@ class Graph:
     n_edges: int
     max_degree: int
     csc: Optional[CSCLayout] = None
+    weight: Optional[torch.Tensor] = None   # (E_pad,) float32
     _cache: dict = dataclasses.field(default_factory=dict, repr=False,
                                      compare=False)
 
@@ -124,6 +139,24 @@ class Graph:
                                                   self.n_nodes + 1)
         return self._cache["pull"]
 
+    def relax_plan(self):
+        """The weighted lane's plan (``kernels.frontier.build_relax_plan``):
+        the in-edge plan of (src, dst) over the V+1 state rows with the
+        weights in plan order; built on first use, then kept while it is
+        the plan of this graph's edges and weights."""
+        if self.weight is None:
+            raise ValueError("an unweighted graph has no relax plan; attach "
+                             "weights with with_weights(graph, w)")
+        held = self._cache.get("relax")
+        if held is None or held.plan.ids is not self.src \
+                or held.plan.seg is not self.dst \
+                or held.source_weight is not self.weight \
+                or held.plan.n_segments != self.n_nodes + 1:
+            from ..kernels.frontier import build_relax_plan
+            self._cache["relax"] = build_relax_plan(
+                self.src, self.dst, self.weight, self.n_nodes + 1)
+        return self._cache["relax"]
+
     @property
     def device(self) -> torch.device:
         return self.src.device
@@ -134,7 +167,9 @@ class Graph:
             self, indptr=self.indptr.to(dev), indices=self.indices.to(dev),
             src=self.src.to(dev), dst=self.dst.to(dev),
             degree=self.degree.to(dev),
-            csc=None if self.csc is None else self.csc.to(dev), _cache={})
+            csc=None if self.csc is None else self.csc.to(dev),
+            weight=None if self.weight is None else self.weight.to(dev),
+            _cache={})
 
 
 def _tensor(a, dev) -> torch.Tensor:
@@ -144,17 +179,25 @@ def _tensor(a, dev) -> torch.Tensor:
     return torch.from_numpy(a).to(dev)
 
 
+def _weights(a, dev) -> Optional[torch.Tensor]:
+    if a is None:
+        return None
+    return torch.from_numpy(np.array(a, np.float32)).to(dev)
+
+
 def graph_from_numpy(arrays: dict, n_nodes: int, n_edges: int,
                      max_degree: int, csc: Optional[dict] = None, *,
                      device=DEFAULT_DEVICE) -> Graph:
     """A :class:`Graph` from numpy arrays, e.g. the leaves of a JAX graph.
 
     ``arrays`` holds ``indptr``, ``indices``, ``src``, ``dst`` and
-    ``degree``; ``csc`` (optional) holds the layout's five arrays (``src``,
-    ``dst``, ``block_nb``, ``block_sb``, ``block_first``) and its static
-    ints (``block_v``, ``block_e``, ``n_node_blocks``, ``n_edge_blocks``,
-    ``n_nodes``, ``n_src_blocks``).  The arrays are taken as they are, so
-    both packages traverse the same edges in the same order.
+    ``degree``, and on a weighted graph ``weight``; ``csc`` (optional)
+    holds the layout's five arrays (``src``, ``dst``, ``block_nb``,
+    ``block_sb``, ``block_first``), its ``weight`` on a weighted graph,
+    and its static ints (``block_v``, ``block_e``, ``n_node_blocks``,
+    ``n_edge_blocks``, ``n_nodes``, ``n_src_blocks``).  The arrays are
+    taken as they are, so both packages traverse the same edges in the
+    same order.
     """
     dev = resolve_device(device)
     layout = None
@@ -164,12 +207,14 @@ def graph_from_numpy(arrays: dict, n_nodes: int, n_edges: int,
                ("src", "dst", "block_nb", "block_sb", "block_first")},
             **{k: int(csc[k]) for k in
                ("block_v", "block_e", "n_node_blocks", "n_edge_blocks",
-                "n_nodes", "n_src_blocks")})
+                "n_nodes", "n_src_blocks")},
+            weight=_weights(csc.get("weight"), dev))
     return Graph(
         **{k: _tensor(arrays[k], dev) for k in
            ("indptr", "indices", "src", "dst", "degree")},
         n_nodes=int(n_nodes), n_edges=int(n_edges),
-        max_degree=int(max_degree), csc=layout)
+        max_degree=int(max_degree), csc=layout,
+        weight=_weights(arrays.get("weight"), dev))
 
 
 def _long(a, dev) -> torch.Tensor:
@@ -200,14 +245,30 @@ def from_edge_list(edges, n_nodes: int | None = None, *, pad_to: int = 128,
                        pad_to=pad_to, device=dev)
 
 
+def _check_weights(w: torch.Tensor, n_edges: int) -> None:
+    if w.shape[0] != n_edges:
+        raise ValueError(f"weights must have one entry per directed edge: "
+                         f"got {w.shape[0]}, expected {n_edges}")
+    if n_edges and not bool((w > 0.0).all()):
+        raise ValueError("edge weights must be strictly positive")
+
+
 def build_graph(src, dst, n_nodes: int, *, pad_to: int = 128,
-                device=DEFAULT_DEVICE) -> Graph:
-    """Build from a directed (already symmetrized) edge list."""
+                weight=None, device=DEFAULT_DEVICE) -> Graph:
+    """Build from a directed (already symmetrized) edge list.  ``weight``
+    (optional, one strictly positive entry a directed edge) rides the
+    same stable sort by source as the edges."""
     dev = resolve_device(device)
     src, dst = _long(src, dev), _long(dst, dev)
     order = torch.sort(src, stable=True).indices
     src, dst = src[order], dst[order]
     n_edges = int(src.shape[0])
+    w_p = None
+    if weight is not None:
+        w = torch.as_tensor(weight, dtype=torch.float32,
+                            device=dev).reshape(-1)
+        _check_weights(w, n_edges)
+        w = w[order]
     degree = torch.bincount(src, minlength=n_nodes)
     indptr = torch.zeros(n_nodes + 1, dtype=torch.int64, device=dev)
     indptr[1:] = torch.cumsum(degree, 0)
@@ -217,11 +278,13 @@ def build_graph(src, dst, n_nodes: int, *, pad_to: int = 128,
                       device=dev)
     src_p = torch.cat([src, fill]).to(torch.int32)
     dst_p = torch.cat([dst, fill]).to(torch.int32)
+    if weight is not None:
+        w_p = torch.cat([w, w.new_zeros(e_pad - n_edges)])
     return Graph(
         indptr=indptr.to(torch.int32), indices=dst_p, src=src_p,
         dst=dst_p, degree=degree.to(torch.int32),
         n_nodes=int(n_nodes), n_edges=n_edges,
-        max_degree=int(degree.max()) if n_nodes else 0)
+        max_degree=int(degree.max()) if n_nodes else 0, weight=w_p)
 
 
 # ---------------------------------------------------------------------------
@@ -230,7 +293,7 @@ def build_graph(src, dst, n_nodes: int, *, pad_to: int = 128,
 
 def bucket_layout(src, dst, nb, n_buckets: int, block_e: int, *,
                   sink_src: int, sink_dst: int, src_block,
-                  sink_src_block: int):
+                  sink_src_block: int, payload=None):
     """Bucket an edge list by ``(nb, src_block)`` pairs, block-padded.
 
     All inputs are int64 tensors on one device.  Within each destination
@@ -238,9 +301,11 @@ def bucket_layout(src, dst, nb, n_buckets: int, block_e: int, *,
     order within a pair); every (bucket, source block) pair gets its own
     range padded with ``(sink_src, sink_dst)`` edges to a multiple of
     ``block_e``.  Buckets with no edges get one all-pad block.  Returns
-    int32 ``(out_src, out_dst, block_nb, block_sb, block_first)``;
-    ``block_first`` flags the first edge block of each destination
-    bucket.
+    int32 ``(out_src, out_dst, block_nb, block_sb, block_first)``, and
+    ``out_payload``: the float32 ``payload`` (one entry an edge, e.g.
+    the weights) moved to the edges' slots, pad slots 0.0, or None
+    without one.  ``block_first`` flags the first edge block of each
+    destination bucket.
     """
     dev = src.device
     i64 = dict(dtype=torch.int64, device=dev)
@@ -271,6 +336,10 @@ def bucket_layout(src, dst, nb, n_buckets: int, block_e: int, *,
     pos = slot_starts[p] + torch.arange(order.numel(), **i64) - first_edge[p]
     out_src[pos] = src[order].to(torch.int32)
     out_dst[pos] = dst[order].to(torch.int32)
+    out_payload = None
+    if payload is not None:
+        out_payload = torch.zeros(total, dtype=torch.float32, device=dev)
+        out_payload[pos] = payload[order].to(torch.float32)
     eblocks = slots // block_e
     block_nb = torch.repeat_interleave((upairs // mult).to(torch.int32),
                                        eblocks)
@@ -281,7 +350,7 @@ def bucket_layout(src, dst, nb, n_buckets: int, block_e: int, *,
     block_first = torch.zeros(block_nb.numel(), dtype=torch.int32,
                               device=dev)
     block_first[slot_starts[:-1][is_new_bucket] // block_e] = 1
-    return out_src, out_dst, block_nb, block_sb, block_first
+    return out_src, out_dst, block_nb, block_sb, block_first, out_payload
 
 
 def choose_csc_blocks(n_nodes: int) -> tuple:
@@ -313,15 +382,17 @@ def build_csc_layout(graph: Graph, *, block_v: int | None = None,
     n_nb = -(-(graph.n_nodes + 1) // block_v)
     src = graph.src[: graph.n_edges].long()
     dst = graph.dst[: graph.n_edges].long()
-    out_src, out_dst, block_nb, block_sb, block_first = bucket_layout(
+    out_src, out_dst, block_nb, block_sb, block_first, out_w = bucket_layout(
         src, dst, dst // block_v, n_nb, block_e,
         sink_src=graph.n_nodes, sink_dst=graph.n_nodes,
-        src_block=src // block_v, sink_src_block=graph.n_nodes // block_v)
+        src_block=src // block_v, sink_src_block=graph.n_nodes // block_v,
+        payload=None if graph.weight is None
+        else graph.weight[: graph.n_edges])
     return CSCLayout(
         src=out_src, dst=out_dst, block_nb=block_nb, block_sb=block_sb,
         block_first=block_first, block_v=block_v, block_e=block_e,
         n_node_blocks=int(n_nb), n_edge_blocks=int(block_nb.shape[0]),
-        n_nodes=int(graph.n_nodes), n_src_blocks=int(n_nb))
+        n_nodes=int(graph.n_nodes), n_src_blocks=int(n_nb), weight=out_w)
 
 
 def with_csc_layout(graph: Graph, *, block_v: int | None = None,
@@ -331,6 +402,50 @@ def with_csc_layout(graph: Graph, *, block_v: int | None = None,
     through the node-blocked route."""
     return dataclasses.replace(
         graph, csc=build_csc_layout(graph, block_v=block_v, block_e=block_e))
+
+
+def with_weights(graph: Graph, weights) -> Graph:
+    """``graph`` with one strictly positive weight a directed edge, in
+    the graph's stored edge order (``graph.src[:n_edges]``), padded with
+    zeros to ``e_pad``; a layout the graph carries is bucketed again at
+    its blocking so that it holds the same weights in its own order.
+
+    The lane relaxes in float32: weights whose values and path sums are
+    exact in float32 (dyadic rationals, as :func:`symmetric_dyadic_weights`
+    draws) make the min-plus recursion exact, so distances equal a
+    float64 Dijkstra's cast to float32.  Any other positive float32
+    weights give each path's float32 sum, on every lane the same bits; a
+    weight a distance absorbs (``d + w == d``) can close a cycle of
+    equal distances on the shortest-path DAG, and the count raises.
+    """
+    w = torch.as_tensor(weights, dtype=torch.float32,
+                        device=graph.device).reshape(-1)
+    _check_weights(w, graph.n_edges)
+    w_p = torch.cat([w, w.new_zeros(graph.e_pad - graph.n_edges)])
+    out = dataclasses.replace(graph, weight=w_p, csc=None, _cache={})
+    if graph.csc is not None:
+        out = with_csc_layout(out, block_v=graph.csc.block_v,
+                              block_e=graph.csc.block_e)
+    return out
+
+
+def symmetric_dyadic_weights(graph: Graph, *, seed: int = 0,
+                             denom: int = 16, lo: int = 1,
+                             hi: int = 32) -> torch.Tensor:
+    """Random symmetric weights, exact in float32: each undirected edge
+    draws one multiple of ``1/denom`` in ``[lo/denom, hi/denom]`` and both
+    directed copies share it.  Returns (n_edges,) float32 on the graph's
+    device, in its stored edge order (for :func:`with_weights`): the JAX
+    package's weights bit for bit (the pairs are ranked on the device as
+    ``np.unique`` ranks them, the draw comes from numpy's generator)."""
+    src = graph.src[: graph.n_edges].long()
+    dst = graph.dst[: graph.n_edges].long()
+    pair = torch.minimum(src, dst) * graph.n_nodes + torch.maximum(src, dst)
+    uniq, inv = torch.unique(pair, sorted=True, return_inverse=True)
+    rng = np.random.default_rng(seed)
+    per_pair = rng.integers(lo, hi + 1, size=int(uniq.shape[0]))
+    w = torch.from_numpy(per_pair.astype(np.float32) / np.float32(denom))
+    return w.to(graph.device)[inv]
 
 
 # ---------------------------------------------------------------------------

@@ -40,8 +40,14 @@ chunks that hold frontier rows, at most ``exchange_budget`` a shard);
 Departure from the JAX package, as in ``core/graph.py``: blocking left
 to the default comes from the card's :func:`choose_csc_blocks`, not the
 TPU's VMEM heuristic.  At an explicit blocking every array equals the
-JAX package's.  The weighted lane (ROADMAP §1 item 13) is not ported: a
-weighted graph raises.
+JAX package's.
+
+A weighted graph gives a weighted partition: each shard keeps its
+weights in its bucketed order beside its edges (the layout's
+``weight``, pad slots 0.0, from which :meth:`ShardedCSCLayout.relax_plan`
+builds the weighted rounds' plan), and the partition keeps the
+replicated CSR weights (``PartitionedGraph.weight``) for the backward
+walks.
 """
 from __future__ import annotations
 
@@ -63,10 +69,6 @@ __all__ = [
     "shard_vertex_range", "vertex_owner",
 ]
 
-_WEIGHTED = ("weighted graphs are not ported yet: ROADMAP §1 item 13 "
-             "(weighted lane)")
-
-
 @dataclasses.dataclass(frozen=True)
 class ShardedCSCLayout:
     """Per-shard destination-bucketed edge arrays, leading shard axis."""
@@ -84,6 +86,9 @@ class ShardedCSCLayout:
     n_nodes: int
     # the global shard of the stack's first row (a local layout's own)
     first_shard: int = 0
+    # (S, n_edge_blocks * block_e) float32 weights in each shard's
+    # bucketed order (pad slots 0.0); None on an unweighted graph
+    weight: "torch.Tensor | None" = None
     _cache: dict = dataclasses.field(default_factory=dict, repr=False,
                                      compare=False)
 
@@ -118,7 +123,8 @@ class ShardedCSCLayout:
             block_v=self.block_v, block_e=self.block_e,
             n_node_blocks=self.blocks_per_shard,
             n_edge_blocks=self.n_edge_blocks, n_nodes=self.n_nodes,
-            n_src_blocks=self.n_shards * self.blocks_per_shard)
+            n_src_blocks=self.n_shards * self.blocks_per_shard,
+            weight=None if self.weight is None else self.weight[s])
 
     def real_blocks(self) -> torch.Tensor:
         """(n_real,) int32, ascending: the flat indices ``s *
@@ -137,19 +143,33 @@ class ShardedCSCLayout:
             self._cache["real_blocks"] = hit
         return hit[1]
 
+    def relax_plan(self):
+        """The weighted rounds' plan of the held shards
+        (``kernels.frontier.build_sharded_relax_plan``): built on first
+        use, then kept while ``src`` and ``weight`` are this layout's."""
+        hit = self._cache.get("relax")
+        if hit is None or hit[0] is not self.src or hit[1] is not self.weight:
+            from ..kernels.frontier import build_sharded_relax_plan
+            hit = (self.src, self.weight, build_sharded_relax_plan(self))
+            self._cache["relax"] = hit
+        return hit[2]
+
     def to(self, device) -> "ShardedCSCLayout":
         dev = resolve_device(device)
         return dataclasses.replace(
             self, src=self.src.to(dev), dst=self.dst.to(dev),
             block_nb=self.block_nb.to(dev), block_sb=self.block_sb.to(dev),
-            block_first=self.block_first.to(dev), _cache={})
+            block_first=self.block_first.to(dev),
+            weight=None if self.weight is None else self.weight.to(dev),
+            _cache={})
 
 
 @dataclasses.dataclass(frozen=True)
 class PartitionedGraph:
     """A graph whose frontier lane is sharded.  Duck-types the ``Graph``
     attributes the path walk reads (``n_nodes``, ``indptr``, ``indices``,
-    ``degree``)."""
+    ``degree``, and on a weighted graph ``weight``, the replicated CSR
+    weights)."""
 
     indptr: torch.Tensor   # (V+1,) int32, replicated CSR
     indices: torch.Tensor  # (E_pad,) int32
@@ -163,6 +183,8 @@ class PartitionedGraph:
     # built with exchange_budget="auto": the sharded lane derives the
     # budget from the diameter sweeps' chunk occupancy before calibration
     exchange_budget_auto: bool = False
+    # (E_pad,) float32 replicated CSR weights; None on an unweighted graph
+    weight: "torch.Tensor | None" = None
 
     @property
     def device(self) -> torch.device:
@@ -198,7 +220,8 @@ class PartitionedGraph:
         dev = resolve_device(device)
         return dataclasses.replace(
             self, indptr=self.indptr.to(dev), indices=self.indices.to(dev),
-            degree=self.degree.to(dev), shards=self.shards.to(dev))
+            degree=self.degree.to(dev), shards=self.shards.to(dev),
+            weight=None if self.weight is None else self.weight.to(dev))
 
 
 def vertex_owner(pg, v):
@@ -342,14 +365,13 @@ def partition_graph(graph: Graph, n_shards: int, *,
     sweeps.  ``shard=s`` builds shard ``s``'s buckets alone (a local
     partition, the one process ``s`` of a ``GroupShardMesh`` holds),
     padded to its own edge blocks: its arrays are row ``s`` of the whole
-    partition's up to the inert padding.
+    partition's up to the inert padding.  A weighted graph's weights ride
+    the same permutations into each shard's bucketed slots.
     """
     if n_shards < 1:
         raise ValueError(f"n_shards must be >= 1, got {n_shards}")
     if shard is not None and not 0 <= int(shard) < n_shards:
         raise ValueError(f"shard {shard} is not one of {n_shards} shards")
-    if getattr(graph, "weight", None) is not None:
-        raise NotImplementedError(_WEIGHTED)
     budget_auto = isinstance(exchange_budget, str) and exchange_budget == "auto"
     if budget_auto:
         exchange_budget = None
@@ -366,6 +388,8 @@ def partition_graph(graph: Graph, n_shards: int, *,
     owner = dst // shard_rows
     order = torch.sort(owner, stable=True).indices
     src_o, dst_o = src[order], dst[order]
+    weighted = graph.weight is not None
+    w_o = graph.weight[: graph.n_edges][order] if weighted else None
     bounds = torch.searchsorted(
         owner[order], torch.arange(n_shards + 1, device=dev)).tolist()
     sink_sb = n // block_v
@@ -377,7 +401,8 @@ def partition_graph(graph: Graph, n_shards: int, *,
         per_shard.append(bucket_layout(
             src_o[lo:hi], s_dst, s_dst // block_v, bps, block_e,
             sink_src=n, sink_dst=shard_rows, src_block=src_o[lo:hi] // block_v,
-            sink_src_block=sink_sb))
+            sink_src_block=sink_sb,
+            payload=w_o[lo:hi] if weighted else None))
     eb_max = max(p[2].shape[0] for p in per_shard)
     i32 = dict(dtype=torch.int32, device=dev)
     n_loc = len(per_shard)
@@ -387,10 +412,14 @@ def partition_graph(graph: Graph, n_shards: int, *,
            "block_nb": torch.full((n_loc, eb_max), bps - 1, **i32),
            "block_sb": torch.full((n_loc, eb_max), sink_sb, **i32),
            "block_first": torch.zeros((n_loc, eb_max), **i32)}
+    if weighted:
+        out["weight"] = torch.zeros((n_loc, eb_max * block_e),
+                                    dtype=torch.float32, device=dev)
     for s, arrays in enumerate(per_shard):
         for name, a in zip(("src", "dst", "block_nb", "block_sb",
-                            "block_first"), arrays):
-            out[name][s, : a.shape[0]] = a
+                            "block_first", "weight"), arrays):
+            if a is not None:
+                out[name][s, : a.shape[0]] = a
     shards = ShardedCSCLayout(
         **out, block_v=block_v, block_e=block_e, blocks_per_shard=int(bps),
         n_edge_blocks=int(eb_max), n_shards=int(n_shards), n_nodes=int(n),
@@ -401,17 +430,20 @@ def partition_graph(graph: Graph, n_shards: int, *,
         max_degree=int(graph.max_degree),
         exchange_budget=_resolve_exchange_budget(shard_rows, block_v,
                                                  exchange_budget),
-        exchange_budget_auto=budget_auto)
+        exchange_budget_auto=budget_auto,
+        weight=graph.weight if weighted else None)
 
 
 def gather_graph(pg: PartitionedGraph) -> Graph:
     """The replicated :class:`Graph` a partition was built from, rebuilt
-    from its CSR arrays (bit-identical to the original)."""
+    from its CSR arrays and weights (bit-identical to the original)."""
     counts = torch.diff(pg.indptr.long())[: pg.n_nodes]
     src = torch.repeat_interleave(
         torch.arange(pg.n_nodes, device=pg.device), counts)
     dst = pg.indices[: pg.n_edges].long()
-    return build_graph(src, dst, pg.n_nodes, device=pg.device)
+    return build_graph(src, dst, pg.n_nodes, device=pg.device,
+                       weight=None if pg.weight is None
+                       else pg.weight[: pg.n_edges])
 
 
 def repartition(pg: PartitionedGraph, n_shards: int) -> PartitionedGraph:
@@ -431,6 +463,12 @@ def _tensor(a, dev) -> torch.Tensor:
     return torch.from_numpy(np.array(a, np.int32)).to(dev)
 
 
+def _float_tensor(a, dev):
+    if a is None:
+        return None
+    return torch.from_numpy(np.array(a, np.float32)).to(dev)
+
+
 def partitioned_from_numpy(arrays: dict, shards: dict, n_nodes: int,
                            n_edges: int, max_degree: int, *,
                            exchange_budget: int = 0,
@@ -439,17 +477,21 @@ def partitioned_from_numpy(arrays: dict, shards: dict, n_nodes: int,
                            device=DEFAULT_DEVICE) -> PartitionedGraph:
     """A :class:`PartitionedGraph` from numpy arrays, e.g. the leaves of a
     JAX partition: ``arrays`` holds ``indptr``, ``indices`` and
-    ``degree``; ``shards`` the layout's five (S, ...) arrays and its
-    static ints.  ``weight`` other than None raises (item 13)."""
-    if weight is not None:
-        raise NotImplementedError(_WEIGHTED)
+    ``degree``; ``shards`` the layout's five (S, ...) arrays, its static
+    ints and, on a weighted graph, its bucketed ``weight``; ``weight``
+    the replicated CSR weights of a weighted graph."""
     dev = resolve_device(device)
+    if (weight is None) != (shards.get("weight") is None):
+        raise ValueError("a weighted partition needs both the replicated "
+                         "weights and the layout's")
     layout = ShardedCSCLayout(
         **{k: _tensor(shards[k], dev) for k in _SHARD_ARRAYS},
-        **{k: int(shards[k]) for k in _SHARD_INTS})
+        **{k: int(shards[k]) for k in _SHARD_INTS},
+        weight=_float_tensor(shards.get("weight"), dev))
     return PartitionedGraph(
         **{k: _tensor(arrays[k], dev) for k in ("indptr", "indices",
                                                  "degree")},
         shards=layout, n_nodes=int(n_nodes), n_edges=int(n_edges),
         max_degree=int(max_degree), exchange_budget=int(exchange_budget),
-        exchange_budget_auto=bool(exchange_budget_auto))
+        exchange_budget_auto=bool(exchange_budget_auto),
+        weight=_float_tensor(weight, dev))

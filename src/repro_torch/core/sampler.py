@@ -9,7 +9,14 @@ batched search per round.  Two streams:
 * forward (:func:`sample_path_forward_batched`): one BFS from each s run
   to exhaustion, then one backward walk from t.  Its distance columns are
   unbiased per-source distance vectors, which closeness and harmonic
-  read; the bidirectional search stops at the meeting level and has none.
+  read; the bidirectional search stops at the meeting level and has none;
+* weighted (:func:`sample_path_weighted_batched`): the forward stream on
+  a weighted graph, one delta-stepping SSSP from each s, then one
+  backward walk from t down the shortest-path DAG, on distances: a
+  predecessor u of v has ``dist[u] >= 0`` and ``dist[u] + w == dist[v]``
+  (the exact float32 test the DAG count used), w read beside ``indices``
+  in v's CSR row.  The pair draw comes first and reads no weight, so a
+  generator draws the same pairs whatever the weights are.
 
 On the bidirectional stream the path draw is factorized through the
 search DAG:
@@ -48,13 +55,16 @@ import torch
 
 from .bfs import (BidirResult, bfs_sssp_batched, bfs_sssp_batched_sharded,
                   bidirectional_bfs_batched,
-                  bidirectional_bfs_batched_sharded)
+                  bidirectional_bfs_batched_sharded, delta_sssp_batched,
+                  delta_sssp_batched_sharded)
 from .graph import Graph
 
 __all__ = ["ForwardSample", "PathSample", "sample_batch", "sample_pairs",
            "sample_path", "sample_path_batched",
            "sample_path_batched_sharded", "sample_path_forward_batched",
-           "sample_path_forward_batched_sharded"]
+           "sample_path_forward_batched_sharded",
+           "sample_path_weighted_batched",
+           "sample_path_weighted_batched_sharded"]
 
 _NEG_INF = -1e30
 
@@ -75,14 +85,18 @@ class ForwardSample(NamedTuple):
     """B samples of one forward-stream round: a :class:`PathSample` plus
     the exhausted distance columns of the sources' searches (at the BFS
     state's row count, csc.v_pad with a CSC layout, else V+1; consumers
-    cut them to V+1) and the sources themselves."""
+    cut them to V+1) and the sources themselves.  On the weighted stream
+    ``dist`` is float32 (-1 unreached), ``length`` the path's hops,
+    ``n_levels`` the relaxation rounds and ``n_dag_rounds`` the DAG
+    rounds of the round's search."""
     internal: torch.Tensor  # (B, L) int64
     valid: torch.Tensor     # (B,) bool
     length: torch.Tensor    # (B,) int32, -1 if invalid
-    dist: torch.Tensor      # (rows, B) int32 distance from s, -1 unreached
+    dist: torch.Tensor      # (rows, B) distance from s, -1 unreached
     sources: torch.Tensor   # (B,) int32
     n_levels: int
     exchange: Optional[torch.Tensor] = None   # as PathSample.exchange
+    n_dag_rounds: int = 0
 
 
 def sample_pairs(gen: torch.Generator, n_nodes: int, batch: int):
@@ -102,22 +116,38 @@ def _gumbel_argmax(gen: torch.Generator, logw):
     return torch.argmax(logw - torch.log(-torch.log(u)), dim=0)
 
 
-def _draw_predecessors(graph: Graph, gen, v, level, dist, sigma, walking):
-    """For each walker j (a column of ``dist``/``sigma``) at vertex v[j]
-    on level level[j], draw u ~ sigma[u, j] among the neighbours u of
-    v[j] with dist[u, j] == level[j] - 1.  Walkers with ``walking`` False
-    keep their vertex."""
-    n_walk = v.shape[0]
+def _neighbours(graph, v, walking):
+    """The walkers' neighbour lists as a zero-padded (walkers, max degree)
+    layout: (slot, in_list, CSR positions, neighbours, walker columns)."""
     dev = v.device
     deg = torch.where(walking, graph.degree[v].long(), 0)
     width = max(int(deg.max()), 1)
     slot = torch.arange(width, device=dev)
     in_list = slot[None, :] < deg[:, None]
-    pos = graph.indptr[v].long()[:, None] + slot[None, :]
-    nbr = graph.indices[torch.where(in_list, pos, 0)].long()
-    cols = torch.arange(n_walk, device=dev)[:, None].expand_as(nbr)
+    pos = torch.where(in_list, graph.indptr[v].long()[:, None]
+                      + slot[None, :], 0)
+    nbr = graph.indices[pos].long()
+    cols = torch.arange(v.shape[0], device=dev)[:, None].expand_as(nbr)
+    return slot, in_list, pos, nbr, cols
+
+
+def _draw_predecessors(graph: Graph, gen, v, level, dist, sigma, walking):
+    """For each walker j (a column of ``dist``/``sigma``) at vertex v[j]
+    on level level[j], draw u ~ sigma[u, j] among the neighbours u of
+    v[j] with dist[u, j] == level[j] - 1.  Walkers with ``walking`` False
+    keep their vertex."""
+    slot, in_list, _pos, nbr, cols = _neighbours(graph, v, walking)
     on_dag = in_list & (dist[nbr, cols] == (level - 1)[:, None])
-    w = torch.where(on_dag, sigma[nbr, cols].double(), 0.0)
+    return _draw(gen, slot, nbr, on_dag, sigma[nbr, cols], v, walking)[0]
+
+
+def _draw(gen, slot, nbr, on_dag, sig, v, walking):
+    """One draw per walker of a slot with weight ``sig`` among its
+    ``on_dag`` slots -> (the drawn neighbour, or v where the walker is
+    not walking or has no such slot; whether it had one)."""
+    n_walk = v.shape[0]
+    dev = v.device
+    w = torch.where(on_dag, sig.double(), 0.0)
     cum = torch.cumsum(w, dim=1)
     x = torch.rand(n_walk, generator=gen, device=dev,
                    dtype=torch.float64) * cum[:, -1]
@@ -127,7 +157,8 @@ def _draw_predecessors(graph: Graph, gen, v, level, dist, sigma, walking):
     last = torch.where(w > 0, slot[None, :], -1).amax(dim=1)
     pick = torch.minimum(pick, last).clamp(min=0)
     u = nbr.gather(1, pick[:, None])[:, 0]
-    return torch.where(walking, u, v)
+    found = walking & (last >= 0)
+    return torch.where(found, u, v), found
 
 
 def _walk_paths(graph: Graph, gen, start, level, dist, sigma):
@@ -241,6 +272,81 @@ def sample_path_forward_batched_sharded(pg, gen: torch.Generator,
     full = res._replace(dist=mesh.all_gather(res.dist, what="state"),
                         sigma=mesh.all_gather(res.sigma, what="state"))
     return _finish_forward_paths(pg, gen, s, t, full)._replace(
+        exchange=res.exchange)
+
+
+def _walk_weighted(graph, gen, start, tv, dist, sigma):
+    """Walk every column from ``start`` (at distance ``tv``) down the
+    shortest-path DAG to its source (distance 0), on distances: each step
+    draws a predecessor u with probability sigma(u) over the sum of its
+    predecessors' and marks it when it is not the source.  A walker stops
+    at distance 0, after ``n_nodes + 1`` steps, or where no predecessor is
+    found (only on a corrupt state).  Returns ((walkers, steps) visited
+    internal vertices, -1 padded; (walkers,) hops)."""
+    v = start.long()
+    n_walk = v.shape[0]
+    cols = torch.arange(n_walk, device=v.device)
+    hops = torch.zeros(n_walk, dtype=torch.int32, device=v.device)
+    visited = []
+    while True:
+        walking = (tv > 0.0) & (hops <= graph.n_nodes)
+        if not bool(walking.any()):
+            break
+        slot, in_list, pos, nbr, wcols = _neighbours(graph, v, walking)
+        dn = dist[nbr, wcols]
+        on_dag = in_list & (dn >= 0.0) & (dn + graph.weight[pos]
+                                           == tv[:, None])
+        u, found = _draw(gen, slot, nbr, on_dag, sigma[nbr, wcols], v,
+                         walking)
+        du = torch.where(found, dist[u, cols], 0.0)
+        visited.append(torch.where(found & (du > 0.0), u, -1))
+        v = u
+        tv = torch.where(walking, du, tv)
+        hops = torch.where(walking, hops + 1, hops)
+    if not visited:
+        return torch.full((n_walk, 0), -1, dtype=torch.long,
+                          device=v.device), hops
+    return torch.stack(visited, dim=1), hops
+
+
+def _finish_weighted_paths(graph, gen, s, t, res) -> ForwardSample:
+    """The backward walk from t over a finished weighted search: the same
+    telescoping law as :func:`_finish_forward_paths` (each weighted
+    shortest s-t path with probability 1 / sigma(t)); ``length`` is the
+    path's hops."""
+    batch = s.shape[0]
+    d = res.dist[t.long(), torch.arange(batch, device=t.device)]
+    valid = d > 0.0
+    internal, hops = _walk_weighted(graph, gen, t,
+                                    torch.where(valid, d, 0.0), res.dist,
+                                    res.sigma)
+    return ForwardSample(internal, valid, torch.where(valid, hops, -1),
+                         res.dist, s, res.n_iters,
+                         n_dag_rounds=res.n_dag_rounds)
+
+
+def sample_path_weighted_batched(graph: Graph, gen: torch.Generator,
+                                 batch: int) -> ForwardSample:
+    """Take ``batch`` samples through the weighted stream: one batched
+    delta-stepping SSSP from the sources (default bucket width), then
+    one backward DAG walk per sample."""
+    s, t = sample_pairs(gen, graph.n_nodes, batch)
+    res = delta_sssp_batched(graph, s)
+    return _finish_weighted_paths(graph, gen, s, t, res)
+
+
+def sample_path_weighted_batched_sharded(pg, gen: torch.Generator,
+                                         batch: int, *, mesh
+                                         ) -> ForwardSample:
+    """:func:`sample_path_weighted_batched` on a weighted
+    :class:`PartitionedGraph`: the search sharded over ``mesh``, its
+    dist and sigma gathered once, then the walks over the replicated CSR
+    and weights; ``dist`` is the gathered (v_pad, B) one."""
+    s, t = sample_pairs(gen, pg.n_nodes, batch)
+    res = delta_sssp_batched_sharded(pg, s, mesh=mesh)
+    full = res._replace(dist=mesh.all_gather(res.dist, what="state"),
+                        sigma=mesh.all_gather(res.sigma, what="state"))
+    return _finish_weighted_paths(pg, gen, s, t, full)._replace(
         exchange=res.exchange)
 
 

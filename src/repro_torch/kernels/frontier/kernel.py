@@ -23,6 +23,15 @@ design answers that bound).  Both routes run a level in one C call:
   edge blocks (``ShardedCSCLayout.real_blocks``), into the
   (S, shard_rows, B) stack.
 
+:func:`frontier_relax_pull` (W1) and :func:`dag_sigma_pull` (W2) are
+the weighted lane's two pulls, in ``csrc/relax.cu`` (its own library):
+one min-plus relaxation round and one round of the shortest-path-DAG
+count, over a :class:`RelaxPlan` (:func:`build_relax_plan`, the in-edge
+plan with the weights in plan order; :func:`build_sharded_relax_plan`
+stacks the held shards' rows of a sharded layout over global sources).
+They count under ``RELAX`` and ``DAG_SIGMA`` in
+``weighted_launch_counts`` (reset with the others), one a round.
+
 :func:`frontier_words` launches the words pass alone: the (rows, W)
 frontier bit-words of a level and the zeroed (rows, B) output.  Besides
 their launches the wrappers allocate with ``torch.empty`` and run no
@@ -44,42 +53,52 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
+from typing import NamedTuple, Optional
 
 import torch
 
 from .. import _build
 from ..segsum.kernel import SegmentPlan, build_plan
-from .ref import (frontier_expand_node_blocked_ref,
+from .ref import (dag_sigma_pull_ref, frontier_expand_node_blocked_ref,
                   frontier_expand_sharded_level_ref,
                   frontier_expand_sharded_ref, frontier_pull_ref,
-                  frontier_words_ref)
+                  frontier_relax_pull_ref, frontier_words_ref)
 
-__all__ = ["FLAT", "NODE_BLOCKED", "NODE_BLOCKED_WIDE", "PULL_SPLIT",
-           "SOURCE", "WORDS", "build_pull_plan",
+__all__ = ["DAG_SIGMA", "FLAT", "NODE_BLOCKED", "NODE_BLOCKED_WIDE",
+           "PULL_SPLIT", "RELAX", "RELAX_SOURCE", "RelaxPlan", "SOURCE",
+           "WORDS", "build_pull_plan", "build_relax_plan",
+           "build_sharded_relax_plan", "dag_sigma_pull",
            "edge_bitmap_from_source_bits", "frontier_block_bitmap",
            "frontier_expand_flat", "frontier_expand_node_blocked",
-           "frontier_expand_sharded_level", "frontier_row_mask",
-           "frontier_source_block_bitmap",
+           "frontier_expand_sharded_level", "frontier_relax_pull",
+           "frontier_row_mask", "frontier_source_block_bitmap",
            "frontier_words", "launch_counts", "library",
-           "node_blocked_smem_bytes", "reset_launch_counts",
+           "node_blocked_smem_bytes", "relax_library",
+           "reset_launch_counts", "weighted_launch_counts",
            "MAX_SMEM_BYTES"]
 
 FLAT = "frontier_flat"
 NODE_BLOCKED = "frontier_node_blocked"
 NODE_BLOCKED_WIDE = "frontier_node_blocked_wide"
 WORDS = "frontier_words"
+RELAX = "frontier_relax"
+DAG_SIGMA = "dag_sigma"
 SOURCE = Path(__file__).resolve().parent / "csrc" / "frontier.cu"
+RELAX_SOURCE = Path(__file__).resolve().parent / "csrc" / "relax.cu"
 # dynamic shared memory one block may use on an H100 (227 KB)
 MAX_SMEM_BYTES = 232_448
 # in-edges one lane group of the pull sums before a row is cut into items
 PULL_SPLIT = 512
 
 launch_counts = {FLAT: 0, NODE_BLOCKED: 0, NODE_BLOCKED_WIDE: 0, WORDS: 0}
+# the weighted lane's kernels, counted apart from the BFS levels' routes
+weighted_launch_counts = {RELAX: 0, DAG_SIGMA: 0}
 
 
 def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+    for counts in (launch_counts, weighted_launch_counts):
+        for k in counts:
+            counts[k] = 0
 
 
 def _declare(lib) -> None:
@@ -103,6 +122,23 @@ def _declare(lib) -> None:
 def library() -> ctypes.CDLL:
     """The built frontier library (compiled with nvcc on first use)."""
     return _build.load("frontier", SOURCE, _declare)
+
+
+def _declare_relax(lib) -> None:
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.relax_pull_launch.argtypes = [p, p, p, p, p, i64, p, p, i64, p, p,
+                                      p, p, i64, i64, i64, i32, p]
+    lib.relax_pull_launch.restype = i32
+    lib.dag_sigma_pull_launch.argtypes = [p, p, p, p, p, p, i64, p, p, i64,
+                                          p, p, p, p, p, p, p, i64, i64, i64,
+                                          i32, i64, p]
+    lib.dag_sigma_pull_launch.restype = i32
+
+
+def relax_library() -> ctypes.CDLL:
+    """The built library of the weighted lane's two kernels (W1, W2),
+    compiled with nvcc on first use."""
+    return _build.load("relax", RELAX_SOURCE, _declare_relax)
 
 
 def node_blocked_smem_bytes(block_e: int) -> int:
@@ -364,3 +400,158 @@ def frontier_expand_sharded_level(shards, fvals, levels):
     launch_counts[NODE_BLOCKED_WIDE] += 1
     launch_counts[WORDS] += 1
     return out.view(n_loc, shards.shard_rows, batch)
+
+
+# ---------------------------------------------------------------------------
+# The weighted lane: W1 (min-plus relaxation) and W2 (the DAG count)
+# ---------------------------------------------------------------------------
+
+class RelaxPlan(NamedTuple):
+    """The weighted lane's plan: ``plan``, the in-edge plan (sources in
+    destination order, the rows of more than ``split`` in-edges cut into
+    items), the weights in plan order (``weight``), each item's output
+    row (``item_row``), the weight tensor it was built from
+    (``source_weight``, the cache key), ``dst_offset``, the state row of
+    output row 0, and ``out_rows``, the rows a round writes (None: the
+    state's rows)."""
+    plan: SegmentPlan
+    weight: torch.Tensor
+    item_row: torch.Tensor
+    source_weight: torch.Tensor
+    dst_offset: int = 0
+    out_rows: Optional[int] = None
+
+
+def _relax_plan(ids, seg, w, n_segments: int, n_rows: int, source_weight,
+                dst_offset: int, out_rows, split: int) -> RelaxPlan:
+    plan = build_plan(ids, seg, n_segments, n_rows, split=split, hot_rows=0,
+                      keep_order=True, transpose=False)
+    item_row = torch.repeat_interleave(
+        plan.split_seg, torch.diff(plan.split_first)).to(torch.int32)
+    return RelaxPlan(plan, w.index_select(0, plan.order.long()).contiguous(),
+                     item_row, source_weight, int(dst_offset), out_rows)
+
+
+def build_relax_plan(src, dst, weight, rows: int, *,
+                     split: int = PULL_SPLIT) -> RelaxPlan:
+    """The relax plan of the COO edges (src, dst) with their ``weight``
+    over ``rows`` state rows (a stable sort: a row keeps its edges' COO
+    order, its sources ascending).  Raises unless every id lies in [0,
+    rows) (one sync on the card); build it once per graph
+    (``Graph.relax_plan``)."""
+    if weight.shape != src.shape:
+        raise ValueError(f"weight {tuple(weight.shape)} does not match the "
+                         f"edges {tuple(src.shape)}")
+    return _relax_plan(src, dst, weight.to(torch.float32), rows, rows,
+                       weight, 0, None, split)
+
+
+def build_sharded_relax_plan(shards, *, split: int = PULL_SPLIT
+                             ) -> RelaxPlan:
+    """The relax plan of every held shard of a weighted sharded layout:
+    output row ``s * shard_rows + r`` is local row r of held shard s,
+    state row ``first_shard * shard_rows`` + that row, and its in-edges
+    are the shard's real slots (global sources, in bucketed order, which
+    is ascending source order within a row)."""
+    if shards.weight is None:
+        raise ValueError("the sharded layout carries no weights")
+    rows = shards.shard_rows
+    n_loc = shards.n_local_shards
+    real = shards.dst < rows
+    seg = shards.dst + (torch.arange(n_loc, device=shards.dst.device)
+                        * rows).to(torch.int32)[:, None]
+    return _relax_plan(shards.src[real], seg[real], shards.weight[real],
+                       n_loc * rows, shards.v_pad, shards.weight,
+                       shards.first_shard * rows, n_loc * rows, split)
+
+
+def _round_rows(rplan: RelaxPlan, tent) -> int:
+    rows = tent.shape[0]
+    out_rows = rows if rplan.out_rows is None else rplan.out_rows
+    plan = rplan.plan
+    if plan.n_rows > rows or plan.n_segments > out_rows \
+            or rplan.dst_offset + out_rows > rows:
+        raise ValueError(f"the relax plan ({plan.n_segments} rows from "
+                         f"{plan.n_rows}, offset {rplan.dst_offset}) does "
+                         f"not fit a state of {rows} rows")
+    if plan.ids_sorted.device != tent.device:
+        raise ValueError("the relax plan must live on the state's device")
+    return out_rows
+
+
+def _check_weighted(tent, *masks):
+    if tent.dtype != torch.float32 or tent.dim() != 2:
+        raise TypeError(f"tent must be (rows, B) float32, got {tent.dtype} "
+                        f"{tuple(tent.shape)}")
+    for m in masks:
+        if m.dtype != torch.bool or m.shape != tent.shape:
+            raise TypeError(f"masks must be bool {tuple(tent.shape)}, got "
+                            f"{m.dtype} {tuple(m.shape)}")
+        if m.device != tent.device:
+            raise ValueError("the state's tensors must share a device")
+
+
+def frontier_relax_pull(rplan: RelaxPlan, tent, active):
+    """One relaxation round (W1) over ``rplan``: (out_rows, B) float32,
+    row v the min over its in-edges (u -> v) with ``active[u]`` of
+    ``tent[u] + w`` (+inf without one).  ``tent`` (rows, B) float32 and
+    ``active`` (rows, B) bool cover the plan's source rows."""
+    _check_weighted(tent, active)
+    out_rows = _round_rows(rplan, tent)
+    if not tent.is_cuda:
+        return frontier_relax_pull_ref(rplan, tent, active, out_rows)
+    tent, active = tent.contiguous(), active.contiguous()
+    plan = rplan.plan
+    batch = tent.shape[1]
+    out = torch.empty((out_rows, batch), dtype=torch.float32,
+                      device=tent.device)
+    partial = torch.empty((max(plan.n_items, 1), batch), dtype=torch.float32,
+                          device=tent.device)
+    code = relax_library().relax_pull_launch(
+        plan.offsets.data_ptr(), plan.ids_sorted.data_ptr(),
+        rplan.weight.data_ptr(), plan.item_begin.data_ptr(),
+        plan.item_end.data_ptr(), plan.n_items, plan.split_seg.data_ptr(),
+        plan.split_first.data_ptr(), plan.split_seg.shape[0],
+        tent.data_ptr(), active.data_ptr(), out.data_ptr(),
+        partial.data_ptr(), out_rows, plan.n_segments, plan.split, batch,
+        _build.raw_stream(tent.device))
+    _build.check(code, "relax_pull_kernel launch")
+    weighted_launch_counts[RELAX] += 1
+    return out
+
+
+def dag_sigma_pull(rplan: RelaxPlan, tent, sigma, final):
+    """One round of the DAG count (W2) over ``rplan``: ``(sums,
+    waiting)``, (out_rows, B) float32 and bool.  For a cell (v, b) not
+    ``final`` at its state row ``dst_offset + v``: the sum of
+    ``sigma[u, b]`` over the in-edges on the DAG (``tent[u]`` finite and
+    ``tent[u] + w == tent[v]``), in plan order, and whether one of those
+    u is not final; 0 and False on a final cell."""
+    _check_weighted(tent, final)
+    if sigma.dtype != torch.float32 or sigma.shape != tent.shape:
+        raise TypeError("sigma must be float32 of tent's shape")
+    out_rows = _round_rows(rplan, tent)
+    if not tent.is_cuda:
+        return dag_sigma_pull_ref(rplan, tent, sigma, final, out_rows)
+    tent, sigma = tent.contiguous(), sigma.contiguous()
+    final = final.contiguous()
+    plan = rplan.plan
+    batch = tent.shape[1]
+    dev = tent.device
+    sums = torch.empty((out_rows, batch), dtype=torch.float32, device=dev)
+    waiting = torch.empty((out_rows, batch), dtype=torch.bool, device=dev)
+    n_part = max(plan.n_items, 1)
+    psums = torch.empty((n_part, batch), dtype=torch.float32, device=dev)
+    pwait = torch.empty((n_part, batch), dtype=torch.bool, device=dev)
+    code = relax_library().dag_sigma_pull_launch(
+        plan.offsets.data_ptr(), plan.ids_sorted.data_ptr(),
+        rplan.weight.data_ptr(), plan.item_begin.data_ptr(),
+        plan.item_end.data_ptr(), rplan.item_row.data_ptr(), plan.n_items,
+        plan.split_seg.data_ptr(), plan.split_first.data_ptr(),
+        plan.split_seg.shape[0], tent.data_ptr(), sigma.data_ptr(),
+        final.data_ptr(), sums.data_ptr(), waiting.data_ptr(),
+        psums.data_ptr(), pwait.data_ptr(), out_rows, plan.n_segments,
+        plan.split, batch, rplan.dst_offset, _build.raw_stream(dev))
+    _build.check(code, "dag_sigma_pull_kernel launch")
+    weighted_launch_counts[DAG_SIGMA] += 1
+    return sums, waiting

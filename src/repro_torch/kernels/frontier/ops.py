@@ -36,21 +36,43 @@ tensor, ``"node_blocked"`` without a layout, an edge block over the
 card's shared memory, the plain version forced on a CUDA tensor, or
 more than one of ``csc=``, ``shard=`` and ``shards=``.  Nothing falls
 back quietly.
+
+The weighted lane has two dispatchers of the same contract,
+:func:`frontier_relax` (one min-plus relaxation round) and
+:func:`dag_sigma` (one round of the shortest-path-DAG count); their
+routes (:func:`select_weighted_route`) are
+
+* ``"ref"``            the plain version over the COO edges, CPU only;
+* ``"pull"``           the weighted pull kernel (W1 or W2) over the
+  graph's relax plan (``Graph.relax_plan``, handed in as ``plan``), CUDA;
+* ``"sharded_level_ref"`` / ``"sharded_level"`` with ``shards=``: every
+  held shard's tile from the gathered state, the kernel in one launch
+  over the layout's cached relax plan.
+
+A forced ``lane`` is ``"pull"`` or ``"ref"``; ``"flat"`` and
+``"node_blocked"`` raise (the weighted rounds have no such kernel), as
+does the plain version forced on a CUDA state or the kernel on a CPU one.
 """
 from __future__ import annotations
 
 import torch
 
-from .kernel import (MAX_SMEM_BYTES, frontier_expand_flat,
+from .kernel import (MAX_SMEM_BYTES, RelaxPlan, build_relax_plan,
+                     dag_sigma_pull, frontier_expand_flat,
                      frontier_expand_node_blocked,
-                     frontier_expand_sharded_level, node_blocked_smem_bytes)
-from .ref import (frontier_expand_batched_ref,
+                     frontier_expand_sharded_level, frontier_relax_pull,
+                     node_blocked_smem_bytes)
+from .ref import (dag_round_batched_ref, dag_round_sharded_level_ref,
+                  frontier_expand_batched_ref,
                   frontier_expand_sharded_level_ref,
-                  frontier_expand_sharded_ref)
+                  frontier_expand_sharded_ref, frontier_relax_batched_ref,
+                  frontier_relax_sharded_level_ref)
 
-__all__ = ["LANES", "frontier_expand", "select_route"]
+__all__ = ["LANES", "WEIGHTED_LANES", "dag_sigma", "frontier_expand",
+           "frontier_relax", "select_route", "select_weighted_route"]
 
 LANES = ("flat", "node_blocked", "ref")
+WEIGHTED_LANES = ("pull", "ref")
 
 
 def _check_smem(layout, what: str) -> None:
@@ -162,3 +184,95 @@ def frontier_expand(src, dst, dist, sigma, level, *, csc=None, shard=None,
         # automatic CPU route takes it with or without a layout
         out = frontier_expand_batched_ref(src, dst, d2, s2, lv)
     return out if batched else out[..., 0]
+
+
+# ---------------------------------------------------------------------------
+# The weighted lane
+# ---------------------------------------------------------------------------
+
+def select_weighted_route(*, cuda: bool, shards=None, lane=None) -> str:
+    """The route of :func:`frontier_relax` and :func:`dag_sigma` for a
+    state on a CUDA device (``cuda=True``) or the CPU (module docstring);
+    raises ``ValueError`` when a forced lane cannot be honoured."""
+    if lane is not None and lane not in WEIGHTED_LANES:
+        if lane in LANES:
+            raise ValueError(f"lane {lane!r} has no weighted kernel; the "
+                             "weighted rounds take lane=None, 'pull' or "
+                             "'ref'")
+        raise ValueError(f"unknown lane {lane!r} (expected one of "
+                         f"{WEIGHTED_LANES})")
+    if lane is None:
+        lane = "pull" if cuda else "ref"
+    if lane == "ref" and cuda:
+        raise ValueError("the plain version runs only on CPU tensors; a "
+                         "CUDA state goes through a kernel")
+    if lane == "pull" and not cuda:
+        raise ValueError("lane 'pull' is a CUDA kernel but the state lies "
+                         "on the CPU; use lane=None or 'ref'")
+    if shards is None:
+        return lane
+    return "sharded_level_ref" if lane == "ref" else "sharded_level"
+
+
+def _weighted_layout(layout, what: str):
+    if layout.weight is None:
+        raise ValueError(f"{what} carries no weights")
+    return layout
+
+
+def _graph_plan(src, dst, weight, tent, plan) -> RelaxPlan:
+    if callable(plan):
+        plan = plan()
+    if plan is None:
+        return build_relax_plan(src, dst, weight, tent.shape[0])
+    if plan.plan.ids is not src or plan.plan.seg is not dst \
+            or plan.source_weight is not weight:
+        raise ValueError("the relax plan was not built for these edges and "
+                         "weights")
+    return plan
+
+
+def frontier_relax(src, dst, weight, tent, active, *, shards=None,
+                   lane=None, plan=None):
+    """One min-plus relaxation round (W1's dispatcher): ``tent`` (rows, B)
+    float32 tentative distances, +inf unreached, ``active`` (rows, B) bool
+    the round's bucket; returns the candidates (rows, B), the min over
+    each row's in-edges with an active source of ``tent[u] + w`` (+inf
+    without one).  With ``shards=`` the state is the gathered global one
+    and the result the (n_local_shards, shard_rows, B) stack of the held
+    shards' tiles (the edge operands are not read there; pass None)."""
+    route = select_weighted_route(cuda=tent.is_cuda, shards=shards,
+                                  lane=lane)
+    if route == "ref":
+        return frontier_relax_batched_ref(src, dst, weight, tent, active)
+    if route == "pull":
+        return frontier_relax_pull(_graph_plan(src, dst, weight, tent, plan),
+                                   tent, active)
+    layout = _weighted_layout(shards, "the sharded layout")
+    if route == "sharded_level_ref":
+        return frontier_relax_sharded_level_ref(layout, tent, active)
+    return frontier_relax_pull(layout.relax_plan(), tent, active).view(
+        layout.n_local_shards, layout.shard_rows, tent.shape[1])
+
+
+def dag_sigma(src, dst, weight, tent, sigma, final, *, shards=None,
+              lane=None, plan=None):
+    """One round of the shortest-path-DAG count (W2's dispatcher) on
+    converged ``tent``: ``(sums, waiting)``, for every cell not ``final``
+    the sum of ``sigma`` over its on-DAG in-neighbours and whether one of
+    them is not final; 0 and False on final cells.  ``shards=`` takes
+    the gathered global state as :func:`frontier_relax` does."""
+    route = select_weighted_route(cuda=tent.is_cuda, shards=shards,
+                                  lane=lane)
+    if route == "ref":
+        return dag_round_batched_ref(src, dst, weight, tent, sigma, final)
+    if route == "pull":
+        return dag_sigma_pull(_graph_plan(src, dst, weight, tent, plan), tent,
+                              sigma, final)
+    layout = _weighted_layout(shards, "the sharded layout")
+    if route == "sharded_level_ref":
+        return dag_round_sharded_level_ref(layout, tent, sigma, final)
+    sums, waiting = dag_sigma_pull(layout.relax_plan(), tent, sigma, final)
+    shape = (layout.n_local_shards, layout.shard_rows, tent.shape[1])
+    return sums.view(shape), waiting.view(shape)
+

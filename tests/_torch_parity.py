@@ -14,13 +14,21 @@ _CSC_INTS = ("block_v", "block_e", "n_node_blocks", "n_edge_blocks",
              "n_nodes", "n_src_blocks")
 
 
+def _weight(obj):
+    w = getattr(obj, "weight", None)
+    return None if w is None else np.asarray(w)
+
+
 def to_port(jgraph, device="cpu"):
-    """The port's ``Graph`` over exactly the JAX graph's arrays."""
+    """The port's ``Graph`` over exactly the JAX graph's arrays, its
+    weights and its layout's included."""
     arrays = {k: np.asarray(getattr(jgraph, k)) for k in _GRAPH_ARRAYS}
+    arrays["weight"] = _weight(jgraph)
     csc = None
     if jgraph.csc is not None:
         csc = {k: np.asarray(getattr(jgraph.csc, k)) for k in _CSC_ARRAYS}
         csc.update({k: getattr(jgraph.csc, k) for k in _CSC_INTS})
+        csc["weight"] = _weight(jgraph.csc)
     return graph_from_numpy(arrays, jgraph.n_nodes, jgraph.n_edges,
                             jgraph.max_degree, csc, device=device)
 
@@ -32,17 +40,17 @@ _SHARD_INTS = ("block_v", "block_e", "blocks_per_shard", "n_edge_blocks",
 
 def partitioned_to_port(jpg, device="cpu"):
     """The port's ``PartitionedGraph`` over exactly the JAX partition's
-    arrays (a weighted one raises in the port)."""
+    arrays, the replicated and the layout's weights included."""
     shards = {k: np.asarray(getattr(jpg.shards, k)) for k in _SHARD_ARRAYS}
     shards.update({k: getattr(jpg.shards, k) for k in _SHARD_INTS})
+    shards["weight"] = _weight(jpg.shards)
     return partitioned_from_numpy(
         {k: np.asarray(getattr(jpg, k)) for k in ("indptr", "indices",
                                                   "degree")},
         shards, jpg.n_nodes, jpg.n_edges, jpg.max_degree,
         exchange_budget=jpg.exchange_budget,
         exchange_budget_auto=jpg.exchange_budget_auto,
-        weight=None if jpg.weight is None else np.asarray(jpg.weight),
-        device=device)
+        weight=_weight(jpg), device=device)
 
 
 def np_(x):

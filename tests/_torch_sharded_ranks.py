@@ -15,8 +15,10 @@ from repro_torch.checkpoint import CheckpointSchemaError
 from repro_torch.core import (AdaptiveConfig, GroupShardMesh,
                               bfs_sssp_batched_sharded,
                               bidirectional_bfs_batched_sharded,
-                              from_edge_list, partition_graph, run_adaptive,
-                              run_fixed, run_kadabra)
+                              delta_sssp_batched_sharded, from_edge_list,
+                              partition_graph, run_adaptive, run_fixed,
+                              run_kadabra, symmetric_dyadic_weights,
+                              with_weights)
 from repro_torch.core.bfs import _expand_level_sharded, _init_state_sharded
 from repro_torch.core.engine import _sharded_diameter
 
@@ -31,6 +33,11 @@ FORWARD = dict(eps=0.1, delta=0.1, n0_base=200, sample_batch_size=128)
 FIXED_N, FIXED_SEED, FIXED_BATCH = 40, 3, 8
 FIXED_METRICS = {"bidir": ("betweenness",),
                  "forward": ("closeness", "betweenness")}
+# the weighted lane's group runs (tests/test_torch_weighted_engine.py):
+# 4 shards of 16 rows, a few 64-sample batches an epoch
+WEIGHTED_BLOCKS = dict(block_v=8, block_e=128)
+WEIGHTED = dict(eps=0.1, delta=0.1, n0_base=200, sample_batch_size=64)
+WEIGHTED_METRICS = ("betweenness", "closeness")
 
 
 def kadabra_dict(res) -> dict:
@@ -182,3 +189,36 @@ def split_loop(rank, edges, n_nodes):
         pg, [0, 1], [n_nodes - 1, n_nodes // 2], mesh=mesh,
         max_levels=1 if rank == 1 else None)
     return res.n_iters
+
+
+def weighted_graph(edges, n_nodes, wseed):
+    """The weighted lane's test graph: the edges with
+    ``symmetric_dyadic_weights(seed=wseed)``, the same on every rank."""
+    g = from_edge_list(edges, n_nodes, device=CPU)
+    return with_weights(g, symmetric_dyadic_weights(g, seed=wseed))
+
+
+def weighted_suite(rank, edges, n_nodes, wseed, sources):
+    """tests/test_torch_weighted_engine.py's group runs on this rank of a
+    4-rank gloo group, each rank holding its own shard: one weighted
+    search, an adaptive run and a fixed run on the weighted stream (one
+    intra-op thread: the cases are small)."""
+    torch.set_num_threads(1)
+    mesh = GroupShardMesh(CPU)
+    g = weighted_graph(edges, n_nodes, wseed)
+    pg = partition_graph(g, mesh.n_shards, shard=rank, **WEIGHTED_BLOCKS)
+    res = delta_sssp_batched_sharded(pg, sources, mesh=mesh)
+    out = {"sssp": {**_gathered(mesh, res, ("dist", "sigma")),
+                    "levels": res.levels.numpy(),
+                    "buckets": res.buckets.numpy(), "n_iters": res.n_iters,
+                    "n_dag_rounds": res.n_dag_rounds,
+                    "exchange": res.exchange.tolist()}}
+    run = run_adaptive(pg, WEIGHTED_METRICS, stream="weighted", seed=2,
+                       mesh=mesh, config=AdaptiveConfig(**WEIGHTED))
+    out["adaptive"] = {**adaptive_dict(run), "bfs_levels": run.bfs_levels,
+                       "dag_rounds": run.dag_rounds,
+                       "distance_cap": run.distance_cap}
+    out["fixed"] = fixed_list(run_fixed(
+        pg, FIXED_N, metrics=WEIGHTED_METRICS, stream="weighted",
+        seed=FIXED_SEED, batch_size=FIXED_BATCH, mesh=mesh))
+    return out

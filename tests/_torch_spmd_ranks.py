@@ -13,7 +13,8 @@ import torch
 
 from repro_torch.checkpoint import CheckpointSchemaError, latest_step
 from repro_torch.core import (AdaptiveConfig, SamplerMesh, from_edge_list,
-                              run_adaptive, run_fixed, run_kadabra)
+                              run_adaptive, run_fixed, run_kadabra,
+                              symmetric_dyadic_weights, with_weights)
 from repro_torch.core.distributed import (AGGREGATIONS, allreduce_ints,
                                           assert_replicated)
 
@@ -148,3 +149,22 @@ def spmd_suite(rank, edges, n_nodes, ckpt_root, eps, resume_eps):
     except RuntimeError as e:
         out["split_refused"] = str(e)
     return out
+
+
+def weighted_spmd(rank, edges, n_nodes, wseed):
+    """tests/test_torch_weighted_engine.py's SPMD run on this rank of a
+    2-rank gloo group: the weighted stream in the hierarchical mode (one
+    intra-op thread: the case is small)."""
+    torch.set_num_threads(1)
+    g = from_edge_list(edges, n_nodes, device=CPU)
+    g = with_weights(g, symmetric_dyadic_weights(g, seed=wseed))
+    mesh = SamplerMesh((2,), ("data",), CPU)
+    res = run_adaptive(g, ("betweenness", "harmonic"), stream="weighted",
+                       seed=1, mesh=mesh,
+                       config=AdaptiveConfig(eps=0.1, delta=0.1,
+                                             n0_base=200))
+    return {"tau": res.tau, "n_epochs": res.n_epochs,
+            "vertex_diameter": res.vertex_diameter,
+            "distance_cap": res.distance_cap,
+            "reports": [(r.name, r.scores, r.tau, r.stop_epoch)
+                        for r in res.reports]}

@@ -162,16 +162,24 @@ def test_explicit_eps_delta_override_config():
         float(tc.compute_omega(res.vertex_diameter, 0.2, 0.3)))
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    ({"checkpoint_dir": "ckpt", "on_epoch": print}, "item 14"),
-    ({"on_epoch": print}, "item 14"),
-    ({"telemetry": "trace.jsonl"}, "item 14"),
-    ({"stream": "weighted"}, "item 13"),
-    ({"metrics": ("harmonic",), "stream": "weighted"}, "item 13"),
+@pytest.mark.parametrize("kwargs,error,match", [
+    pytest.param({"checkpoint_dir": "ckpt", "on_epoch": print},
+                 NotImplementedError, "item 14", id="kwargs0-item 14"),
+    pytest.param({"on_epoch": print}, NotImplementedError, "item 14",
+                 id="kwargs1-item 14"),
+    pytest.param({"telemetry": "trace.jsonl"}, NotImplementedError,
+                 "item 14", id="kwargs2-item 14"),
+    # item 13's weighted stream is ported: on a graph without weights it
+    # raises before a draw
+    pytest.param({"stream": "weighted"}, ValueError, "needs a graph with "
+                 "weights", id="kwargs3-item 13"),
+    pytest.param({"metrics": ("harmonic",), "stream": "weighted"},
+                 ValueError, "needs a graph with weights",
+                 id="kwargs4-item 13"),
 ])
-def test_unported_options_raise(kwargs, item):
+def test_unported_options_raise(kwargs, error, match):
     graph = tc.grid_graph(3, 3, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=match):
         tc.run_adaptive(graph, device="cpu", **kwargs)
     assert not os.path.exists("ckpt")
 

@@ -216,3 +216,35 @@ def test_scaling_example_runs_on_the_cpu(capsys, monkeypatch):
     out = capsys.readouterr().out
     assert out.rstrip().endswith("OK") and out.count("the same bits: True") \
         == 3
+
+
+def test_guard_walks_the_weighted_slice():
+    """The import guard reaches the weighted lane's modules (the relax
+    kernels' wrappers, dispatchers and plain versions beside the BFS
+    ones), its CUDA source is in the package, and the card's phase
+    script and the ranks' helpers import no JAX; without a card the
+    weighted entry points raise unless the CPU is asked for."""
+    assert {"repro_torch.kernels.frontier.kernel",
+            "repro_torch.kernels.frontier.ops",
+            "repro_torch.kernels.frontier.ref", "repro_torch.core.bfs",
+            "repro_torch.core.sampler", "repro_torch.core.diameter",
+            "repro_torch.core.engine"} <= set(_submodules())
+    assert (SRC / "kernels" / "frontier" / "csrc" / "relax.cu").exists()
+    root = SRC.parents[1]
+    for path in (root / "tools" / "weighted_phase.py",
+                 root / "tests" / "_torch_spmd_ranks.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, (ast.Import, ast.ImportFrom)):
+                names = ([a.name for a in node.names]
+                         if isinstance(node, ast.Import)
+                         else [node.module or ""])
+                assert not any(n.split(".")[0] in ("jax", "jaxlib", "repro")
+                               for n in names), (path.name, node.lineno)
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    g = tc.grid_graph(4, 4, device="cpu")
+    g = tc.with_weights(g, torch.ones(g.n_edges))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tc.run_adaptive(g, stream="weighted")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tc.run_fixed(g, 4, stream="weighted")

@@ -975,3 +975,227 @@ def test_smoke_config_prefill_runs_the_kernel_once_a_global_layer(cuda):
     n_global = sum(kind != "local" for _, kind in lm._layers(params, cfg))
     assert fa.launch_counts[fa.FLASHATTN] == n_global == cfg.n_layers
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The weighted lane's kernels: W1 (min-plus relaxation), W2 (DAG count)
+# ---------------------------------------------------------------------------
+
+def _weighted(graph, seed=0):
+    return tc.with_weights(graph, tc.symmetric_dyadic_weights(graph,
+                                                              seed=seed))
+
+
+def _relax_state(graph, batch, seed):
+    """A mid-search state on the CPU: tentative distances of a finished
+    search with a random third set back to +inf, and a random bucket
+    (some of it on +inf rows, which must give +inf)."""
+    gen = torch.Generator().manual_seed(seed)
+    # sources with a neighbour (an R-MAT has isolated vertices)
+    linked = torch.nonzero(graph.degree > 0)[:, 0]
+    sources = linked[torch.randint(0, linked.shape[0], (batch,),
+                                   generator=gen)].to(torch.int32)
+    res = tc.delta_sssp_batched(graph, sources)
+    tent = torch.where(res.dist >= 0, res.dist, float("inf"))
+    tent = torch.where(torch.rand(tent.shape, generator=gen) < 0.3,
+                       float("inf"), tent).contiguous()
+    active = torch.rand(tent.shape, generator=gen) < 0.4
+    return res, tent, active
+
+
+@pytest.mark.parametrize("batch", [1, 8, 33, 64, 96])
+@pytest.mark.parametrize("split", [tf.PULL_SPLIT, 5])
+def test_relax_kernel_matches_plain(cuda, batch, split):
+    """W1 at B = 1 .. 96 (1 or 4 columns a lane), hub rows cut into
+    items at ``split``, rows past the plan's +inf: bitwise its plain
+    versions (min is exact) over the plan and over the COO edges, one
+    launch."""
+    cpu = _weighted(tc.rmat_graph(10, 8, seed=4, device="cpu"), seed=batch)
+    _res, tent, active = _relax_state(cpu, batch, seed=split)
+    tent = torch.cat([tent, tent.new_full((5, batch), float("inf"))])
+    active = torch.cat([active, active.new_ones((5, batch))])
+    graph = cpu.to(cuda)
+    plan = tf.build_relax_plan(graph.src, graph.dst, graph.weight,
+                               graph.n_nodes + 1, split=split)
+    assert split == tf.PULL_SPLIT or plan.plan.n_items > 0
+    tf.reset_launch_counts()
+    got = tf.frontier_relax_pull(plan, tent.to(cuda), active.to(cuda))
+    torch.cuda.synchronize()
+    assert tf.weighted_launch_counts[tf.RELAX] == 1
+    cplan = tf.build_relax_plan(cpu.src, cpu.dst, cpu.weight,
+                                cpu.n_nodes + 1, split=split)
+    want = tf.frontier_relax_pull_ref(cplan, tent, active, tent.shape[0])
+    coo = tf.frontier_relax_batched_ref(cpu.src, cpu.dst, cpu.weight, tent,
+                                        active)
+    assert torch.equal(want, coo)
+    assert torch.equal(got.cpu(), want)
+    assert bool(torch.isfinite(want).any())
+    assert not bool(torch.isfinite(got[cpu.n_nodes:]).any())
+
+
+def test_relax_kernel_on_a_star_hub_and_isolated_rows(cuda):
+    """A hub over 3 splits (items and the combine) beside isolated
+    vertices: the hub's row is the min over its items, an isolated row
+    +inf."""
+    leaves = 3 * tf.PULL_SPLIT + 17
+    ids = torch.arange(1, leaves + 1)
+    cpu = tc.from_edge_list(torch.stack([torch.zeros_like(ids), ids], 1),
+                            leaves + 40, device="cpu")
+    cpu = _weighted(cpu, seed=3)
+    gen = torch.Generator().manual_seed(0)
+    tent = (torch.randint(0, 64, (cpu.n_nodes + 1, 8), generator=gen)
+            / 16.0).float()
+    active = torch.rand(tent.shape, generator=gen) < 0.5
+    graph = cpu.to(cuda)
+    plan = graph.relax_plan()
+    assert plan.plan.n_items == 4
+    got = tf.frontier_relax_pull(plan, tent.to(cuda), active.to(cuda))
+    want = tf.frontier_relax_batched_ref(cpu.src, cpu.dst, cpu.weight, tent,
+                                         active)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert bool(torch.isfinite(want[0]).all())
+    assert not bool(torch.isfinite(want[leaves + 1: cpu.n_nodes]).any())
+
+
+def _dag_state(graph, batch, seed):
+    """Converged distances, a random final mask over the reached cells
+    and non-integer sigma: what one DAG round may see."""
+    res, _t, _a = _relax_state(graph, batch, seed)
+    tent = torch.where(res.dist >= 0, res.dist, float("inf")).contiguous()
+    gen = torch.Generator().manual_seed(seed + 1)
+    final = (torch.rand(tent.shape, generator=gen) < 0.5) \
+        | ~torch.isfinite(tent)
+    sigma = (torch.rand(tent.shape, generator=gen) * 7.0).contiguous()
+    return tent, sigma, final
+
+
+@pytest.mark.parametrize("batch", [1, 8, 33, 64, 96])
+@pytest.mark.parametrize("split", [tf.PULL_SPLIT, 5])
+def test_dag_kernel_matches_plain(cuda, batch, split):
+    """W2 at B = 1 .. 96 on non-integer sigma: bitwise its plan-order
+    plain version (each row's in-edges in plan order, a cut row's
+    partials in item order), the same bits twice, the waiting bits
+    equal; one launch."""
+    cpu = _weighted(tc.rmat_graph(10, 8, seed=5, device="cpu"), seed=batch)
+    tent, sigma, final = _dag_state(cpu, batch, seed=split)
+    graph = cpu.to(cuda)
+    plan = tf.build_relax_plan(graph.src, graph.dst, graph.weight,
+                               graph.n_nodes + 1, split=split)
+    args = (tent.to(cuda), sigma.to(cuda), final.to(cuda))
+    tf.reset_launch_counts()
+    a = tf.dag_sigma_pull(plan, *args)
+    b = tf.dag_sigma_pull(plan, *args)
+    torch.cuda.synchronize()
+    assert tf.weighted_launch_counts[tf.DAG_SIGMA] == 2
+    cplan = tf.build_relax_plan(cpu.src, cpu.dst, cpu.weight,
+                                cpu.n_nodes + 1, split=split)
+    want = tf.dag_sigma_pull_ref(cplan, tent, sigma, final, tent.shape[0])
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert torch.equal(a[0].cpu(), want[0])
+    assert torch.equal(a[1].cpu(), want[1])
+    assert bool(want[1].any()) and bool((want[0] > 0).any())
+    assert not bool(a[0][final.to(cuda)].any())
+
+
+def test_dag_kernel_on_a_star_hub(cuda):
+    """Every leaf on the hub's DAG (unit weights from the hub's source):
+    the hub row of a leaf-rooted search sums over its items through the
+    combine, in item order."""
+    leaves = 3 * tf.PULL_SPLIT + 17
+    ids = torch.arange(1, leaves + 1)
+    cpu = tc.from_edge_list(torch.stack([torch.zeros_like(ids), ids], 1),
+                            leaves + 1, device="cpu")
+    cpu = tc.with_weights(cpu, torch.ones(cpu.n_edges))
+    tent = torch.full((cpu.n_nodes + 1, 4), float("inf"))
+    tent[1:leaves + 1] = 1.0
+    tent[0] = 2.0
+    final = ~torch.isfinite(tent)
+    final[1:leaves + 1] = True
+    sigma = torch.rand(tent.shape, generator=torch.Generator().manual_seed(
+        2))
+    graph = cpu.to(cuda)
+    got = tf.dag_sigma_pull(graph.relax_plan(), tent.to(cuda),
+                            sigma.to(cuda), final.to(cuda))
+    want = tf.dag_sigma_pull_ref(cpu.relax_plan(), tent, sigma, final,
+                                 tent.shape[0])
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    assert bool((want[0][0] > 0).all()) and not bool(want[1].any())
+
+
+@pytest.mark.parametrize("shard", [None, 0, 3])
+def test_weighted_sharded_level_kernels_match_plain(cuda, shard):
+    """W1 and W2 over a weighted sharded layout (whole, or one rank's
+    local one) from the gathered state: one launch each for every held
+    shard, bitwise the per-shard plain versions."""
+    cpu = _weighted(tc.rmat_graph(10, 8, seed=6, device="cpu"), seed=1)
+    kw = dict(block_v=64, block_e=128, shard=shard)
+    pg_cpu = tc.partition_graph(cpu, 4, **kw)
+    pg = tc.partition_graph(cpu.to(cuda), 4, **kw)
+    _res, tent, active = _relax_state(cpu, 64, seed=2)
+    pad = pg.v_pad - tent.shape[0]
+    tent = torch.cat([tent, tent.new_full((pad, 64), float("inf"))])
+    active = torch.cat([active, active.new_zeros((pad, 64))])
+    tf.reset_launch_counts()
+    got = tf.frontier_relax(None, None, None, tent.to(cuda), active.to(cuda),
+                            shards=pg.shards)
+    want = tf.frontier_relax(None, None, None, tent, active,
+                             shards=pg_cpu.shards)
+    dt, sigma, final = _dag_state(cpu, 64, seed=3)
+    dt = torch.cat([dt, dt.new_full((pad, 64), float("inf"))])
+    sigma = torch.cat([sigma, sigma.new_zeros((pad, 64))])
+    final = torch.cat([final, final.new_ones((pad, 64))])
+    gs, gw = tf.dag_sigma(None, None, None, dt.to(cuda), sigma.to(cuda),
+                          final.to(cuda), shards=pg.shards)
+    ws, ww = tf.dag_sigma(None, None, None, dt, sigma, final,
+                          shards=pg_cpu.shards)
+    torch.cuda.synchronize()
+    assert tf.weighted_launch_counts == {tf.RELAX: 1, tf.DAG_SIGMA: 1}
+    assert torch.equal(got.cpu(), want) and torch.equal(gw.cpu(), ww)
+    assert torch.equal(gs.cpu(), ws)
+    assert got.shape == (pg.shards.n_local_shards, pg.shard_rows, 64)
+
+
+def test_weighted_search_on_the_card_matches_the_cpu(cuda):
+    """delta_sssp_batched on the card (every round through W1, every DAG
+    round through W2) gives the CPU's dist, sigma, levels and buckets on
+    a weighted grid; the 64 x 64 unit grid's levels are the BFS's 126."""
+    unit = tc.grid_graph(64, 64, device="cpu")
+    for cpu, delta in ((_weighted(tc.grid_graph(30, 20, device="cpu")),
+                        None),
+                       (tc.with_weights(unit, torch.ones(unit.n_edges)),
+                        1.0)):
+        graph = cpu.to(cuda)
+        sources = torch.tensor([0, 7, 99, 311], dtype=torch.int32)
+        tf.reset_launch_counts()
+        got = tc.delta_sssp_batched(graph, sources.to(cuda), delta=delta)
+        torch.cuda.synchronize()
+        assert tf.weighted_launch_counts == {tf.RELAX: got.n_iters,
+                                             tf.DAG_SIGMA: got.n_dag_rounds}
+        want = tc.delta_sssp_batched(cpu, sources, delta=delta)
+        for f in ("dist", "sigma", "levels", "buckets"):
+            assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    assert int(got.levels[0]) == 126
+
+
+def test_weighted_run_on_the_card(cuda):
+    """run_adaptive on the weighted stream: every relaxation round one
+    W1 launch, every DAG round one W2 launch, one stop check a metric an
+    epoch; finite scores."""
+    import numpy as np
+    graph = _weighted(tc.hyperbolic_graph(300, 8, seed=2, device=cuda))
+    tf.reset_launch_counts()
+    ts.reset_launch_counts()
+    res = tc.run_adaptive(graph, ("betweenness", "closeness"),
+                          stream="weighted", eps=0.1, device=cuda)
+    torch.cuda.synchronize()
+    assert tf.weighted_launch_counts == {tf.RELAX: res.bfs_levels,
+                                         tf.DAG_SIGMA: res.dag_rounds}
+    assert res.bfs_levels > 0 and res.dag_rounds > 0
+    assert tf.launch_counts[tf.FLAT] == tf.launch_counts[tf.WORDS] == 0
+    assert ts.launch_counts[ts.STOPCHECK] == 2 * res.n_epochs
+    assert res.distance_cap > 0
+    for rep in res.reports:
+        assert np.isfinite(rep.scores).all()

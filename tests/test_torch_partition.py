@@ -4,7 +4,6 @@ equals JAX's ``partition_graph``; the exchange budget, its plan and the
 owner maps follow the same rules; ``gather_graph`` and ``repartition``
 rebuild what JAX's do."""
 import dataclasses
-from types import SimpleNamespace
 
 import networkx as nx
 import numpy as np
@@ -185,14 +184,34 @@ def test_default_blocking_is_the_cards():
 
 
 def test_weighted_partition_raises():
+    """A weighted partition crosses over with both its weights (the
+    replicated CSR ones and the layout's bucketed ones) and equals the
+    port's own; one without the other raises."""
     jgraph = jc.with_weights(jc.grid_graph(8, 8),
-                             np.ones(jc.grid_graph(8, 8).n_edges,
-                                     np.float32))
+                             np.arange(1, jc.grid_graph(8, 8).n_edges + 1,
+                                       dtype=np.float32) / 16)
     jpg = jc.partition_graph(jgraph, 2, block_v=16, block_e=128)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        partitioned_to_port(jpg)
-    weighted = SimpleNamespace(weight=np.ones(4, np.float32))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tc.partition_graph(weighted, 2)
+    pg = partitioned_to_port(jpg)
+    own = tc.partition_graph(to_port(jgraph), 2, block_v=16, block_e=128)
+    for a, b in ((pg.weight, jpg.weight), (pg.shards.weight,
+                                           jpg.shards.weight),
+                 (own.weight, jpg.weight),
+                 (own.shards.weight, jpg.shards.weight)):
+        np.testing.assert_array_equal(np_(a), np_(b))
+    np.testing.assert_array_equal(np_(tc.gather_graph(own).weight),
+                                  np_(jgraph.weight))
+    np.testing.assert_array_equal(
+        np_(tc.repartition(own, 4).shards.weight),
+        np_(tc.partition_graph(to_port(jgraph), 4).shards.weight))
+    arrays = {k: np_(getattr(jpg, k)) for k in ("indptr", "indices",
+                                                "degree")}
+    shards = {k: np_(getattr(jpg.shards, k))
+              for k in ("src", "dst", "block_nb", "block_sb", "block_first",
+                        "block_v", "block_e", "blocks_per_shard",
+                        "n_edge_blocks", "n_shards", "n_nodes")}
+    with pytest.raises(ValueError, match="both"):
+        tc.partitioned_from_numpy(arrays, shards, jpg.n_nodes, jpg.n_edges,
+                                  jpg.max_degree, weight=np_(jpg.weight),
+                                  device="cpu")
     with pytest.raises(ValueError, match="n_shards"):
         tc.partition_graph(to_port(jc.grid_graph(4, 4)), 0)

@@ -159,9 +159,10 @@ def test_schema_stamp_names_lane_generator_and_metrics(tmp_path):
     manifest = json.loads(
         open(os.path.join(ck, "step_00000001", "manifest.json")).read())
     want = frame_schema_id([get_estimator("betweenness")], lane="single",
-                           generator="cpu")
+                           generator="cpu", stream="bidir")
     assert manifest["schema"] == want
-    assert want == "epoch-state-torch-v1:single:cpu:betweenness[path_counts]"
+    assert want == ("epoch-state-torch-v1:single:cpu:bidir:"
+                    "betweenness[path_counts]")
     assert manifest["n_leaves"] == 10
     assert manifest["metadata"] == {"epoch": 1, "done": False}
 

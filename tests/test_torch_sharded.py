@@ -346,10 +346,12 @@ def test_sharded_lane_raises():
     with pytest.raises(TypeError, match="SamplerMesh"):
         tc.run_fixed(g, 8, mesh=mesh, device=CPU)
     for kw, item in ((dict(on_epoch=print), "item 14"),
-                     (dict(telemetry="t.jsonl"), "item 14"),
-                     (dict(stream="weighted"), "item 13")):
+                     (dict(telemetry="t.jsonl"), "item 14")):
         with pytest.raises(NotImplementedError, match=item):
             tc.run_adaptive(pg, mesh=mesh, **kw)
+    # the weighted stream (item 13) needs a partition with weights
+    with pytest.raises(ValueError, match="needs a graph with weights"):
+        tc.run_adaptive(pg, mesh=mesh, stream="weighted")
     with pytest.raises(ValueError, match="n_shards"):
         ShardMesh(0, CPU)
 
