@@ -223,7 +223,33 @@ any failed phase.  Phases:
    distance-ordered DP, normalized by n(n-1), ``weighted_brandes``).
    (d) R5: the 64 x 64 grid with unit weights, delta 1, from corner 0:
    levels 126, the BFS lane's (through K1), dist and buckets equal, and
-   sigma within 1e-5 relative of the BFS lane's.
+   sigma within 1e-5 relative of the BFS lane's;
+19. the runtime (``repro_torch.runtime``), after [18]: (a) [4]'s run again
+   with the telemetry bus on (a ring and a JSONL sink, every event
+   validated): btilde, tau and epochs bitwise [4]'s, its launch counts
+   [4]'s; the JSONL re-read and validated, its ``run.end`` tau and its
+   ``epoch.stats`` count the result's; a Chrome trace written and
+   parsed; its seconds beside [4]'s.  (b) ``ResilientRunner`` on the
+   same run, ``checkpoint_every=1``, through kill at epoch 2, nan at 3,
+   hang at 4 (RUNTIME_HANG s against an epoch timeout of
+   RUNTIME_EPOCH_TIMEOUT s), corrupt at 5 and truncate at 6: every fault
+   fired, btilde and tau bitwise [4]'s, the two damaged steps
+   quarantined on disk, the event log naming InvariantViolation and
+   EpochTimeoutError; each attempt's replayed phases 1-2 and re-run
+   epochs, and the seconds a failure costs, logged.  (c) The ladder on
+   one card: [14]'s R-MAT in 8 shards on ``ShardMesh(8)`` shrinks to 4
+   shards at epoch 3, kills at 4 and 5 exhaust that rung (one retry) and
+   it degrades to the single lane: within 2 eps of [4]'s btilde, the
+   final run's tau never falling; hyperbolic(1000) in 8 shards the same
+   way within HYPER_EPS of exact Brandes.  (d) The ladder across
+   processes: RUNTIME_RANKS ranks spawned on the card in a gloo group,
+   hyperbolic(1000) on ``GroupShardMesh(4)`` shrinks to 2 ranks at epoch
+   2, kills degrade it to ``SamplerMesh(2)`` and then to the single
+   lane: ranks 2-3 end in ``DeviceLoss``, ranks 0-1 bitwise alike and
+   within HYPER_EPS of exact Brandes (a rank that raises anything else,
+   or a group that outlasts GROUP_TIMEOUT, fails the smoke).  (e) Last,
+   ``torch_profiler_trace`` around one hyperbolic(1000) run: its trace
+   file parses, and its record count is logged.
 
 Every run resets the launch counts just before it and reads them just
 after: each kernel of the run must have carried all of its work.
@@ -373,6 +399,15 @@ WEIGHTED_EPS, WER_EPS, WGRID_SIDE = 0.03, 0.05, 64
 GROUP_SETTINGS = ("DEVICE", "SEED", "RMAT_SCALE", "EDGE_FACTOR", "BATCH",
                   "MAIN_EPS", "MAIN_DELTA", "HYPER_N", "HYPER_EPS",
                   "HYPER_BLOCK_V", "GROUP_SHARDS", "GROUP_MAX_EPOCHS")
+# the runtime ([19]): (b)'s hang sleeps RUNTIME_HANG s against an epoch
+# timeout of RUNTIME_EPOCH_TIMEOUT s (an epoch of [4] takes ~0.7 s); the
+# ladders' hyperbolic runs draw RUNTIME_HYPER_N0 samples an epoch (n0_base
+# cut from 1000, so that they last past their last fault, the fifth or
+# sixth epoch); (d) spawns RUNTIME_RANKS ranks on the one card
+RUNTIME_HANG, RUNTIME_EPOCH_TIMEOUT = 4.0, 2.5
+RUNTIME_HYPER_N0, RUNTIME_RANKS = 250, 4
+RUNTIME_SETTINGS = ("DEVICE", "SEED", "HYPER_N", "HYPER_EPS",
+                    "HYPER_BLOCK_V", "RUNTIME_HYPER_N0", "RUNTIME_RANKS")
 
 
 def load_main_config() -> None:
@@ -3790,6 +3825,361 @@ def phase_weighted():
     return rows, paths
 
 
+def attempt_costs(events) -> list:
+    """A telemetry stream cut at each ``run.start``: each attempt's
+    phases 1-2 seconds, and its epochs (number, seconds, error or None)
+    from the ``phase.epoch`` spans, an epoch refused by its hook
+    included."""
+    attempts, begins = [], {}
+    for e in events:
+        if e.kind == "run.start":
+            attempts.append({"phases_s": 0.0, "epochs": []})
+        elif e.kind == "span.begin":
+            begins[e.span] = e
+        elif e.kind == "span.end" and attempts and e.span in begins:
+            name = e.fields["name"]
+            if name in ("phase.diameter", "phase.calibration"):
+                attempts[-1]["phases_s"] += e.fields["seconds"]
+            elif name == "phase.epoch":
+                attempts[-1]["epochs"].append(
+                    (begins[e.span].fields["epoch"], e.fields["seconds"],
+                     e.fields.get("error")))
+    return attempts
+
+
+def ladder_summary(out) -> str:
+    """A ResilientRunner result's path down the ladder, for the log."""
+    steps = [e.detail for e in out.events
+             if e.kind in ("shrink", "degrade", "migrate")]
+    return "; ".join(steps)
+
+
+def check_ladder(label: str, out, sched, lanes) -> None:
+    """The run walked ``lanes`` (the shrink and degrade details), fired
+    its whole schedule, ended on the single lane converged, and the final
+    run's tau never fell."""
+    if not sched.exhausted:
+        raise AssertionError(f"{label}: faults left unfired: "
+                             f"{[s for s in sched]}")
+    walked = [e.detail for e in out.events if e.kind in ("shrink",
+                                                         "degrade")]
+    if walked != lanes:
+        raise AssertionError(f"{label}: the ladder went {walked}, not "
+                             f"{lanes}")
+    taus = [st.tau for st in out.result.stats]
+    if out.lane != "single" or not out.result.converged \
+            or taus != sorted(taus):
+        raise AssertionError(f"{label}: ended on {out.lane}, converged "
+                             f"{out.result.converged}, taus {taus}")
+
+
+def runtime_rank(rank: int, work: str, settings: dict) -> dict:
+    """[19d] on one rank of the spawned gloo group, on the card:
+    hyperbolic(HYPER_N) in RUNTIME_RANKS shards, one a rank
+    (``GroupShardMesh``), under ``ResilientRunner``: a shrink to 2 ranks
+    at epoch 2, then kills that exhaust the GroupShardMesh(2) and
+    SamplerMesh(2) rungs (one retry each).  A rank lost in the shrink
+    returns its ``DeviceLoss``; the others their result and events.
+    ``settings`` are the parent's RUNTIME_SETTINGS."""
+    import torch
+    from repro_torch.core import (AdaptiveConfig, GroupShardMesh,
+                                  hyperbolic_graph, partition_graph)
+    from repro_torch.kernels.frontier import kernel as frontier
+    from repro_torch.kernels.stopcheck import kernel as stopcheck
+    from repro_torch.runtime import (DeviceLoss, FaultSchedule, FaultSpec,
+                                     JSONLSink, ResilientRunner,
+                                     RetryPolicy, Telemetry, read_jsonl)
+    globals().update(settings)
+    if torch.device(DEVICE).type == "cuda":
+        torch.cuda.set_device(0)
+        frontier.library(), stopcheck.library()     # the parent's builds
+    mesh = GroupShardMesh(DEVICE)
+    hyper = hyperbolic_graph(HYPER_N, seed=SEED, device=DEVICE)
+    pg = partition_graph(hyper, RUNTIME_RANKS, block_v=HYPER_BLOCK_V,
+                         shard=rank)
+    sched = FaultSchedule([FaultSpec("shrink", 2, survivors=2),
+                           FaultSpec("kill", 3), FaultSpec("kill", 4),
+                           FaultSpec("kill", 5), FaultSpec("kill", 6)])
+    trace = os.path.join(work, f"ladder-rank{rank}.jsonl")
+    sink = JSONLSink(trace)
+    runner = ResilientRunner(
+        pg, mesh=mesh, checkpoint_dir=os.path.join(work, "group_ladder"),
+        config=AdaptiveConfig(eps=HYPER_EPS, delta=0.1,
+                              n0_base=RUNTIME_HYPER_N0),
+        seed=SEED, schedule=sched,
+        policy=RetryPolicy(max_retries=1, backoff_base=0.01,
+                           backoff_cap=0.01),
+        telemetry=Telemetry([sink], validate=True))
+    t0 = time.perf_counter()
+    out = {"rank": rank}
+    try:
+        res = runner.run()
+    except DeviceLoss as e:
+        out["device_loss"] = str(e)
+    else:
+        out.update(scores=res.result.reports[0].scores, tau=res.result.tau,
+                   n_epochs=res.result.n_epochs, lane=res.lane,
+                   converged=res.result.converged, attempts=res.attempts,
+                   exhausted=sched.exhausted,
+                   taus=[st.tau for st in res.result.stats],
+                   events=[(e.kind, e.detail) for e in res.events])
+    sink.close()
+    out["seconds"] = time.perf_counter() - t0
+    out["n_events"] = len(read_jsonl(trace, validate=True))
+    return out
+
+
+def phase_runtime(main_res, main_counts: dict) -> dict:
+    """[19] a-e (see the module docstring).  ``main_res`` and
+    ``main_counts`` are [4]'s result and launch counts.  Returns (a)'s
+    launch counts."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.core import (AdaptiveConfig, ShardMesh, brandes_numpy,
+                                  hyperbolic_graph, partition_graph,
+                                  rmat_graph, run_kadabra)
+    from repro_torch.kernels.frontier import FLAT
+    from repro_torch.launch import spawn_local
+    from repro_torch.runtime import (FaultSchedule, FaultSpec, JSONLSink,
+                                     ResilientRunner, RetryPolicy, RingSink,
+                                     Telemetry, read_jsonl,
+                                     torch_profiler_trace,
+                                     write_chrome_trace)
+    work = tempfile.mkdtemp(prefix="chip_smoke_runtime_")
+    try:
+        rmat = rmat_graph(RMAT_SCALE, EDGE_FACTOR, seed=SEED, device=DEVICE)
+        config = AdaptiveConfig(eps=MAIN_EPS, delta=MAIN_DELTA,
+                                sample_batch_size=BATCH,
+                                max_epochs=MAIN_MAX_EPOCHS)
+        main_s = sum(main_res.phase_seconds.values())
+
+        # (a) telemetry on [4]'s run
+        path = os.path.join(work, "main.jsonl")
+        sink, ring = JSONLSink(path), RingSink(0)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = run_kadabra(rmat, config=config, seed=SEED, device=DEVICE,
+                          telemetry=Telemetry([ring, sink], validate=True))
+        seconds = time.perf_counter() - t0
+        sink.close()
+        counts = read_counts("rmat_telemetry", FLAT, res.bfs_levels,
+                             len(res.stats))
+        if not same_run(res, main_res) or counts != main_counts:
+            raise AssertionError(
+                f"[19a] telemetry on is not [4]'s run: tau {res.tau} "
+                f"({main_res.tau}), epochs {res.n_epochs} "
+                f"({main_res.n_epochs}), btilde bitwise "
+                f"{np.array_equal(res.btilde, main_res.btilde)}, launches "
+                f"{counts} ({main_counts})")
+        events = read_jsonl(path, validate=True)
+        ends = [e for e in events if e.kind == "run.end"]
+        n_stats = sum(e.kind == "epoch.stats" for e in events)
+        if len(events) != len(ring.events) or len(ends) != 1 \
+                or ends[0].fields["tau"] != res.tau \
+                or ends[0].fields["n_epochs"] != res.n_epochs \
+                or n_stats != res.n_epochs:
+            raise AssertionError(f"[19a] the trace does not give the run: "
+                                 f"{len(events)} events, run.end "
+                                 f"{[e.fields for e in ends]}, {n_stats} "
+                                 "epoch.stats")
+        chrome = write_chrome_trace(os.path.join(work, "main_trace.json"),
+                                    events)
+        with open(chrome) as f:
+            rows = json.load(f)["traceEvents"]
+        log(f"[19a] telemetry on [4]'s run: {seconds:.2f} s (phases "
+            + ", ".join(f"{k} {v:.2f} s"
+                        for k, v in res.phase_seconds.items())
+            + f"; [4]: {main_s:.2f} s), tau {res.tau}, epochs "
+            f"{res.n_epochs}, btilde bitwise [4]'s, launches [4]'s "
+            f"{counts[FLAT]} flat / {counts['frontier_words']} words / "
+            f"{counts['stopcheck']} stop checks; {len(events)} events "
+            f"re-read and valid, {n_stats} epoch.stats, run.end tau "
+            f"{ends[0].fields['tau']}; Chrome trace {len(rows)} rows")
+
+        # (b) ResilientRunner through five faults on the same run
+        sched = FaultSchedule([FaultSpec("kill", 2), FaultSpec("nan", 3),
+                               FaultSpec("hang", 4, delay=RUNTIME_HANG),
+                               FaultSpec("corrupt", 5),
+                               FaultSpec("truncate", 6)])
+        ring = RingSink(0)
+        root = os.path.join(work, "resilient")
+        t0 = time.perf_counter()
+        out = ResilientRunner(
+            rmat, checkpoint_dir=root, config=config, seed=SEED,
+            device=DEVICE, checkpoint_every=1, schedule=sched,
+            epoch_timeout=RUNTIME_EPOCH_TIMEOUT,
+            policy=RetryPolicy(max_retries=8, backoff_base=0.05,
+                               backoff_cap=0.2),
+            telemetry=Telemetry([ring], validate=True)).run()
+        wall = time.perf_counter() - t0
+        got = out.result.reports[0]
+        failures = [e.detail for e in out.events if e.kind == "failure"]
+        quarantined = sorted(d for d in os.listdir(os.path.join(root,
+                                                                "rung0"))
+                             if "quarantined" in d)
+        if not sched.exhausted \
+                or not np.array_equal(got.scores, main_res.btilde) \
+                or got.tau != main_res.tau or out.attempts != 5 \
+                or quarantined != ["step_00000004.quarantined-0",
+                                   "step_00000005.quarantined-0"] \
+                or not any("InvariantViolation" in d for d in failures) \
+                or not any("EpochTimeoutError" in d for d in failures):
+            raise AssertionError(
+                f"[19b] exhausted {sched.exhausted}, tau {got.tau} "
+                f"([4] {main_res.tau}), btilde bitwise "
+                f"{np.array_equal(got.scores, main_res.btilde)}, attempts "
+                f"{out.attempts}, quarantined {quarantined}, failures "
+                f"{failures}")
+        costs = attempt_costs(ring.events)
+        kept = {}
+        for a in costs:
+            for epoch, sec, err in a["epochs"]:
+                if err is None:
+                    kept[epoch] = sec
+        drawn = [(ep, sec) for a in costs for ep, sec, _ in a["epochs"]]
+        # the hang sleeps in its epoch's hook, inside the refused epoch's
+        # span: its delay is a term of its own, not an epoch drawn again
+        lost_s = (sum(sec for _, sec in drawn) - sum(kept.values())
+                  - RUNTIME_HANG)
+        replay_s = sum(a["phases_s"] for a in costs[1:])
+        sleeps = sum(float(e.detail.split()[1]) / 1e3 for e in out.events
+                     if e.kind == "retry")
+        rest_s = wall - main_s - replay_s - lost_s - sleeps - RUNTIME_HANG
+        log(f"[19b] ResilientRunner, checkpoint_every=1, through kill@2, "
+            f"nan@3, hang@4 ({RUNTIME_HANG} s against a "
+            f"{RUNTIME_EPOCH_TIMEOUT} s epoch timeout), corrupt@5, "
+            f"truncate@6: {wall:.2f} s against [4]'s {main_s:.2f} s; every "
+            f"fault fired, btilde and tau ({got.tau}) bitwise [4]'s; "
+            f"quarantined {quarantined}; failures "
+            f"{[d.split(':')[0] for d in failures]}")
+        for i, a in enumerate(costs):
+            eps_ = [ep for ep, _, _ in a["epochs"]]
+            log(f"  attempt {i + 1}: phases 1-2 {a['phases_s']:.3f} s, "
+                f"epochs {eps_[0] if eps_ else '-'}-"
+                f"{eps_[-1] if eps_ else '-'} in "
+                f"{sum(sec for _, sec, _ in a['epochs']):.3f} s, "
+                + (f"ended by {failures[i].split(':')[0]}"
+                   if i < len(failures) else "completed"))
+        log(f"  per failure: {(wall - main_s) / 5:.3f} s of wall over [4] "
+            f"= phases 1-2 replayed {replay_s / 5:.3f} s + epochs drawn "
+            f"again {(len(drawn) - len(kept)) / 5:.1f} in "
+            f"{lost_s / 5:.3f} s + backoff {sleeps / 5:.3f} s + the hang's "
+            f"{RUNTIME_HANG} s over five {RUNTIME_HANG / 5:.3f} s + the "
+            f"rest (the steps' writes, restores, quarantine) "
+            f"{rest_s / 5:.3f} s")
+
+        # (c) the ladder on one card
+        t0 = time.perf_counter()
+        pg = partition_graph(rmat, SHARDS)
+        sched = FaultSchedule([FaultSpec("shrink", 3, survivors=4),
+                               FaultSpec("kill", 4), FaultSpec("kill", 5)])
+        ring = RingSink(0)
+        out = ResilientRunner(
+            pg, mesh=ShardMesh(SHARDS, DEVICE),
+            checkpoint_dir=os.path.join(work, "rmat_ladder"), config=config,
+            seed=SEED, schedule=sched,
+            policy=RetryPolicy(max_retries=1, backoff_base=0.05),
+            telemetry=Telemetry([ring], validate=True)).run()
+        wall = time.perf_counter() - t0
+        check_ladder("[19c] R-MAT", out, sched, [
+            f"{SHARDS} -> 4 devices",
+            "sharded -> single (retry budget exhausted)"])
+        err = float(np.abs(out.result.reports[0].scores
+                           - main_res.btilde).max())
+        if not err <= 2 * MAIN_EPS:
+            raise AssertionError(f"[19c] R-MAT ladder: max |b - b_[4]| "
+                                 f"{err} beyond 2 eps")
+        lanes = [e.fields["lane"] for e in ring.events
+                 if e.kind == "run.start"]
+        log(f"[19c] ladder on one card, R-MAT in {SHARDS} shards: {wall:.2f} "
+            f"s (partition included), attempts on {lanes}; "
+            f"{ladder_summary(out)}; tau {out.result.tau}, epochs "
+            f"{out.result.n_epochs}, max |b - b_[4]| {err:.5f} (2 eps "
+            f"{2 * MAIN_EPS}), the final run's taus "
+            f"{[st.tau for st in out.result.stats]}")
+        del rmat, pg
+        torch.cuda.empty_cache()
+        hyper = hyperbolic_graph(HYPER_N, seed=SEED, device=DEVICE)
+        exact = brandes_numpy(hyper)
+        hcfg = AdaptiveConfig(eps=HYPER_EPS, delta=0.1,
+                              n0_base=RUNTIME_HYPER_N0)
+        sched = FaultSchedule([FaultSpec("shrink", 3, survivors=4),
+                               FaultSpec("kill", 4), FaultSpec("kill", 5)])
+        t0 = time.perf_counter()
+        out = ResilientRunner(
+            partition_graph(hyper, SHARDS, block_v=HYPER_BLOCK_V),
+            mesh=ShardMesh(SHARDS, DEVICE),
+            checkpoint_dir=os.path.join(work, "hyper_ladder"), config=hcfg,
+            seed=SEED, schedule=sched,
+            policy=RetryPolicy(max_retries=1, backoff_base=0.05)).run()
+        wall = time.perf_counter() - t0
+        check_ladder("[19c] hyperbolic", out, sched, [
+            f"{SHARDS} -> 4 devices",
+            "sharded -> single (retry budget exhausted)"])
+        err = float(np.abs(out.result.reports[0].scores - exact).max())
+        if not err < HYPER_EPS:
+            raise AssertionError(f"[19c] hyperbolic ladder: max error {err}"
+                                 f" >= {HYPER_EPS}")
+        log(f"[19c] ladder on one card, hyperbolic({HYPER_N}) in {SHARDS} "
+            f"shards (n0_base {RUNTIME_HYPER_N0}): {wall:.2f} s; "
+            f"{ladder_summary(out)}; tau {out.result.tau}, epochs "
+            f"{out.result.n_epochs}, max |b~ - b| = {err:.5f} (eps "
+            f"{HYPER_EPS})")
+
+        # (d) the ladder across processes
+        t0 = time.perf_counter()
+        ranks = spawn_local(runtime_rank, RUNTIME_RANKS,
+                            args=(work, {k: globals()[k]
+                                         for k in RUNTIME_SETTINGS}),
+                            backend="gloo", timeout=GROUP_TIMEOUT,
+                            store_dir=work)
+        wall = time.perf_counter() - t0
+        lost = [r["rank"] for r in ranks if "device_loss" in r]
+        live = [r for r in ranks if "device_loss" not in r]
+        if lost != [2, 3] or [r["rank"] for r in live] != [0, 1]:
+            raise AssertionError(f"[19d] lost ranks {lost}, not [2, 3]")
+        a, b = live
+        walked = [d for k, d in a["events"] if k in ("shrink", "degrade")]
+        want = [f"{RUNTIME_RANKS} -> 2 devices",
+                "sharded -> spmd (retry budget exhausted)",
+                "spmd -> single (retry budget exhausted)"]
+        err = float(np.abs(a["scores"] - exact).max())
+        if not (np.array_equal(a["scores"], b["scores"])
+                and a["tau"] == b["tau"] and a["lane"] == "single"
+                and a["exhausted"] and walked == want and a["converged"]
+                and a["taus"] == sorted(a["taus"]) and err < HYPER_EPS):
+            raise AssertionError(
+                f"[19d] survivors bitwise alike "
+                f"{np.array_equal(a['scores'], b['scores'])}, lane "
+                f"{a['lane']}, ladder {walked}, exhausted {a['exhausted']}, "
+                f"taus {a['taus']}, max error {err}")
+        log(f"[19d] ladder across {RUNTIME_RANKS} ranks spawned on the card "
+            f"(gloo): {wall:.1f} s (rank 0's runner {a['seconds']:.1f} s); "
+            f"ranks 2-3 ended in DeviceLoss ({ranks[2]['device_loss']}); "
+            f"ranks 0-1 walked {walked}, {a['attempts']} failed attempts, "
+            f"bitwise alike, tau {a['tau']}, epochs {a['n_epochs']}, max "
+            f"|b~ - b| = {err:.5f} (eps {HYPER_EPS}); trace events a rank "
+            f"{[r['n_events'] for r in ranks]}, all valid")
+
+        # (e) last: the torch.profiler gate around one run
+        with torch_profiler_trace(os.path.join(work, "profile")) as trace:
+            run_kadabra(hyper, config=AdaptiveConfig(eps=HYPER_EPS,
+                                                     delta=0.1),
+                        seed=SEED, device=DEVICE)
+        with open(trace) as f:
+            records = json.load(f)["traceEvents"]
+        kernels = sum(r.get("cat") == "kernel" for r in records)
+        log(f"[19e] torch_profiler_trace around hyperbolic({HYPER_N}): "
+            f"{os.path.getsize(trace)} bytes, {len(records)} records, "
+            f"{kernels} of them kernel records (no count asserted: "
+            "ROADMAP §3's lost records)")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3963,6 +4353,14 @@ def main() -> int:
         f"Brandes; R5's {WGRID_SIDE} x {WGRID_SIDE} unit grid")
     weighted_rows, weighted_paths = phase_weighted()
     paths.update(weighted_paths)
+    torch.cuda.empty_cache()
+
+    log(f"[19] runtime: [4]'s run with telemetry on, ResilientRunner through "
+        f"five faults on it, the ladder ShardMesh({SHARDS}) -> 4 -> single "
+        f"on R-MAT and hyperbolic({HYPER_N}), the ladder GroupShardMesh("
+        f"{RUNTIME_RANKS}) -> 2 -> SamplerMesh(2) -> single across "
+        f"{RUNTIME_RANKS} ranks, a torch.profiler trace")
+    paths["rmat_telemetry"] = phase_runtime(main_res, paths["rmat_bidir"])
 
     # each row's launches: the run of the path that row's kernel carries;
     # the node-blocked rows' words pass beside it

@@ -172,7 +172,7 @@ def _crc(arr: np.ndarray) -> int:
 
 def save(root: str, step: int, tree, *, metadata: Optional[dict] = None,
          keep: int = 3, blocking: bool = True,
-         schema: Optional[str] = None):
+         schema: Optional[str] = None, telemetry=None):
     """Write one checkpoint; returns the publish thread (joined if
     ``blocking``).
 
@@ -187,6 +187,11 @@ def save(root: str, step: int, tree, *, metadata: Optional[dict] = None,
     it is kept on the returned thread (``_exc``) and re-raised by
     :meth:`CheckpointManager.wait`.  The thread's ``seconds`` holds the
     publish's wall seconds once it has ended.
+
+    ``telemetry`` (a :class:`repro_torch.runtime.Telemetry`, or None)
+    sees the publish from the background thread: a ``checkpoint.publish``
+    span around the write, then a ``checkpoint.publish`` event with its
+    seconds and ``ok`` (False with the error's type on a failure).
     """
     if keep < 0:
         raise ValueError(f"keep must be >= 0 (0 = keep everything), "
@@ -230,9 +235,22 @@ def save(root: str, step: int, tree, *, metadata: Optional[dict] = None,
     def run_publish():
         t0 = time.perf_counter()
         try:
-            publish()
+            if telemetry:
+                with telemetry.span("checkpoint.publish", step=step,
+                                    n_leaves=len(host_leaves)):
+                    publish()
+            else:
+                publish()
         except BaseException as e:      # noqa: BLE001 — surfaced by wait()
             t._exc = e
+            if telemetry:
+                telemetry.emit("checkpoint.publish", step=step,
+                               seconds=time.perf_counter() - t0, ok=False,
+                               error=type(e).__name__)
+        else:
+            if telemetry:
+                telemetry.emit("checkpoint.publish", step=step,
+                               seconds=time.perf_counter() - t0, ok=True)
         finally:
             t.seconds = time.perf_counter() - t0
 
@@ -396,8 +414,43 @@ def _restore_step(root: str, step: int, tree_like, devices,
     return tree_unflatten(tree_like, placed), step, manifest["metadata"]
 
 
+def _attempt_restore(telemetry, step: int, load):
+    """One restore attempt: ``load(step)``, under a ``checkpoint.restore``
+    span with an outcome event when telemetry is on."""
+    if not telemetry:
+        return load(step)
+    t0 = time.perf_counter()
+    with telemetry.span("checkpoint.restore", step=step):
+        try:
+            out = load(step)
+        except BaseException as e:
+            telemetry.emit("checkpoint.restore", step=step,
+                           seconds=time.perf_counter() - t0, ok=False,
+                           error=type(e).__name__)
+            raise
+        telemetry.emit("checkpoint.restore", step=step,
+                       seconds=time.perf_counter() - t0, ok=True)
+        return out
+
+
+def _fall_back(root: str, telemetry, load):
+    """``load(step)`` of the newest step, quarantining each step that
+    fails verification and trying the next newest."""
+    while True:
+        s = latest_step(root)
+        if s is None:
+            raise FileNotFoundError(f"no checkpoint under {root}")
+        try:
+            return _attempt_restore(telemetry, s, load)
+        except CheckpointIntegrityError:
+            _quarantine(root, s)
+            if telemetry:
+                telemetry.emit("checkpoint.quarantine", step=s)
+
+
 def restore(root: str, tree_like, *, step: Optional[int] = None,
-            device=None, expect_schema: Optional[str] = None):
+            device=None, expect_schema: Optional[str] = None,
+            telemetry=None):
     """Restore into the structure of ``tree_like`` (only its leaves'
     shapes are read) -> (tree of tensors, step, metadata).
 
@@ -415,25 +468,26 @@ def restore(root: str, tree_like, *, step: Optional[int] = None,
     bytes are fine; falling back would resurrect an older run).  A
     pinned ``step`` is restored exactly or raises: no quarantine, no
     fallback.  Raises ``FileNotFoundError`` when no step verifies.
+
+    ``telemetry`` sees each attempt as a ``checkpoint.restore`` span and
+    event (``ok``), and each quarantined step as
+    ``checkpoint.quarantine``.
     """
     devices = _leaf_devices(device, len(tree_leaves(tree_like)))
+
+    def load(s: int):
+        return _restore_step(root, s, tree_like, devices, expect_schema)
+
     if step is not None:
-        return _restore_step(root, step, tree_like, devices, expect_schema)
-    while True:
-        s = latest_step(root)
-        if s is None:
-            raise FileNotFoundError(f"no checkpoint under {root}")
-        try:
-            return _restore_step(root, s, tree_like, devices, expect_schema)
-        except CheckpointIntegrityError:
-            _quarantine(root, s)        # fall back to the next newest
+        return _attempt_restore(telemetry, step, load)
+    return _fall_back(root, telemetry, load)
 
 
 def restore_arrays(root: str, *, step: Optional[int] = None,
-                   expect_schema: Optional[str] = None):
+                   expect_schema: Optional[str] = None, telemetry=None):
     """Verified raw restore without a template: (list of host numpy
     arrays, step, metadata), for a caller that is about to change the
-    shapes.  Verification, quarantine and fallback as in
+    shapes.  Verification, quarantine, fallback and telemetry as in
     :func:`restore`."""
     def load_one(s: int):
         d = os.path.join(root, f"step_{s:08d}")
@@ -444,15 +498,8 @@ def restore_arrays(root: str, *, step: Optional[int] = None,
                     manifest["metadata"])
 
     if step is not None:
-        return load_one(step)
-    while True:
-        s = latest_step(root)
-        if s is None:
-            raise FileNotFoundError(f"no checkpoint under {root}")
-        try:
-            return load_one(s)
-        except CheckpointIntegrityError:
-            _quarantine(root, s)
+        return _attempt_restore(telemetry, step, load_one)
+    return _fall_back(root, telemetry, load_one)
 
 
 class CheckpointManager:
@@ -460,11 +507,11 @@ class CheckpointManager:
 
     ``keep=0`` keeps every step, as in :func:`save`.  An async publish
     failure is re-raised from the next :meth:`wait` or
-    :meth:`maybe_save`.
+    :meth:`maybe_save`.  ``telemetry`` goes to every save and restore.
     """
 
     def __init__(self, root: str, keep: int = 3, save_every: int = 100,
-                 schema: Optional[str] = None):
+                 schema: Optional[str] = None, telemetry=None):
         if keep < 0:
             raise ValueError(f"keep must be >= 0 (0 = keep everything), "
                              f"got {keep}")
@@ -472,6 +519,7 @@ class CheckpointManager:
         self.keep = keep
         self.save_every = save_every
         self.schema = schema
+        self.telemetry = telemetry
         self._pending: Optional[threading.Thread] = None
 
     def maybe_save(self, step: int, tree, metadata=None) -> bool:
@@ -480,7 +528,7 @@ class CheckpointManager:
         self.wait()                     # raises if the previous save died
         self._pending = save(self.root, step, tree, metadata=metadata,
                              keep=self.keep, blocking=False,
-                             schema=self.schema)
+                             schema=self.schema, telemetry=self.telemetry)
         return True
 
     def wait(self):
@@ -498,6 +546,7 @@ class CheckpointManager:
         or layout mismatch propagates (never a silent fresh start)."""
         try:
             return restore(self.root, tree_like, device=device,
-                           expect_schema=self.schema)
+                           expect_schema=self.schema,
+                           telemetry=self.telemetry)
         except FileNotFoundError:
             return None

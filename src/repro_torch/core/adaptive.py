@@ -45,7 +45,8 @@ def run_kadabra(graph, *, eps: Optional[float] = None,
                 config: Optional[AdaptiveConfig] = None,
                 device=None, mesh=None,
                 checkpoint_dir: Optional[str] = None,
-                checkpoint_every: int = 1) -> BetweennessResult:
+                checkpoint_every: int = 1, on_epoch=None,
+                telemetry=None) -> BetweennessResult:
     """Approximate betweenness with adaptive sampling (KADABRA): the
     betweenness estimator on the bidirectional stream.
 
@@ -60,12 +61,14 @@ def run_kadabra(graph, *, eps: Optional[float] = None,
     result.  A :class:`Graph` with ``mesh=SamplerMesh(...)`` runs the
     SPMD lane, called on every rank (``config.aggregation`` picks the
     aggregation).  ``checkpoint_dir`` and ``checkpoint_every`` make the
-    run resumable, as in :func:`run_adaptive`.
+    run resumable, and ``on_epoch`` and ``telemetry`` supervise and
+    observe it, as in :func:`run_adaptive`.
     """
     res: AdaptiveRunResult = run_adaptive(
         graph, ("betweenness",), eps=eps, delta=delta, seed=seed,
         config=config, stream="bidir", device=device, mesh=mesh,
-        checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every)
+        checkpoint_dir=checkpoint_dir, checkpoint_every=checkpoint_every,
+        on_epoch=on_epoch, telemetry=telemetry)
     rep = res.reports[0]
     stats = [EpochStats(s.epoch, s.tau, s.max_f[0], s.max_g[0], s.seconds,
                         s.exchange, s.aggregation) for s in res.stats]

@@ -66,9 +66,15 @@ sum and evaluates every stop rule on it, on every rank.  Frames are
 ``[:V]``.  Each rank returns the same result.  A mesh of one rank is the
 single-device lane.
 
-Not ported yet (each raises ``NotImplementedError`` naming the ROADMAP
-§1 item that adds it): the supervision hook and telemetry (item 14), on
-every lane.
+Every lane takes a supervision hook, ``on_epoch(epoch, state)``, called
+once an epoch after the epoch's draws and stop checks and before its
+freeze and save (the runtime's :class:`~repro_torch.runtime.ResilientRunner`
+is its user), and a telemetry bus (``telemetry=``,
+:mod:`repro_torch.runtime.telemetry`) that reads what the loop already
+holds on the host: with it on, every lane draws, launches and returns
+the same bits as with it off.  On the lanes of many processes every rank
+runs its hook, and one small all_reduce then makes the ranks agree on
+the outcome before any of them goes on (:func:`_agree_on_hook`).
 """
 from __future__ import annotations
 
@@ -91,6 +97,7 @@ from .distributed import (AGGREGATIONS, SamplerMesh, allreduce_ints,
                           assert_replicated, flat_allreduce,
                           sampler_generator)
 from .epoch import epoch_length, frame_schema_id
+from .errors import HOOK_FAILURES, DeviceLoss
 from .estimators import get_estimator
 from .estimators.base import DrawBatch, Estimator, MetricReport, RunContext
 from .graph import Graph
@@ -232,6 +239,20 @@ def make_agg_fn(mesh: SamplerMesh, aggregation: str):
         raise ValueError(f"unknown aggregation {aggregation!r} (expected "
                          f"one of {sorted(AGGREGATIONS)})")
     return partial(fn, mesh=mesh)
+
+
+def lane_state_shapes(n_channels: int, n_nodes: int,
+                      n_samplers: int = 1) -> tuple:
+    """The shapes of a lane's aggregate, frame and surplus counts (the
+    frozen snapshot has the aggregate's): ``(C, V+1)`` each on the
+    single and sharded lanes; on the SPMD lane of ``n_samplers`` ranks
+    the aggregate and a rank's frame are ``(C, v_pad)``
+    (:func:`_pad_len`) and its surplus ``(C, V+1)``."""
+    v1 = n_nodes + 1
+    if n_samplers == 1:
+        return ((n_channels, v1),) * 3
+    frame = (n_channels, _pad_len(n_nodes, n_samplers))
+    return frame, frame, (n_channels, v1)
 
 
 def _channel_offsets(estimators) -> tuple:
@@ -427,8 +448,9 @@ def _lane(graph, mesh, cfg: AdaptiveConfig, estimators, stream, gen,
         return (agg_c + fr_c) + sur_c, agg_t + fr_t + sur_t
 
     def init_state(ctx):
-        z = torch.zeros((sum(e.n_channels for e in estimators),
-                         ctx.n_nodes + 1), dtype=torch.float32, device=dev)
+        shape, _, _ = lane_state_shapes(
+            sum(e.n_channels for e in estimators), ctx.n_nodes)
+        z = torch.zeros(shape, dtype=torch.float32, device=dev)
         return (z, 0, z, 0, z, 0)
 
     ns.calibrate, ns.make_epoch = calibrate, make_epoch
@@ -508,9 +530,10 @@ def _spmd_lane(graph, mesh: SamplerMesh, cfg: AdaptiveConfig, estimators,
         return agg_c + inc_c.wait(), agg_t + int(inc_t.wait()[0])
 
     def init_state(ctx):
-        n_ch = sum(e.n_channels for e in estimators)
-        z = torch.zeros((n_ch, v_pad), dtype=torch.float32, device=dev)
-        return (z, 0, z, 0, torch.zeros((n_ch, v1), dtype=torch.float32,
+        agg, _, sur = lane_state_shapes(
+            sum(e.n_channels for e in estimators), ctx.n_nodes, mesh.size)
+        z = torch.zeros(agg, dtype=torch.float32, device=dev)
+        return (z, 0, z, 0, torch.zeros(sur, dtype=torch.float32,
                                         device=dev), 0)
 
     ns.calibrate, ns.make_epoch = calibrate, make_epoch
@@ -556,11 +579,12 @@ class _EngineCheckpointer:
     uninterrupted run's stream exactly."""
 
     def __init__(self, checkpoint_dir: str, checkpoint_every: int,
-                 schema: str, dev: torch.device):
+                 schema: str, dev: torch.device, telemetry=None):
         from ..checkpoint.store import CheckpointManager
+        self.telemetry = telemetry
         self.mgr = CheckpointManager(checkpoint_dir, keep=3,
                                      save_every=checkpoint_every,
-                                     schema=schema)
+                                     schema=schema, telemetry=telemetry)
         cpu = torch.device("cpu")
         # where each leaf lives in the loop: counts on the run's device,
         # taus, the frozen bookkeeping and the generator state on the host
@@ -643,9 +667,9 @@ class _GroupCheckpointer(_EngineCheckpointer):
     failure), and every other rank restores that step."""
 
     def __init__(self, checkpoint_dir: str, checkpoint_every: int,
-                 schema: str, mesh: GroupShardMesh):
+                 schema: str, mesh: GroupShardMesh, telemetry=None):
         super().__init__(checkpoint_dir, checkpoint_every, schema,
-                         mesh.device)
+                         mesh.device, telemetry)
         self.mesh, self.root, self.schema = mesh, checkpoint_dir, schema
 
     def restore_state(self, state, frozen_c, frozen_tau, stop_epoch, gen):
@@ -657,7 +681,8 @@ class _GroupCheckpointer(_EngineCheckpointer):
             return state, frozen_c, frozen_tau, stop_epoch, 0
         if out is None:
             out = restore(self.root, like, step=step, device=self.devices,
-                          expect_schema=self.schema)
+                          expect_schema=self.schema,
+                          telemetry=self.telemetry)
         return self._unpack(out, gen)
 
     def save_state(self, epoch: int, state, frozen_c, frozen_tau,
@@ -680,14 +705,14 @@ class _SpmdCheckpointer:
     and raises ``CheckpointSchemaError``."""
 
     def __init__(self, checkpoint_dir: str, checkpoint_every: int,
-                 schema: str, mesh: SamplerMesh):
+                 schema: str, mesh: SamplerMesh, telemetry=None):
         from ..checkpoint.store import CheckpointManager
         self.root, self.schema, self.every = (checkpoint_dir, schema,
                                               checkpoint_every)
-        self.mesh = mesh
+        self.mesh, self.telemetry = mesh, telemetry
         self.mgr = (CheckpointManager(checkpoint_dir, keep=3,
                                       save_every=checkpoint_every,
-                                      schema=schema)
+                                      schema=schema, telemetry=telemetry)
                     if mesh.rank == 0 else None)
 
     def _stack(self, x: torch.Tensor):
@@ -727,7 +752,8 @@ class _SpmdCheckpointer:
             return state, frozen_c, frozen_tau, stop_epoch, 0
         if out is None:
             out = restore(self.root, like, step=step, device="cpu",
-                          expect_schema=self.schema)
+                          expect_schema=self.schema,
+                          telemetry=self.telemetry)
         lv, _, meta = out
         gen.set_state(lv[9][r].clone())
         dev = self.mesh.device
@@ -741,15 +767,69 @@ class _SpmdCheckpointer:
             self.mgr.wait()
 
 
-def _not_ported(**args) -> None:
-    """Raise ``NotImplementedError`` for the first argument given that a
-    later ROADMAP §1 item adds."""
-    items = {"on_epoch": "item 14 (runtime)",
-             "telemetry": "item 14 (runtime)"}
-    for name, value in args.items():
-        if value is not None:
-            raise NotImplementedError(f"{name}= is not ported yet: ROADMAP "
-                                      f"§1 {items[name]}")
+def _hook_failure_classes() -> tuple:
+    """The exception classes a rank's failed hook is known to the other
+    ranks by, the most specific first (any other: ``RuntimeError``)."""
+    from ..checkpoint.store import (CheckpointError,
+                                    CheckpointIntegrityError,
+                                    CheckpointLayoutError,
+                                    CheckpointSchemaError)
+    return HOOK_FAILURES + (CheckpointSchemaError, CheckpointLayoutError,
+                            CheckpointIntegrityError, CheckpointError)
+
+
+def _agree_on_hook(mesh, epoch: int, failure) -> None:
+    """The ranks of a process mesh (a :class:`SamplerMesh` or a
+    :class:`GroupShardMesh`) agree on their hooks' outcome at ``epoch``
+    with one all_reduce of two ints a rank (its failure's class, a
+    :class:`DeviceLoss`'s survivors), so that no rank goes on into a
+    collective the others left.  If any rank's hook raised, every rank
+    raises: the failing ones their own exception, the others the same
+    class (``RuntimeError`` for one the runtime does not know) naming the
+    lowest failing rank."""
+    size = mesh.size if isinstance(mesh, SamplerMesh) else mesh.n_shards
+    classes = _hook_failure_classes()
+    codes = [0] * (2 * size)
+    if failure is not None:
+        codes[mesh.rank] = 1 + next(
+            (i for i, k in enumerate(classes) if isinstance(failure, k)),
+            len(classes))
+        codes[size + mesh.rank] = getattr(failure, "survivors", 0)
+    got = allreduce_ints(codes, mesh).wait().tolist()
+    failed = [r for r in range(size) if got[r]]
+    if failure is not None:
+        raise failure
+    if not failed:
+        return
+    r = failed[0]
+    cls = (classes + (RuntimeError,))[got[r] - 1]
+    what = (cls.__name__ if cls is not RuntimeError
+            else "an exception of a class the runtime does not know")
+    msg = (f"rank {r} of the {type(mesh).__name__} raised {what} in its "
+           f"on_epoch hook at epoch {epoch}")
+    if cls is DeviceLoss:
+        raise cls(got[size + r], msg)
+    raise cls(msg)
+
+
+def _run_hook(on_epoch, epoch: int, state, mesh, ckpt):
+    """``ckpt.wait()`` (the pending publish lands, or its error is
+    raised), then ``on_epoch(epoch, state)`` -> its replacement state or
+    None; on a process mesh the ranks then agree on the outcome of both
+    (:func:`_agree_on_hook`): only rank 0 publishes."""
+    if not isinstance(mesh, (SamplerMesh, GroupShardMesh)):
+        if ckpt is not None:
+            ckpt.wait()
+        return on_epoch(epoch, state)
+    failure = replacement = None
+    try:
+        if ckpt is not None:
+            ckpt.wait()
+        replacement = on_epoch(epoch, state)
+    except Exception as e:  # noqa: BLE001 - every rank must hear
+        failure = e
+    _agree_on_hook(mesh, epoch, failure)
+    return replacement
 
 
 def _resolve_lane(graph, mesh, device):
@@ -830,8 +910,34 @@ def run_adaptive(graph, metrics=("betweenness",), *,
     resumes on ``ShardMesh`` and ``GroupShardMesh`` alike at the same
     shard count (another count raises).  Resuming a completed run draws
     nothing and reports the same result.
+
+    ``on_epoch(epoch, state)`` is the supervision hook
+    (:class:`repro_torch.runtime.ResilientRunner`): called once an epoch
+    with the 1-based epoch and the lane's 6-leaf state (aggregate counts,
+    aggregate tau, frame counts, frame tau, surplus counts, surplus tau;
+    the taus Python ints), after the pending checkpoint publish has
+    landed and before the epoch is frozen into any metric's snapshot or
+    saved.  A hook that raises aborts the run without the epoch reaching
+    the disk (earlier epochs' publishes still land); one that returns a
+    tuple replaces the state from there on.  On a ``SamplerMesh`` or a
+    ``GroupShardMesh`` every rank must pass a hook (or none): each rank
+    runs its own, then one all_reduce makes every rank raise if any
+    rank's hook raised (the failing rank its own exception, the others
+    the same class naming that rank; :func:`_agree_on_hook`).
+
+    ``telemetry`` is None (nothing happens), a
+    :class:`repro_torch.runtime.Telemetry`, a JSONL path or a sink
+    (:func:`repro_torch.runtime.resolve_telemetry`).  On, the run emits
+    ``run.start`` (lane ``single``, ``spmd`` or ``sharded``) and
+    ``run.end``, one ``epoch.stats`` an epoch and, on the sharded lane,
+    one ``exchange.epoch`` (the epoch's priced exchange tally), wraps
+    phases 1 and 2, each epoch and the final flush in spans, and hands
+    the bus to the checkpoint store.  It reads only host values the loop
+    holds anyway: every lane gives the same bits and launches with it on
+    as off.
     """
-    _not_ported(on_epoch=on_epoch, telemetry=telemetry)
+    from ..runtime.telemetry import resolve_telemetry
+    telemetry = resolve_telemetry(telemetry)
     if int(checkpoint_every) < 1:
         raise ValueError(f"checkpoint_every must be >= 1, got "
                          f"{checkpoint_every}")
@@ -850,13 +956,19 @@ def run_adaptive(graph, metrics=("betweenness",), *,
 
     spmd = isinstance(mesh, SamplerMesh)
     group = isinstance(mesh, GroupShardMesh)
+    telemetry.emit("run.start", lane=("single" if mesh is None else "spmd"
+                                      if spmd else "sharded"),
+                   metrics=[e.name for e in estimators],
+                   n_nodes=int(graph.n_nodes), eps=float(cfg.eps),
+                   delta=float(cfg.delta))
 
     # ---- phase 1: diameter ---------------------------------------------
-    if spmd:
-        lane = _spmd_lane(graph, mesh, cfg, estimators, stream, gen,
-                          offsets, seed)
-    else:
-        lane = _lane(graph, mesh, cfg, estimators, stream, gen, offsets)
+    with telemetry.span("phase.diameter"):
+        if spmd:
+            lane = _spmd_lane(graph, mesh, cfg, estimators, stream, gen,
+                              offsets, seed)
+        else:
+            lane = _lane(graph, mesh, cfg, estimators, stream, gen, offsets)
     graph = lane.graph
     ctx = RunContext(graph.n_nodes, lane.vd, lane.dist_cap)
     bsz = resolve_sample_batch_size(cfg.sample_batch_size, ctx.n_nodes,
@@ -867,14 +979,15 @@ def run_adaptive(graph, metrics=("betweenness",), *,
 
     # ---- phase 2: calibration ------------------------------------------
     t0 = time.perf_counter()
-    cal = lane.calibrate(bsz, ctx)
-    bfs_levels += cal.n_levels
-    dag_rounds += cal.n_dag_rounds
-    params = tuple(
-        est.make_params(graph, ctx, cfg.eps, cfg.delta,
-                        cal.counts[off: off + est.n_channels], cal.tau)
-        for est, off in zip(estimators, offsets))
-    _sync(dev)
+    with telemetry.span("phase.calibration"):
+        cal = lane.calibrate(bsz, ctx)
+        bfs_levels += cal.n_levels
+        dag_rounds += cal.n_dag_rounds
+        params = tuple(
+            est.make_params(graph, ctx, cfg.eps, cfg.delta,
+                            cal.counts[off: off + est.n_channels], cal.tau)
+            for est, off in zip(estimators, offsets))
+        _sync(dev)
     t_cal = time.perf_counter() - t0
 
     # ---- phase 3: the adaptive loop --------------------------------------
@@ -907,15 +1020,11 @@ def run_adaptive(graph, metrics=("betweenness",), *,
         schema = frame_schema_id(estimators, lane=lane_name,
                                  generator=lane.gen.device.type,
                                  stream=stream)
-        if spmd:
-            ckpt = _SpmdCheckpointer(checkpoint_dir, int(checkpoint_every),
-                                     schema, mesh)
-        elif group:
-            ckpt = _GroupCheckpointer(checkpoint_dir, int(checkpoint_every),
-                                      schema, mesh)
-        else:
-            ckpt = _EngineCheckpointer(checkpoint_dir, int(checkpoint_every),
-                                       schema, dev)
+        ckpt_cls = (_SpmdCheckpointer if spmd else _GroupCheckpointer
+                    if group else _EngineCheckpointer)
+        ckpt = ckpt_cls(checkpoint_dir, int(checkpoint_every), schema,
+                        mesh if spmd or group else dev,
+                        telemetry=telemetry)
         state, frozen_c, frozen_tau, stop_epoch, epoch = ckpt.restore_state(
             state, frozen_c, frozen_tau, stop_epoch, lane.gen)
     stopped = stop_epoch >= 0
@@ -932,32 +1041,51 @@ def run_adaptive(graph, metrics=("betweenness",), *,
     t0 = time.perf_counter()
     try:
         while not stopped.all() and epoch < cfg.max_epochs:
-            te = time.perf_counter()
-            state, (done, mf, mg), fold, timing = epoch_step(state)
-            bfs_levels += fold.n_levels
-            dag_rounds += fold.n_dag_rounds
-            xch = fold.exchange
-            epoch += 1
-            newly = done & ~stopped
-            if newly.any():
-                # freeze each newly stopped metric at this epoch's flush:
-                # f/g are not monotone, so a later snapshot would not
-                # reproduce the decision
-                last_flush = lane.flush(state)
-                frozen_c, frozen_tau, stop_epoch = freeze(newly, last_flush)
-                stopped |= newly
-            xacct = None
-            if xch is not None:
-                xch = xch.tolist()
-                xacct = xplan.epoch_accounting(xch[0], xch[1])
-            stats.append(EngineEpochStats(
-                epoch, int(state[1]), tuple(float(x) for x in mf),
-                tuple(float(x) for x in mg), time.perf_counter() - te,
-                int(state[3]) * lane.n_samplers, xacct, timing))
-            if ckpt is not None:
-                ckpt.save_state(epoch, state, frozen_c, frozen_tau,
-                                stop_epoch, lane.gen,
-                                done=bool(stopped.all()))
+            with telemetry.span("phase.epoch", epoch=epoch + 1):
+                te = time.perf_counter()
+                state, (done, mf, mg), fold, timing = epoch_step(state)
+                bfs_levels += fold.n_levels
+                dag_rounds += fold.n_dag_rounds
+                xch = fold.exchange
+                epoch += 1
+                if on_epoch is not None:
+                    # the hook sees a settled disk (and a publish error
+                    # surfaces here), and runs before the freeze and the
+                    # save, so that a refused epoch reaches neither
+                    replacement = _run_hook(on_epoch, epoch, state, mesh,
+                                            ckpt)
+                    if replacement is not None:
+                        state = tuple(replacement)
+                newly = done & ~stopped
+                if newly.any():
+                    # freeze each newly stopped metric at this epoch's
+                    # flush: f/g are not monotone, so a later snapshot
+                    # would not reproduce the decision
+                    last_flush = lane.flush(state)
+                    frozen_c, frozen_tau, stop_epoch = freeze(newly,
+                                                              last_flush)
+                    stopped |= newly
+                xacct = None
+                if xch is not None:
+                    xch = xch.tolist()
+                    xacct = xplan.epoch_accounting(xch[0], xch[1])
+                stats.append(EngineEpochStats(
+                    epoch, int(state[1]), tuple(float(x) for x in mf),
+                    tuple(float(x) for x in mg), time.perf_counter() - te,
+                    int(state[3]) * lane.n_samplers, xacct, timing))
+                if telemetry:
+                    st = stats[-1]
+                    telemetry.emit("epoch.stats", epoch=epoch, tau=st.tau,
+                                   samples=st.samples, seconds=st.seconds,
+                                   max_f=list(st.max_f),
+                                   max_g=list(st.max_g))
+                    if xacct is not None:
+                        telemetry.emit("exchange.epoch", epoch=epoch,
+                                       **xacct)
+                if ckpt is not None:
+                    ckpt.save_state(epoch, state, frozen_c, frozen_tau,
+                                    stop_epoch, lane.gen,
+                                    done=bool(stopped.all()))
     finally:
         # earlier good epochs land even when the loop raises, and a
         # publish error surfaces here
@@ -967,7 +1095,8 @@ def run_adaptive(graph, metrics=("betweenness",), *,
     if not stopped.all():
         # max_epochs reached: freeze what never converged (not written to
         # the checkpoint, so a resume with a higher max_epochs samples on)
-        last_flush = lane.flush(state)
+        with telemetry.span("phase.flush"):
+            last_flush = lane.flush(state)
         frozen_c, frozen_tau, stop_epoch = freeze(~stopped, last_flush)
     _sync(dev)
     t_samp = time.perf_counter() - t0
@@ -984,6 +1113,8 @@ def run_adaptive(graph, metrics=("betweenness",), *,
     # a resumed completed run draws nothing: its tau is the frozen one
     tau_total = (int(last_flush[1]) if last_flush is not None
                  else int(frozen_tau.max(initial=0)))
+    telemetry.emit("run.end", tau=tau_total, n_epochs=epoch,
+                   converged=bool(converged.all()))
     return AdaptiveRunResult(
         reports, tau_total, epoch, bool(converged.all()),
         ctx.vertex_diameter, stats,

@@ -17,6 +17,7 @@ from repro_torch.core.engine import draw_fold, resolve_estimators
 from repro_torch.core.estimators.base import RunContext
 from repro_torch.core.sampler import _finish_paths
 from repro_torch.kernels.frontier import launch_counts
+from repro_torch.runtime import InjectedFault
 from _torch_parity import np_, to_port
 
 
@@ -162,13 +163,20 @@ def test_explicit_eps_delta_override_config():
         float(tc.compute_omega(res.vertex_diameter, 0.2, 0.3)))
 
 
+def _refuse(epoch, state):
+    raise InjectedFault(f"refused epoch {epoch}")
+
+
 @pytest.mark.parametrize("kwargs,error,match", [
-    pytest.param({"checkpoint_dir": "ckpt", "on_epoch": print},
-                 NotImplementedError, "item 14", id="kwargs0-item 14"),
-    pytest.param({"on_epoch": print}, NotImplementedError, "item 14",
+    # item 14's hook and telemetry are ported: a hook that refuses the
+    # first epoch raises before anything reaches the disk, and a
+    # telemetry argument of no known form raises before a draw
+    pytest.param({"checkpoint_dir": "ckpt", "on_epoch": _refuse},
+                 InjectedFault, "refused epoch 1", id="kwargs0-item 14"),
+    pytest.param({"on_epoch": _refuse}, InjectedFault, "refused epoch 1",
                  id="kwargs1-item 14"),
-    pytest.param({"telemetry": "trace.jsonl"}, NotImplementedError,
-                 "item 14", id="kwargs2-item 14"),
+    pytest.param({"telemetry": 3}, TypeError, "telemetry must be",
+                 id="kwargs2-item 14"),
     # item 13's weighted stream is ported: on a graph without weights it
     # raises before a draw
     pytest.param({"stream": "weighted"}, ValueError, "needs a graph with "

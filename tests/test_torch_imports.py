@@ -248,3 +248,19 @@ def test_guard_walks_the_weighted_slice():
         tc.run_adaptive(g, stream="weighted")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tc.run_fixed(g, 4, stream="weighted")
+
+
+def test_guard_walks_the_runtime_slice():
+    """The import guard reaches the runtime's modules (events, telemetry,
+    faults, supervisor), and the spawned ranks of its tests import no
+    JAX either."""
+    assert {"repro_torch.runtime", "repro_torch.runtime.events",
+            "repro_torch.runtime.faults", "repro_torch.runtime.supervisor",
+            "repro_torch.runtime.telemetry"} <= set(_submodules())
+    path = SRC.parents[1] / "tests" / "_torch_runtime_ranks.py"
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else [node.module or ""])
+            assert not any(n.split(".")[0] in ("jax", "jaxlib", "repro")
+                           for n in names), (path.name, node.lineno)

@@ -25,6 +25,7 @@ import repro_torch.core as tc
 import repro_torch.kernels.frontier as tf
 from _torch_parity import np_, partitioned_to_port, to_port, wide_inputs
 from repro_torch.core import AdaptiveConfig, ShardMesh
+from repro_torch.runtime import InjectedFault
 
 CPU = "cpu"
 
@@ -327,6 +328,10 @@ def test_run_fixed_sharded_matches_the_replicated_lane():
         assert a.tau == b.tau == 40
 
 
+def _refuse(epoch, state):
+    raise InjectedFault(f"refused epoch {epoch}")
+
+
 def test_sharded_lane_raises():
     g = to_port(jc.grid_graph(8, 8))
     pg = tc.partition_graph(g, 2, block_v=16, block_e=128)
@@ -345,10 +350,12 @@ def test_sharded_lane_raises():
         tc.run_kadabra(g, mesh=mesh, device=CPU)
     with pytest.raises(TypeError, match="SamplerMesh"):
         tc.run_fixed(g, 8, mesh=mesh, device=CPU)
-    for kw, item in ((dict(on_epoch=print), "item 14"),
-                     (dict(telemetry="t.jsonl"), "item 14")):
-        with pytest.raises(NotImplementedError, match=item):
-            tc.run_adaptive(pg, mesh=mesh, **kw)
+    # item 14 is ported: a hook's refusal and a telemetry argument of no
+    # known form raise on the sharded lane too
+    with pytest.raises(InjectedFault, match="refused epoch 1"):
+        tc.run_adaptive(pg, mesh=mesh, on_epoch=_refuse)
+    with pytest.raises(TypeError, match="telemetry must be"):
+        tc.run_adaptive(pg, mesh=mesh, telemetry=3)
     # the weighted stream (item 13) needs a partition with weights
     with pytest.raises(ValueError, match="needs a graph with weights"):
         tc.run_adaptive(pg, mesh=mesh, stream="weighted")
