@@ -249,7 +249,30 @@ any failed phase.  Phases:
    within HYPER_EPS of exact Brandes (a rank that raises anything else,
    or a group that outlasts GROUP_TIMEOUT, fails the smoke).  (e) Last,
    ``torch_profiler_trace`` around one hyperbolic(1000) run: its trace
-   file parses, and its record count is logged.
+   file parses, and its record count is logged;
+20. the GNN cells, after [19]: (a) the molecule cell (128 molecules of
+   30 atoms, each molecule's 32 closest atom pairs as edges both ways:
+   8,192 edges, padded to 4,096 nodes; seeded positions, types and a
+   pair-potential target).  K4 over the batch's edge plan (ids =
+   arange(E), seg = dst) and its transpose at D = 3, 64, 288 and 1,152
+   as in [9] (bitwise on integer inputs, N(0, 1) float32 and bfloat16
+   within the order bound), timed at MACE's D = 1,152 beside its plain
+   version, its bound and ``torch.sparse.mm``.  Then EGNN, NequIP and
+   MACE at ``make_config()`` width and depth: a forward and MOL_STEPS =
+   3 AdamW steps through K4 (launches a forward and a step asserted:
+   EGNN 8 and 15, NequIP 5 and 10, MACE 2 and 4), the plain route's
+   forward (every output within MOL_FWD_REL of its largest entry) and
+   first step (loss, gradients, parameters as [10]) held against them,
+   the energy of the batch rotated by ``random_rotation(7)`` within
+   MOL_ROT_REL = 5e-4 of the largest; forward and step milliseconds and
+   peak memory.  EGNN once more with ``agg_dtype="bf16"`` (K4 on a
+   bfloat16 table): a forward and a step, its distance from the float32
+   forward within MOL_BF16_REL.  (b) GraphSAGE (graphsage-reddit) on the
+   minibatch_lg cell: ``NeighborSampler`` with 1,024 seeds and fanouts
+   15-10 on R-MAT 2^18 x 16 with (2^18, 602) float32 features, which
+   fills the cell's 169,984 nodes and 168,960 edges exactly; a forward
+   and one AdamW step through K4 (2 and 4 launches), held against the
+   plain route as [10].
 
 Every run resets the launch counts just before it and reads them just
 after: each kernel of the run must have carried all of its work.
@@ -396,6 +419,29 @@ GROUP_SHARDS, GROUP_MAX_EPOCHS, GROUP_TIMEOUT = 4, 2, 400
 # weighted ER(ER_N) at WER_EPS against exact weighted Brandes; R5's unit
 # grid of WGRID_SIDE^2
 WEIGHTED_EPS, WER_EPS, WGRID_SIDE = 0.03, 0.05, 64
+# the equivariant GNNs ([20]) on the molecule cell: MOL_GRAPHS molecules
+# of MOL_ATOMS atoms, each with the MOL_EDGES // 2 closest atom pairs as
+# edges both ways (a radius graph's edges, 8,192 in all), padded to the
+# cell's 4,096 nodes; MOL_STEPS AdamW steps a model.  The kernel route
+# is held against the plain route: the sums differ by order only, in
+# segments of ~2 entries, carried through 2-5 layers (MACE's cubic B3
+# included), so every output within MOL_FWD_REL of its tensor's largest
+# entry, the first step's loss within MOL_LOSS_RTOL and its gradients as
+# GraphSAGE's (GNN_GRAD_RTOL of each leaf's largest entry).  The energy
+# of the batch rotated by random_rotation(7) within MOL_ROT_REL of the
+# unrotated one's largest entry (the JAX test's 5e-4).  bf16 EGNN: its
+# distance from the float32 forward within MOL_BF16_REL of each output's
+# largest entry, the bound of its CPU test (there 3x the largest
+# distance of 4 seeds at the smoke width; the CPU's plain route was
+# 0.010 from float32 at this width and depth)
+MOL_GRAPHS, MOL_ATOMS, MOL_EDGES, MOL_STEPS = 128, 30, 64, 3
+MOL_FWD_REL, MOL_LOSS_RTOL, MOL_ROT_REL, MOL_BF16_REL = \
+    1e-4, 1e-4, 5e-4, 0.05
+# GraphSAGE on the minibatch_lg cell ([20b]): NeighborSampler's 1,024
+# seeds at fanouts 15-10 on a seeded R-MAT of 2^SAMPLER_SCALE nodes x
+# SAMPLER_EDGE_FACTOR, with (V, 602) float32 features on the host
+SAMPLER_SCALE, SAMPLER_EDGE_FACTOR = 18, 16
+SAMPLER_SEEDS, SAMPLER_FANOUTS = 1024, (15, 10)
 GROUP_SETTINGS = ("DEVICE", "SEED", "RMAT_SCALE", "EDGE_FACTOR", "BATCH",
                   "MAIN_EPS", "MAIN_DELTA", "HYPER_N", "HYPER_EPS",
                   "HYPER_BLOCK_V", "GROUP_SHARDS", "GROUP_MAX_EPOCHS")
@@ -1317,15 +1363,14 @@ def kernel_only(label: str, name: str, want: int) -> dict:
     return counts
 
 
-def check_first_step(logits, plain_logits, loss, plain_loss, params,
-                     plain_params, m, plain_m, opt) -> None:
-    """The kernel route's forward and first step against the plain
-    route's: logits, loss, each leaf's gradient (m = (1 - b1) g after one
-    step) at GNN_GRAD_RTOL of its largest entry, and each parameter within
-    lr |dg| / eps of the other (plus float32 rounding)."""
-    import torch
+def step_gaps(params, plain_params, m, plain_m, opt) -> tuple:
+    """The kernel route's first AdamW step against the plain route's:
+    the largest gradient gap (m = (1 - b1) g after one step) as a share
+    of its leaf's largest entry, the largest parameter gap, and the
+    largest parameter gap as a share of the lr |dg| / eps bound (plus
+    float32 rounding): Adam's first update g / (|g| + eps) moves by up to
+    |dg| / eps where |g| is near eps."""
     from repro_torch.tree import tree_leaves
-    logit_gap = float((logits - plain_logits).abs().max())
     grad_ratio, param_excess, param_gap = 0.0, 0.0, 0.0
     for p, pp, g, gp in zip(tree_leaves(params), tree_leaves(plain_params),
                             tree_leaves(m), tree_leaves(plain_m)):
@@ -1338,6 +1383,19 @@ def check_first_step(logits, plain_logits, loss, plain_loss, params,
         gap = (p - pp).abs()
         param_gap = max(param_gap, float(gap.max()))
         param_excess = max(param_excess, float((gap / allowed).max()))
+    return grad_ratio, param_gap, param_excess
+
+
+def check_first_step(logits, plain_logits, loss, plain_loss, params,
+                     plain_params, m, plain_m, opt) -> None:
+    """The kernel route's forward and first step against the plain
+    route's: logits, loss, each leaf's gradient at GNN_GRAD_RTOL of its
+    largest entry, and each parameter within lr |dg| / eps of the other
+    (plus float32 rounding)."""
+    import torch
+    logit_gap = float((logits - plain_logits).abs().max())
+    grad_ratio, param_gap, param_excess = step_gaps(
+        params, plain_params, m, plain_m, opt)
     log(f"  kernel route vs plain route: logits max |diff| {logit_gap:.3g} "
         f"(rtol {GNN_LOGIT_RTOL}, atol {GNN_LOGIT_ATOL}); first-step loss "
         f"{loss:.7f} vs {plain_loss:.7f} (rtol {GNN_LOSS_RTOL}); gradients: "
@@ -4180,6 +4238,390 @@ def phase_runtime(main_res, main_counts: dict) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# [20] the equivariant GNNs on the molecule cell, GraphSAGE on minibatch_lg
+# ---------------------------------------------------------------------------
+
+def molecule_batch(rot=None):
+    """The molecule cell's batch: MOL_GRAPHS molecules of MOL_ATOMS atoms
+    (positions N(0, 1.5^2), 4 atom types, as the molecules example), each
+    molecule's MOL_EDGES // 2 closest atom pairs as edges both ways, a
+    pair-potential energy target; padded to the cell's nodes.  ``rot``
+    rotates the positions (the target is invariant)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs._families import GNN_SHAPES
+    from repro_torch.models.gnn import GraphBatch
+    cell = GNN_SHAPES["molecule"]
+    rng = np.random.default_rng((SEED, 0))
+    g, a = MOL_GRAPHS, MOL_ATOMS
+    n, pn = g * a, cell["nodes"]
+    pos = rng.standard_normal((g, a, 3)) * 1.5
+    z = rng.integers(0, 4, n)
+    iu, ju = np.triu_indices(a, 1)
+    d = np.linalg.norm(pos[:, iu] - pos[:, ju], axis=-1)     # (g, pairs)
+    near = np.argsort(d, axis=1, kind="stable")[:, :MOL_EDGES // 2]
+    off = (np.arange(g) * a)[:, None]
+    i, j = (iu[near] + off).reshape(-1), (ju[near] + off).reshape(-1)
+    src, dst = np.concatenate([i, j]), np.concatenate([j, i])
+    pos = pos.reshape(n, 3)
+    gid = np.repeat(np.arange(g), a)
+    y = np.zeros(g)
+    np.add.at(y, gid[src], 0.5 * np.exp(-np.linalg.norm(
+        pos[src] - pos[dst], axis=1)))
+    if rot is not None:
+        pos = pos @ rot.T
+    if len(src) != cell["edges"] or n > pn:
+        raise AssertionError(f"molecule batch: {n} nodes and {len(src)} "
+                             f"edges for the cell's {pn} and "
+                             f"{cell['edges']}")
+
+    def put(x, dtype, fill=0):
+        full = np.full((pn, *np.shape(x)[1:]), fill, dtype)
+        full[:len(x)] = x
+        return torch.from_numpy(full).to(DEVICE)
+
+    return GraphBatch(
+        x=torch.zeros((pn, cell["d_feat"]), device=DEVICE),
+        z=put(z, np.int32), pos=put(pos, np.float32),
+        src=torch.from_numpy(src.astype(np.int32)).to(DEVICE),
+        dst=torch.from_numpy(dst.astype(np.int32)).to(DEVICE),
+        edge_mask=torch.ones(len(src), device=DEVICE),
+        node_mask=put(np.ones(n), np.float32),
+        labels=torch.zeros(pn, dtype=torch.int32, device=DEVICE),
+        graph_id=put(gid, np.int32),
+        y=torch.from_numpy(y.astype(np.float32)).to(DEVICE), n_graphs=g)
+
+
+def k4_calls(name: str, cfg) -> tuple:
+    """K4's launches (a forward, a training step) by the models' design.
+    EGNN: a layer's message sum and coordinate mean forward; backward,
+    every message sum's transposed call and the coordinate means' of all
+    layers but the last, whose positions reach no loss.  NequIP and
+    MACE: one call a layer each way (l = 0, 1, 2 in one)."""
+    layers = cfg.n_layers
+    if name.startswith("egnn") and cfg.update_pos:
+        return 2 * layers, 4 * layers - 1
+    return layers, 2 * layers
+
+
+def model_outputs(name: str, out, params) -> list:
+    """(label, tensor) of a forward; the energy last (EGNN: h @ head)."""
+    if name.startswith("egnn"):
+        return [("h", out[0]), ("pos", out[1]),
+                ("energy", out[0].float() @ params["head"])]
+    feats, energy = out
+    return [(f"feats[{l}]", feats[l]) for l in sorted(feats)] + \
+        [("energy", energy)]
+
+
+def rel_gap(got, want) -> float:
+    return float((got.float() - want.float()).abs().max()) / max(
+        float(want.float().abs().max()), 1e-30)
+
+
+def check_segsum_edge_plan(batch) -> dict:
+    """K4 over the molecule batch's edge plan (ids = arange(E), seg =
+    dst, no hot tier) and its transpose (every segment one entry) at
+    EGNN's coordinate and message widths, NequIP's 32 x 9 and MACE's 128
+    x 9; then timed at MACE's width beside its plain version, its bound
+    and ``torch.sparse.mm``."""
+    import torch
+    from repro_torch.kernels.segsum import (gather_segment_sum_cuda,
+                                            gather_segment_sum_ref)
+    plan = batch.edge_plan()
+    ids, e, v = batch.edge_ids(), batch.n_edges, batch.n_nodes
+    err = 0.0
+    for d in (3, 64, 288, 1152):
+        err = max(err, check_segsum_call(f"edge plan D={d}", ids, batch.dst,
+                                         batch.edge_mask, v, e, d, plan),
+                  check_segsum_call(f"edge plan D={d} transposed",
+                                    batch.dst, ids, batch.edge_mask, e, v,
+                                    d, plan.transpose))
+    d = 1152
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    table = torch.randn((e, d), generator=gen, device=DEVICE)
+    cot = torch.randn((v, d), generator=gen, device=DEVICE)
+    args = (ids, batch.dst, batch.edge_mask, table, v)
+    ms = cuda_time_ms(lambda: gather_segment_sum_cuda(*args, plan), 50)
+    back_ms = cuda_time_ms(lambda: gather_segment_sum_cuda(
+        batch.dst, ids, batch.edge_mask, cot, e, plan.transpose), 50)
+    plain = cuda_time_ms(lambda: gather_segment_sum_ref(*args), 20)
+    csr = torch.sparse_csr_tensor(plan.offsets, plan.sorted_ids().long(),
+                                  plan.weights_in_order(batch.edge_mask),
+                                  (v, e), check_invariants=True)
+    lib_ms = cuda_time_ms(lambda: torch.sparse.mm(csr, table), 20)
+    b_ms, b_by = bound(segsum_bytes(plan, d, 4), 2.0 * e * d)
+    log(f"  segsum at MACE's layer call (E={e}, N={v}, D={d} float32): "
+        f"{ms:.4f} ms ({back_ms:.4f} ms transposed), plain {plain:.4f} ms, "
+        f"torch.sparse.mm {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return {"molecule_max_abs_err": err, "molecule_ms": ms,
+            "molecule_transposed_ms": back_ms, "molecule_plain_ms": plain,
+            "molecule_bound_ms": b_ms, "molecule_bound_by": b_by,
+            "molecule_library_ms": lib_ms,
+            "molecule_shape": f"edge plan of the molecule cell: N={e} "
+                              f"entries, S={v}, V1={e}, D={d} float32"}
+
+
+def run_molecule_model(name: str, cfg, fns, batch, rotated) -> tuple:
+    """One model on the molecule batch: a counted forward, MOL_STEPS
+    counted AdamW steps, the plain route's forward and first step held
+    against them, the rotated batch's energy; times and peak memory
+    logged.  Returns the path's launch counts and a function that takes
+    one more step (for the profile)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.segsum import SEGSUM
+    from repro_torch.optim import AdamWConfig, init_state
+    from repro_torch.train import make_train_step
+    init, fwd, loss = fns
+    per_fwd, per_step = k4_calls(name, cfg)
+    params0 = init(torch.Generator().manual_seed(SEED), cfg, device=DEVICE)
+    opt = AdamWConfig()
+    with torch.no_grad():
+        fwd(params0, batch, cfg)          # pays one-time library set-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = fwd(params0, batch, cfg)
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    counts = kernel_only(f"{name} forward", SEGSUM, per_fwd)
+    outs = model_outputs(name, out, params0)
+    for label, t in outs:
+        if not bool(torch.isfinite(t.float()).all()):
+            raise AssertionError(f"{name}: {label} not finite")
+
+    step = make_train_step(lambda p, b: loss(p, b, cfg), opt)
+    params, state = params0, init_state(params0)
+    reset_counts()
+    losses, step_ms = [], []
+    for i in range(MOL_STEPS):
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, batch)
+        losses.append(float(metrics["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            params1, state1 = clone_tree(params), clone_tree(state)
+    train = kernel_only(f"{name} train", SEGSUM, per_step * MOL_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{name}: loss not finite: {losses}")
+
+    reset_counts()
+    with torch.no_grad():
+        plain = fwd(params0, batch, cfg, use_kernel=False)
+        rot = fwd(params0, rotated, cfg)
+    plain_step = make_train_step(
+        lambda p, b: loss(p, b, cfg, use_kernel=False), opt)
+    plain_params1, plain_state1, plain_m = plain_step(
+        params0, init_state(params0), batch)
+    torch.cuda.synchronize()
+    kernel_only(f"{name} plain route and rotation", SEGSUM, per_fwd)
+    fwd_gaps = {label: rel_gap(t, p) for (label, t), (_, p) in
+                zip(outs, model_outputs(name, plain, params0))}
+    loss_gap = abs(losses[0] - float(plain_m["loss"])) / abs(
+        float(plain_m["loss"]))
+    grad_ratio, param_gap, param_excess = step_gaps(
+        params1, plain_params1, state1["m"], plain_state1["m"], opt)
+    energy = outs[-1][1]
+    rot_gap = rel_gap(model_outputs(name, rot, params0)[-1][1], energy)
+    log(f"  {name}: forward {fwd_ms:.2f} ms, {MOL_STEPS} AdamW steps "
+        + ", ".join(f"{x:.2f}" for x in step_ms) + " ms; loss "
+        + ", ".join(f"{x:.6g}" for x in losses) + f"; K4 launches "
+        f"{counts[SEGSUM]} a forward, {train[SEGSUM] // MOL_STEPS} a step; "
+        f"peak memory {peak / 2**20:.1f} MiB")
+    log(f"  {name} kernel vs plain route: outputs "
+        + ", ".join(f"{k} {v:.3g}" for k, v in fwd_gaps.items())
+        + f" of their largest entry (limit {MOL_FWD_REL}); first-step "
+        f"loss {loss_gap:.3g} (limit {MOL_LOSS_RTOL}); gradients "
+        f"{grad_ratio:.3g} of a leaf's largest entry (limit "
+        f"{GNN_GRAD_RTOL}); params max |diff| {param_gap:.3g}, "
+        f"{param_excess:.3g} of the lr |dg| / eps bound; rotated energy "
+        f"{rot_gap:.3g} of the largest (limit {MOL_ROT_REL})")
+    if not (max(fwd_gaps.values()) <= MOL_FWD_REL
+            and loss_gap <= MOL_LOSS_RTOL and grad_ratio <= GNN_GRAD_RTOL
+            and param_excess <= 1.0 and rot_gap <= MOL_ROT_REL):
+        raise AssertionError(f"{name}: beyond the stated tolerances")
+    return {k: counts[k] + train[k] for k in counts}, \
+        lambda: step(params, state, batch)
+
+
+def phase_gnn_cells() -> tuple:
+    """[20]: (a) the molecule cell's K4 calls and the three equivariant
+    models at full width (EGNN once more in bf16); (b) GraphSAGE on a
+    NeighborSampler batch of the minibatch_lg cell.  Returns (K4's extra
+    row entries, the paths' launch counts)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import egnn, graphsage_reddit, mace, nequip
+    from repro_torch.configs._families import GNN_SHAPES
+    from repro_torch.core import rmat_graph
+    from repro_torch.data import NeighborSampler
+    from repro_torch.kernels.segsum import SEGSUM
+    from repro_torch.models import gnn
+    from repro_torch.models.gnn import irreps
+    from repro_torch.optim import AdamWConfig, init_state
+    from repro_torch.train import make_train_step
+    import dataclasses
+    t0 = time.perf_counter()
+    batch = molecule_batch()
+    rotated = molecule_batch(irreps.random_rotation(7))
+    log(f"[20a] molecule cell: {MOL_GRAPHS} molecules x {MOL_ATOMS} atoms, "
+        f"{batch.n_edges} edges, padded to {batch.n_nodes} nodes (built in "
+        f"{time.perf_counter() - t0:.2f} s)")
+    row = check_segsum_edge_plan(batch)
+    paths, steps = {}, {}
+    models = (("egnn", egnn), ("nequip", nequip), ("mace", mace))
+    for name, mod in models:
+        cfg = mod.cfg_for_shape(mod.make_config(), GNN_SHAPES["molecule"])
+        fns = tuple(getattr(gnn, f"{name}_{w}")
+                    for w in ("init", "forward", "loss"))
+        log(f"  {name}: {cfg}")
+        paths[f"molecule_{name}"], steps[name] = run_molecule_model(
+            name, cfg, fns, batch, rotated)
+        if name == "egnn":
+            egnn_cfg, egnn_fns = cfg, fns
+
+    # EGNN in bf16: a counted forward and step, the distance from float32
+    cfg = dataclasses.replace(egnn_cfg, agg_dtype="bf16")
+    init, fwd, loss = egnn_fns
+    per_fwd, per_step = k4_calls("egnn", cfg)
+    params0 = init(torch.Generator().manual_seed(SEED), cfg, device=DEVICE)
+    step = make_train_step(lambda p, b: loss(p, b, cfg), AdamWConfig())
+    with torch.no_grad():
+        fwd(params0, batch, cfg)            # the bf16 GEMMs' set-up
+    step(params0, init_state(params0), batch)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = fwd(params0, batch, cfg)
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    fwd_counts = kernel_only("egnn bf16 forward", SEGSUM, per_fwd)
+    reset_counts()
+    t0 = time.perf_counter()
+    _, _, metrics = step(params0, init_state(params0), batch)
+    step_loss = float(metrics["loss"])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    step_counts = kernel_only("egnn bf16 train", SEGSUM, per_step)
+    paths["molecule_egnn_bf16"] = {k: fwd_counts[k] + step_counts[k]
+                                   for k in fwd_counts}
+    with torch.no_grad():
+        f32 = fwd(params0, batch, egnn_cfg)
+    gaps = {label: rel_gap(t, w) for (label, t), (_, w) in zip(
+        model_outputs("egnn", out, params0),
+        model_outputs("egnn", f32, params0))}
+    log(f"  egnn bf16: forward {fwd_ms:.2f} ms, a step {step_ms:.2f} ms "
+        f"(loss {step_loss:.6g}); K4 launches {fwd_counts[SEGSUM]} a "
+        f"forward (bf16 message sums, float32 coordinate means), "
+        f"{step_counts[SEGSUM]} a step; distance from the float32 forward: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in gaps.items())
+        + f" of the largest entry (bound {MOL_BF16_REL})")
+    if not (np.isfinite(step_loss) and max(gaps.values()) <= MOL_BF16_REL):
+        raise AssertionError("egnn bf16: beyond its bound")
+    del batch, rotated
+    torch.cuda.empty_cache()
+
+    # (b) GraphSAGE on a sampled minibatch_lg batch
+    cell = GNN_SHAPES["minibatch_lg"]
+    t0 = time.perf_counter()
+    graph = rmat_graph(SAMPLER_SCALE, SAMPLER_EDGE_FACTOR, seed=SEED,
+                       device=DEVICE)
+    rng = np.random.default_rng(SEED)
+    feats = rng.standard_normal((graph.n_nodes, cell["d_feat"]),
+                                dtype=np.float32)
+    labels = rng.integers(0, cell["classes"], graph.n_nodes).astype(
+        np.int32)
+    build_s = time.perf_counter() - t0
+    sampler = NeighborSampler(graph, SAMPLER_FANOUTS, SAMPLER_SEEDS,
+                              seed=SEED)
+    t0 = time.perf_counter()
+    sub = sampler.sample(0)
+    sample_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sbatch = sampler.to_graph_batch(sub, feats, labels,
+                                    n_classes=cell["classes"],
+                                    pad_nodes=cell["nodes"],
+                                    pad_edges=cell["edges"], device=DEVICE)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    del feats
+    if (sampler.total_nodes, sampler.total_edges) != (cell["nodes"],
+                                                      cell["edges"]):
+        raise AssertionError("the sampler does not fill the minibatch_lg "
+                             "cell exactly")
+    log(f"[20b] GraphSAGE on the minibatch_lg cell: R-MAT 2^{SAMPLER_SCALE}"
+        f" x {SAMPLER_EDGE_FACTOR} (E={graph.n_edges}) and (V, "
+        f"{cell['d_feat']}) float32 features in {build_s:.2f} s; "
+        f"NeighborSampler {SAMPLER_SEEDS} seeds, fanouts {SAMPLER_FANOUTS}: "
+        f"sample {sample_s * 1e3:.1f} ms, batch {batch_s * 1e3:.1f} ms "
+        f"({sbatch.n_nodes} nodes, {sbatch.n_edges} edges, "
+        f"{int(sbatch.edge_mask.sum())} live)")
+    del graph
+    cfg = graphsage_reddit.cfg_for_shape(graphsage_reddit.make_config(), cell)
+    params0 = gnn.sage_init(torch.Generator().manual_seed(SEED), cfg,
+                            device=DEVICE)
+    opt = AdamWConfig()
+    step = make_train_step(lambda p, b: gnn.sage_loss(p, b, cfg), opt)
+    with torch.no_grad():
+        gnn.sage_forward(params0, sbatch, cfg)        # plans and set-up
+    step(params0, init_state(params0), sbatch)        # autograd set-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits = gnn.sage_forward(params0, sbatch, cfg)
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    fwd_counts = kernel_only("graphsage minibatch forward", SEGSUM,
+                             cfg.n_layers)
+    reset_counts()
+    t0 = time.perf_counter()
+    params1, state1, m1 = step(params0, init_state(params0), sbatch)
+    loss1 = float(m1["loss"])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    step_counts = kernel_only("graphsage minibatch train", SEGSUM,
+                              2 * cfg.n_layers)
+    paths["graphsage_minibatch_lg"] = {k: fwd_counts[k] + step_counts[k]
+                                       for k in fwd_counts}
+    log(f"  graphsage-reddit on it: forward {fwd_ms:.2f} ms, an AdamW step "
+        f"{step_ms:.2f} ms (loss {loss1:.6f}); K4 launches "
+        f"{fwd_counts[SEGSUM]} a forward, {step_counts[SEGSUM]} a step")
+    reset_counts()
+    with torch.no_grad():
+        plain_logits = gnn.sage_forward(params0, sbatch, cfg,
+                                        use_kernel=False)
+    plain_params1, plain_state1, plain_m = make_train_step(
+        lambda p, b: gnn.sage_loss(p, b, cfg, use_kernel=False), opt)(
+        params0, init_state(params0), sbatch)
+    torch.cuda.synchronize()
+    kernel_only("graphsage minibatch plain route", SEGSUM, 0)
+    check_first_step(logits, plain_logits, loss1, float(plain_m["loss"]),
+                     params1, plain_params1, state1["m"], plain_state1["m"],
+                     opt)
+    # last, after every timed run (a profiler session leaves overhead on
+    # later launches): a step of each model under the profiler, device
+    # time by kernel and idle share of the second of two
+    for name, fn in steps.items():
+        rows, wall_ms = profile_twice(fn)
+        busy = sum(r[0] for r in rows)
+        k4 = sum(r[0] for r in rows if "segsum" in r[2])
+        log(f"  {name} profile of one molecule step: wall {wall_ms:.2f} ms, "
+            f"device busy {busy:.2f} ms, idle share "
+            f"{1 - busy / wall_ms:.3f}, {sum(r[1] for r in rows)} kernel "
+            f"launches; K4 {k4:.3f} ms ({k4 / max(busy, 1e-9):.1%} of device "
+            "time); the largest: "
+            + "; ".join(f"{ms:.3f} ms x{calls} {key[:48]}" for ms, calls, key
+                        in sorted(rows, reverse=True)[:3]))
+    return row, paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4361,6 +4803,16 @@ def main() -> int:
         f"{RUNTIME_RANKS}) -> 2 -> SamplerMesh(2) -> single across "
         f"{RUNTIME_RANKS} ranks, a torch.profiler trace")
     paths["rmat_telemetry"] = phase_runtime(main_res, paths["rmat_bidir"])
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    log("[20] GNN cells: EGNN, NequIP and MACE at full width on the molecule "
+        "cell (K4 over the edge plan), EGNN in bf16; GraphSAGE on a "
+        "NeighborSampler batch of the minibatch_lg cell")
+    k4_row, gnn_paths = phase_gnn_cells()
+    paths.update(gnn_paths)
+    next(r for r in rows if r["name"] == SEGSUM).update(k4_row)
+    log(f"  [20] took {time.perf_counter() - t0:.1f} s")
 
     # each row's launches: the run of the path that row's kernel carries;
     # the node-blocked rows' words pass beside it

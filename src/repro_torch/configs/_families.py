@@ -1,8 +1,8 @@
-"""The port's copy of the cell shapes it uses
-(``repro.configs._families``): the LM cells and the full-batch GNN
-classification cells.  ``minibatch_lg`` waits for the neighbour sampler
-and ``molecule`` for the equivariant models; the registry and
-``ArchDef`` wait for their slice."""
+"""The port's copy of the cell shapes (``repro.configs._families``): the
+LM cells and every GNN cell (full-batch classification, the
+neighbour-sampled ``minibatch_lg`` and the batched ``molecule``
+regression).  The registry, ``ArchDef`` and the family builders wait
+for their slice, with ``launch/dryrun.py``."""
 
 __all__ = ["GNN_SHAPES", "LM_SHAPES"]
 
@@ -19,8 +19,17 @@ GNN_SHAPES = {
     "full_graph_sm": dict(nodes=3072, edges=21504, d_feat=1433, classes=7,
                           graphs=1, task="cls",
                           logical="n_nodes=2,708 n_edges=10,556"),
+    # reddit neighbor-sampled: 1024 seeds, fanout 15-10
+    "minibatch_lg": dict(nodes=169984, edges=168960, d_feat=602, classes=41,
+                         graphs=1, task="cls",
+                         logical="n_nodes=232,965 n_edges=114,615,892 "
+                                 "batch_nodes=1,024 fanout=15-10"),
     # ogbn-products full batch
     "ogb_products": dict(nodes=2449408, edges=61865984, d_feat=100,
                          classes=47, graphs=1, task="cls",
                          logical="n_nodes=2,449,029 n_edges=61,859,140"),
+    # 128 molecules x 30 atoms / 64 edges
+    "molecule": dict(nodes=4096, edges=8192, d_feat=1, classes=0,
+                     graphs=128, task="reg",
+                     logical="n_nodes=30 n_edges=64 batch=128"),
 }

@@ -1,4 +1,4 @@
 """Data pipeline of the port (``repro.data``)."""
-from .pipeline import graph_to_batch
+from .pipeline import NeighborSampler, PrefetchIterator, graph_to_batch
 
-__all__ = ["graph_to_batch"]
+__all__ = ["NeighborSampler", "PrefetchIterator", "graph_to_batch"]

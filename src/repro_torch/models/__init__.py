@@ -1,2 +1,2 @@
-"""Models of the port (``repro.models``): GraphSAGE and the dense LM's
-serving path so far."""
+"""Models of the port (``repro.models``): the four GNNs and the dense
+LM's serving path so far."""

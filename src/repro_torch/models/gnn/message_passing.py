@@ -8,9 +8,15 @@ package, which sums with ``jax.ops.segment_sum``: :func:`scatter_mean`
 runs its gather and sum as one call of the ``gather_segment_sum``
 dispatcher, which on the card is the hand-written kernel K4.  The mask
 products are exact (x1.0 or x0.0), so only the order of the sum differs.
+The equivariant models' masked sums of per-edge messages,
+``scatter_dst(m * edge_mask[:, None], dst, n)`` and ``scatter_mean(m,
+dst, n, edge_mask)`` in the JAX package, are :func:`scatter_edges` and
+:func:`scatter_edges_mean`: one ``gather_segment_sum(arange(E), dst,
+edge_mask, m, n)`` call each, over the batch's second (edge) plan.
 
-The explicit-collective (sharded) helpers of the JAX module wait for the
-port's sharded lane.
+The explicit-collective (sharded) helpers of the JAX module,
+``sharded_layer_collectives`` and ``sharded_aggregate``, wait for the
+rest of the sharded lane (ROADMAP item 12).
 """
 from __future__ import annotations
 
@@ -22,7 +28,8 @@ from ...device import resolve_device
 from ...kernels.segsum import SegmentPlan, build_plan, gather_segment_sum
 
 __all__ = ["GraphBatch", "gather_src", "graph_regression_loss",
-           "node_classification_loss", "scatter_dst", "scatter_mean"]
+           "node_classification_loss", "scatter_dst", "scatter_edges",
+           "scatter_edges_mean", "scatter_mean"]
 
 
 @dataclasses.dataclass
@@ -41,8 +48,9 @@ class GraphBatch:
     n_graphs  : int
 
     The batch caches, once each, the segment plan of its edges (src to
-    dst, with the dst-to-src plan as its transpose) and the masked
-    in-degree that :func:`scatter_mean` divides by.
+    dst, with the dst-to-src plan as its transpose), the plan of its
+    edge rows (edge i to dst[i]) and the masked in-degree that the means
+    divide by.
     """
     x: torch.Tensor
     z: torch.Tensor
@@ -85,6 +93,24 @@ class GraphBatch:
                                              self.n_nodes, self.n_nodes)
         return self._cache["plan"]
 
+    def edge_ids(self) -> torch.Tensor:
+        """(E,) int32 ``arange(E)``: the ids of the edge-row plan."""
+        if "edge_ids" not in self._cache:
+            self._cache["edge_ids"] = torch.arange(
+                self.n_edges, dtype=torch.int32, device=self.dst.device)
+        return self._cache["edge_ids"]
+
+    def edge_plan(self) -> SegmentPlan:
+        """The plan of (ids=arange(E), seg=dst): per-edge message rows
+        summed into their destinations; its transpose (every segment one
+        entry) carries the gradient back to the edge rows.  No hot tier:
+        each edge row is read once.  Built on first use."""
+        if "edge_plan" not in self._cache:
+            self._cache["edge_plan"] = build_plan(
+                self.edge_ids(), self.dst, self.n_nodes, self.n_edges,
+                hot_rows=0)
+        return self._cache["edge_plan"]
+
     def in_count(self) -> torch.Tensor:
         """(N, 1) float32: the masked in-degree of every node."""
         if "in_count" not in self._cache:
@@ -114,6 +140,26 @@ def scatter_mean(h, batch: GraphBatch, *, use_kernel=None):
     n = batch.n_nodes
     s = gather_segment_sum(batch.src, batch.dst, batch.edge_mask, h, n,
                            plan=batch.segment_plan(), use_kernel=use_kernel)
+    return s / torch.clamp(batch.in_count(), min=1.0)
+
+
+def scatter_edges(msgs, batch: GraphBatch, *, use_kernel=None):
+    """Masked edge-to-node sum of per-edge messages ``msgs`` (E, D):
+    the JAX package's ``scatter_dst(msgs * edge_mask[:, None], dst, n)``
+    as one ``gather_segment_sum(arange(E), dst, edge_mask, msgs, n)``
+    call over the batch's edge plan (``use_kernel`` as there).  Float32
+    accumulation, rounded once to ``msgs.dtype``."""
+    return gather_segment_sum(batch.edge_ids(), batch.dst, batch.edge_mask,
+                              msgs, batch.n_nodes, plan=batch.edge_plan(),
+                              use_kernel=use_kernel)
+
+
+def scatter_edges_mean(msgs, batch: GraphBatch, *, use_kernel=None):
+    """Mean of per-edge messages over every node's masked in-edges: the
+    JAX package's ``scatter_mean(msgs, dst, n, edge_mask)``.  One
+    :func:`scatter_edges` call over the batch's cached
+    :meth:`GraphBatch.in_count`."""
+    s = scatter_edges(msgs, batch, use_kernel=use_kernel)
     return s / torch.clamp(batch.in_count(), min=1.0)
 
 

@@ -264,3 +264,39 @@ def test_guard_walks_the_runtime_slice():
                      if isinstance(node, ast.Import) else [node.module or ""])
             assert not any(n.split(".")[0] in ("jax", "jaxlib", "repro")
                            for n in names), (path.name, node.lineno)
+
+
+def test_guard_walks_the_gnn_slice():
+    """The import guard reaches the equivariant models, the irreps and
+    the sampler; the card's [20] scripts name no JAX; without a card the
+    GNN entry points raise unless the CPU is asked for."""
+    assert {"repro_torch.models.gnn.irreps", "repro_torch.models.gnn.models",
+            "repro_torch.configs.egnn", "repro_torch.configs.nequip",
+            "repro_torch.configs.mace",
+            "repro_torch.data.pipeline"} <= set(_submodules())
+    root = SRC.parents[1]
+    for path in (root / "tools" / "gnn_phase.py",
+                 root / "tools" / "sage_forward_probe.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, (ast.Import, ast.ImportFrom)):
+                names = ([a.name for a in node.names]
+                         if isinstance(node, ast.Import)
+                         else [node.module or ""])
+                assert not any(n.split(".")[0] in ("jax", "jaxlib", "repro")
+                               for n in names), (path.name, node.lineno)
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from repro_torch.configs import egnn, mace, nequip
+    from repro_torch.models import gnn
+    for name, mod in (("egnn", egnn), ("nequip", nequip), ("mace", mace)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            getattr(gnn, f"{name}_init")(torch.Generator().manual_seed(0),
+                                         mod.make_smoke_config())
+    from repro_torch.data import NeighborSampler
+    graph = tc.grid_graph(4, 4, device="cpu")
+    sampler = NeighborSampler(graph, (2,), 3)
+    feats = torch.zeros(16, 2).numpy()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sampler.to_graph_batch(sampler.sample(0), feats,
+                               torch.zeros(16, dtype=torch.int32).numpy(),
+                               n_classes=2)

@@ -821,6 +821,135 @@ def test_graphsage_on_the_card_matches_the_cpu(cuda):
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
 
 
+def _molecule_edges(n_mol, atoms, per_mol, device, seed=0):
+    """The equivariant models' edge layout at the molecule cell's shape:
+    ``per_mol`` directed edges in each molecule, dst unsorted."""
+    gen = torch.Generator().manual_seed(seed)
+    off = torch.arange(n_mol).repeat_interleave(per_mol) * atoms
+    src = torch.randint(0, atoms, (n_mol * per_mol,), generator=gen) + off
+    dst = torch.randint(0, atoms, (n_mol * per_mol,), generator=gen) + off
+    return src.to(torch.int32).to(device), dst.to(torch.int32).to(device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [3, 64, 288, 1152])
+def test_segsum_kernel_on_the_edge_plan(cuda, d, dtype):
+    """K4 at the equivariant models' shapes: the identity-id edge plan
+    (ids = arange(E), seg = dst, no hot tier) of 128 molecules x 64
+    edges over 4,096 nodes, and its transpose (every segment one entry),
+    at EGNN's coordinate (3) and message (64) widths, NequIP's (32 x 9)
+    and MACE's (128 x 9).  Integer-valued tables and a 0/1 mask: bitwise
+    the plain version, both ways."""
+    e, n = 128 * 64, 4096
+    src, dst = _molecule_edges(128, 30, 64, cuda)
+    ids = torch.arange(e, dtype=torch.int32, device=cuda)
+    gen = torch.Generator().manual_seed(d)
+    w = (torch.rand(e, generator=gen) < 0.9).float().to(cuda)
+    plan = tk.build_plan(ids, dst, n, e, hot_rows=0)
+    assert plan.n_hot == 0 and plan.n_items == 0
+    assert bool((torch.diff(plan.transpose.offsets) == 1).all())
+    msgs = torch.randint(-8, 9, (e, d), generator=gen).float().to(
+        device=cuda, dtype=dtype)
+    cot = torch.randint(-8, 9, (n, d), generator=gen).float().to(
+        device=cuda, dtype=dtype)
+    tk.reset_launch_counts()
+    got = tk.gather_segment_sum_cuda(ids, dst, w, msgs, n, plan)
+    back = tk.gather_segment_sum_cuda(dst, ids, w, cot, e, plan.transpose)
+    torch.cuda.synchronize()
+    assert tk.launch_counts[tk.SEGSUM] == 2
+    assert got.dtype == back.dtype == dtype
+    assert torch.equal(got, tk.gather_segment_sum_ref(ids, dst, w, msgs, n))
+    assert torch.equal(back, tk.gather_segment_sum_ref(dst, ids, w, cot, e))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segsum_kernel_on_the_edge_plan_gaussian(cuda, dtype):
+    """An N(0, 1) table at MACE's width: within the summation-order bound
+    of the plain version (bf16: plus one rounding of each side), two
+    calls the same bits."""
+    e, n, d = 128 * 64, 4096, 1152
+    src, dst = _molecule_edges(128, 30, 64, cuda, seed=1)
+    ids = torch.arange(e, dtype=torch.int32, device=cuda)
+    w = torch.ones(e, device=cuda)
+    plan = tk.build_plan(ids, dst, n, e, hot_rows=0)
+    msgs = torch.randn(e, d, device=cuda).to(dtype)
+    a = tk.gather_segment_sum_cuda(ids, dst, w, msgs, n, plan)
+    b = tk.gather_segment_sum_cuda(ids, dst, w, msgs, n, plan)
+    want = tk.gather_segment_sum_ref(ids, dst, w, msgs, n).float()
+    deg = torch.bincount(dst.long(), minlength=n).float()[:, None]
+    tol = 2.0 * deg * 2.0 ** -24 * tk.gather_segment_sum_ref(
+        ids, dst, w, msgs.float().abs(), n)
+    if dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -8 * (2.0 * want.abs() + tol)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert bool(((a.float() - want).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("name", ["egnn", "egnn_bf16", "nequip", "mace"])
+def test_equivariant_model_on_the_card_matches_the_cpu(cuda, name):
+    """A smoke-size forward and training step through K4 (launches as the
+    design counts them) against the same on the CPU's plain route."""
+    import dataclasses as dc
+    from repro_torch.models import gnn as tg
+    from repro_torch.optim import AdamWConfig, init_state
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+    base = name.split("_")[0]
+    cfg = {"egnn": tg.EgnnConfig(n_layers=2, d_hidden=16),
+           "nequip": tg.NequipConfig(n_layers=2, d_hidden=8),
+           "mace": tg.MaceConfig(n_layers=2, d_hidden=8)}[base]
+    if name == "egnn_bf16":
+        cfg = dc.replace(cfg, agg_dtype="bf16")
+    n_mol, atoms = 8, 10
+    src, dst = _molecule_edges(n_mol, atoms, 40, "cpu", seed=3)
+    gen = torch.Generator().manual_seed(4)
+    n = n_mol * atoms
+    batch = tg.GraphBatch(
+        x=torch.zeros(n, 1), z=torch.randint(0, 8, (n,), generator=gen,
+                                             dtype=torch.int32),
+        pos=torch.randn(n, 3, generator=gen), src=src, dst=dst,
+        edge_mask=torch.ones(src.shape[0]), node_mask=torch.ones(n),
+        labels=torch.zeros(n, dtype=torch.int32),
+        graph_id=torch.arange(n_mol).repeat_interleave(atoms).to(
+            torch.int32),
+        y=torch.randn(n_mol, generator=gen), n_graphs=n_mol)
+    init = getattr(tg, f"{base}_init")
+    fwd = getattr(tg, f"{base}_forward")
+    loss = getattr(tg, f"{base}_loss")
+    params = init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    layers = cfg.n_layers
+    per_fwd = 2 * layers if base == "egnn" else layers
+    per_step = 4 * layers - 1 if base == "egnn" else 2 * layers
+    with torch.no_grad():
+        want = fwd(params, batch, cfg)
+    step = make_train_step(lambda p, b: loss(p, b, cfg), AdamWConfig())
+    want_p, _, want_m = step(params, init_state(params), batch)
+    cparams = tree_map(lambda x: x.to(cuda), params)
+    cbatch = batch.to(cuda)
+    tk.reset_launch_counts()
+    with torch.no_grad():
+        got = fwd(cparams, cbatch, cfg)
+    torch.cuda.synchronize()
+    assert tk.launch_counts[tk.SEGSUM] == per_fwd
+    tk.reset_launch_counts()
+    got_p, _, got_m = step(cparams, init_state(cparams), cbatch)
+    torch.cuda.synchronize()
+    assert tk.launch_counts[tk.SEGSUM] == per_step
+    tol = dict(rtol=2e-2, atol=2e-2) if name == "egnn_bf16" else \
+        dict(rtol=1e-4, atol=1e-5)
+    outs = list(got) if base == "egnn" else \
+        [got[0][l] for l in sorted(got[0])] + [got[1]]
+    wants = list(want) if base == "egnn" else \
+        [want[0][l] for l in sorted(want[0])] + [want[1]]
+    for g, w_ in zip(outs, wants):
+        torch.testing.assert_close(g.float().cpu(), w_.float(), **tol)
+    torch.testing.assert_close(float(got_m["loss"]), float(want_m["loss"]),
+                               **tol)
+    for g, w_ in zip(tree_leaves(got_p), tree_leaves(want_p)):
+        torch.testing.assert_close(g.cpu(), w_, rtol=0, atol=2e-3)
+
+
 FLASH_TOL = {torch.float32: 3e-5, torch.bfloat16: 2e-2}
 # bfloat16 per output row, ||got - want|| / ||want|| over dh: a row over
 # n keys has |out| ~ 1/sqrt(n), which the absolute 2e-2 does not see.
