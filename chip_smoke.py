@@ -82,7 +82,8 @@ any failed phase.  Phases:
    its plain version at the serving path's shape: q (2, 32768, 24, 128),
    k and v (2, 32768, 8, 128), bfloat16, causal, within 2e-2 (P is
    rounded to bfloat16 before P V) and per row, with a stale-ring-slot
-   control; then float32 at (1, 4096, 24/8, 128) within 3e-5, with a
+   control (beyond the row limit in every 64-row slab); the same at granite-moe's prefill shape, head dim 64 (q (2,
+   32768, 24, 64), k and v (2, 32768, 8, 64)); then float32 at (1, 4096, 24/8, 128) within 3e-5, with a
    control (the plain version on q, k, v rounded to TF32) that must lie
    beyond it, and a ragged non-causal (1, 1000, 6/2, 64).  Each timed
    (and its TFLOP/s) beside its plain version, its bound (float32: three
@@ -272,7 +273,33 @@ any failed phase.  Phases:
    15-10 on R-MAT 2^18 x 16 with (2^18, 602) float32 features, which
    fills the cell's 169,984 nodes and 168,960 edges exactly; a forward
    and one AdamW step through K4 (2 and 4 launches), held against the
-   plain route as [10].
+   plain route as [10];
+21. MoE serving, qwen2 and MIND, after [20], each model freed before the
+   next is drawn: (a) granite-moe-3b-a800m at full width and depth in
+   bfloat16 (weights drawn on the card): a prefill of GRANITE_BATCH x
+   GRANITE_PROMPT (prefill_32k's length, its batch cut to 2 as in [12]),
+   cold and warm, every layer's attention through K5 (32 launches a
+   prefill); the cache grown by GRANITE_GEN and as many greedy decode
+   steps (no K5); one more prefill with every layer's routing recomputed
+   beside it: the share of (token, slot) choices dropped by capacity, a
+   layer; layer 0's float32 router probabilities routed on the card and
+   on the CPU (expert ids, kept choices and slots bitwise, as drawn and
+   rounded to multiples of 2^-6, where most tokens tie); then the kernel
+   route against the plain route on one prompt of LLAMA_F32_PROMPT
+   tokens, in float32 (logits within LLAMA_F32_RTOL) and in bfloat16
+   (within LLAMA_BF16_RATIO), as [12].
+   (b) moonshot-v1-16b-a3b at full width (56 GB of bfloat16 weights):
+   1 x MOONSHOT_PROMPT and MOONSHOT_GEN decode steps, 48 K5 launches a
+   prefill.  (c) qwen2-7b at full width: 1 x QWEN_PROMPT and QWEN_GEN
+   decode steps, 28 K5 launches a prefill.  Each prints its prefill
+   seconds and tokens/s, decode ms a step and peak memory.  (d) MIND at
+   ``make_config()`` width (a 2^21 x 64 float32 table) with batches from
+   ``recsys_batch_fn``: serve_p99 (512 users) and serve_bulk (262,144)
+   through ``serve_interests`` and retrieval_cand (1 user x 1,000,448
+   candidates) through ``retrieval_scores``, each timed with CUDA events
+   after a warm-up; serve_p99 on the card within MIND_SERVE_REL of the
+   CPU's on the same weights and batch; train_batch: MIND_STEPS AdamW
+   steps at 65,536 through ``train/step.py``, the losses finite.  No kernel runs in (d).
 
 Every run resets the launch counts just before it and reads them just
 after: each kernel of the run must have carried all of its work.
@@ -334,6 +361,8 @@ GNN_LOGIT_RTOL, GNN_LOGIT_ATOL, GNN_LOSS_RTOL, GNN_GRAD_RTOL = \
 # (tests/test_flashattn_kernel.py): 2e-2 in bfloat16 (P rounded to
 # bfloat16 before P V, both outputs rounded), 3e-5 in float32
 FLASH_SHAPE = (2, 32768, 24, 8, 128)
+# granite-moe's prefill ([21a]): the bfloat16 kernel at head dim 64
+FLASH_DH64_SHAPE = (2, 32768, 24, 8, 64)
 FLASH_F32_SHAPE = (1, 4096, 24, 8, 128)
 FLASH_RAGGED_SHAPE = (1, 1000, 6, 2, 64)
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 3e-5}
@@ -346,12 +375,17 @@ FLASH_TOL = {"bfloat16": 2e-2, "float32": 3e-5}
 # K/V tiles hold FLASH_KV_TILE keys in a ring of FLASH_KV_STAGES slots,
 # so a consumer that reads a slot before its refill lands sees the tile
 # FLASH_KV_STAGES before: keys 256-383 read as keys 0-127, which moves
-# every row past them by 4.5e-2 or more at S = 32768 in the same
-# emulation.  Each run reads both (the control through the plain
-# version on the altered K and V) and checks that the limit lies
-# between them.
+# the rows past them by 4.5e-2 or more at S = 32768 in the same
+# emulation (its last 512 rows).  Such a read corrupts the
+# FLASH_SLAB_ROWS query rows of one head that the reading consumer
+# warpgroup owns, so the control must exceed the limit in at least one
+# row of every such slab past the stale tile; the smallest gap over
+# single rows is printed beside it (at head dim 64, a few of the 1.5e6
+# rows of S = 32768 fall below 1e-2).  Each run reads both (the control
+# through the plain version on the altered K and V) and checks that the
+# limit lies between them.
 FLASH_ROW_REL = 1e-2
-FLASH_KV_TILE, FLASH_KV_STAGES = 128, 2
+FLASH_KV_TILE, FLASH_KV_STAGES, FLASH_SLAB_ROWS = 128, 2, 64
 # the float32 route (flash_f32_kernel): q K^T and P V as three TF32
 # products on the tensor cores (a = a_hi + a_lo; a_lo b_hi + a_hi b_lo +
 # a_hi b_hi), so its least time is 3 x the operations over the TF32 rate;
@@ -442,6 +476,17 @@ MOL_FWD_REL, MOL_LOSS_RTOL, MOL_ROT_REL, MOL_BF16_REL = \
 # SAMPLER_EDGE_FACTOR, with (V, 602) float32 features on the host
 SAMPLER_SCALE, SAMPLER_EDGE_FACTOR = 18, 16
 SAMPLER_SEEDS, SAMPLER_FANOUTS = 1024, (15, 10)
+# [21] MoE serving: granite at prefill_32k's length, its batch cut to 2
+# (as [12]), 32 decode steps, the float32 route check on one prompt of
+# LLAMA_F32_PROMPT; moonshot at batch 1 and a prompt of 4,096 (its 56 GB
+# of weights and a 2 x 32k cache exceed the card); qwen2 at 1 x 32,768
+GRANITE_BATCH, GRANITE_PROMPT, GRANITE_GEN = 2, 32768, 32
+MOONSHOT_PROMPT, MOONSHOT_GEN = 4096, 8
+QWEN_PROMPT, QWEN_GEN = 32768, 8
+# MIND: AdamW steps at the train_batch cell, and serve_p99's interests
+# on the card against the CPU within MIND_SERVE_REL of the largest entry
+# (the same float32 expressions, summed in other orders)
+MIND_STEPS, MIND_SERVE_REL = 3, 1e-5
 GROUP_SETTINGS = ("DEVICE", "SEED", "RMAT_SCALE", "EDGE_FACTOR", "BATCH",
                   "MAIN_EPS", "MAIN_DELTA", "HYPER_N", "HYPER_EPS",
                   "HYPER_BLOCK_V", "GROUP_SHARDS", "GROUP_MAX_EPOCHS")
@@ -1530,8 +1575,11 @@ def check_flash_rows(label: str, q, k, v, got, want, causal: bool) -> dict:
     """The bfloat16 output held per row within FLASH_ROW_REL, and a
     control: the plain version with KV tile FLASH_KV_STAGES read as tile
     0 (a consumer reading a ring slot before its refill), which must lie
-    beyond it in every row that sees the whole stale tile."""
+    beyond it in at least one row of every slab of FLASH_SLAB_ROWS rows
+    (one consumer warpgroup's, of one head) that sees the whole stale
+    tile."""
     import torch
+    import torch.nn.functional as F
     from repro_torch.kernels.flashattn import flash_attention_gqa_ref
     sound = float(row_rel_err(got, want).max())
     lo = FLASH_KV_STAGES * FLASH_KV_TILE
@@ -1540,7 +1588,14 @@ def check_flash_rows(label: str, q, k, v, got, want, causal: bool) -> dict:
     k2[:, lo:past], v2[:, lo:past] = k[:, :FLASH_KV_TILE], v[:, :FLASH_KV_TILE]
     bad = flash_attention_gqa_ref(q, k2, v2, causal=causal)[:, past:]
     del k2, v2
-    control = float(row_rel_err(bad, want[:, past:]).min())
+    gaps = row_rel_err(bad, want[:, past:])            # (B, S - past, H)
+    control = float(gaps.min())
+    below = int((gaps <= FLASH_ROW_REL).sum())
+    pad = -gaps.shape[1] % FLASH_SLAB_ROWS             # gaps are >= 0
+    slabs = F.pad(gaps.transpose(1, 2), (0, pad)).unflatten(
+        2, (-1, FLASH_SLAB_ROWS)).amax(-1)
+    slab_control = float(slabs.min())
+    del gaps, slabs
     tol = FLASH_TOL["bfloat16"]
     passes_abs = ["passes" if torch.allclose(
         bad[:, r:].float(), want[:, past + r:].float(), rtol=tol, atol=tol)
@@ -1548,14 +1603,18 @@ def check_flash_rows(label: str, q, k, v, got, want, causal: bool) -> dict:
     del bad
     log(f"  flash {label}: per-row ||diff|| / ||plain|| at most {sound:.4g} "
         f"(limit {FLASH_ROW_REL}); control with a stale ring slot (keys "
-        f"{lo}-{past - 1} read as 0-{FLASH_KV_TILE - 1}): at least "
-        f"{control:.4g} in every row from {past} on; it {passes_abs[0]} the "
+        f"{lo}-{past - 1} read as 0-{FLASH_KV_TILE - 1}), rows from {past} "
+        f"on: at least {slab_control:.4g} in the worst row of every "
+        f"{FLASH_SLAB_ROWS}-row slab, at least {control:.4g} in every row "
+        f"({below} rows at or below the limit); it {passes_abs[0]} the "
         f"absolute check, and {passes_abs[1]} it on rows 4096 and on")
-    if not sound <= FLASH_ROW_REL < control:
+    if not sound <= FLASH_ROW_REL < slab_control:
         raise AssertionError(f"flash {label}: per-row gap {sound} or the "
-                             f"stale-slot control {control} on the wrong "
-                             f"side of {FLASH_ROW_REL}")
-    return {"row_rel_err": sound, "stale_tile_row_rel_err_min": control}
+                             f"stale-slot control {slab_control} on the "
+                             f"wrong side of {FLASH_ROW_REL}")
+    return {"row_rel_err": sound, "stale_tile_row_rel_err_min": control,
+            "stale_tile_slab_rel_err_min": slab_control,
+            "stale_tile_rows_at_or_below_limit": below}
 
 
 def tf32_round(x):
@@ -1666,8 +1725,9 @@ def flash_f32_smem(dh: int) -> int:
 
 
 def phase_flash() -> dict:
-    """K5 at the serving path's shape (bfloat16, causal), then float32
-    and a ragged non-causal case."""
+    """K5 at the serving path's shape (bfloat16, causal) and at
+    granite-moe's (head dim 64), then float32 and a ragged non-causal
+    case."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels.flashattn.kernel import SOURCE
@@ -1703,12 +1763,16 @@ def phase_flash() -> dict:
     row = check_flash_case("serving", FLASH_SHAPE, torch.bfloat16, True,
                            SEED + 5, 5)
     torch.cuda.empty_cache()
+    dh64 = check_flash_case("granite", FLASH_DH64_SHAPE, torch.bfloat16,
+                            True, SEED + 9, 5)
+    torch.cuda.empty_cache()
     f32 = check_flash_case("float32", FLASH_F32_SHAPE, torch.float32, True,
                            SEED + 6, 10, tf32_control=True)
     ragged = check_flash_case("ragged", FLASH_RAGGED_SHAPE, torch.float32,
                               False, SEED + 7, 20)
     torch.cuda.empty_cache()
-    return {**row, **{f"float32_{k}": v for k, v in f32.items()},
+    return {**row, **{f"dh64_{k}": v for k, v in dh64.items()},
+            **{f"float32_{k}": v for k, v in f32.items()},
             **{f"ragged_{k}": v for k, v in ragged.items()}}
 
 
@@ -1749,14 +1813,14 @@ def check_routes(cfg) -> None:
     rounded to bfloat16 values.  Float32: last-token logits within
     LLAMA_F32_RTOL of the largest plain logit.  Bfloat16: the kernel
     route within LLAMA_BF16_RATIO of the plain route's relative L2
-    distance from the float32 plain logits.  In both, the argmax equal
-    unless the plain route's top-2 gap could be closed by the gap
-    allowed (float32) or seen (bfloat16)."""
+    distance from the float32 plain logits.
+    In both, the argmax equal unless the plain route's top-2 gap could
+    be closed by the gap allowed (float32) or seen (bfloat16)."""
     import dataclasses
     import torch
     from repro_torch.kernels.flashattn import FLASHATTN
     from repro_torch.models.transformer import init_params, prefill_step
-    from repro_torch.tree import tree_leaves, tree_map
+    from repro_torch.tree import tree_leaves
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 8)
     params = init_params(gen, cfg32, device=DEVICE)
@@ -1790,12 +1854,17 @@ def check_routes(cfg) -> None:
             f"); argmax {int(got.argmax())} vs {int(want.argmax())} (plain "
             f"top-2 gap {top_gap:.3g})")
         if gap > tol or not (same_argmax or top_gap < tol):
-            raise AssertionError("llama float32: kernel route and plain "
-                                 "route disagree beyond the stated "
+            raise AssertionError(f"{cfg.name} float32: kernel route and "
+                                 "plain route disagree beyond the stated "
                                  "tolerance")
         exact = want
-        params = tree_map(lambda x: x.to(torch.bfloat16), params)
-        got, want, top_gap = both_routes(params, cfg, "bfloat16")
+        # the same values in the bfloat16 model's types (an MoE router
+        # stays float32)
+        p16 = init_params(gen, cfg, device=DEVICE)
+        for dst, src in zip(tree_leaves(p16), tree_leaves(params)):
+            dst.copy_(src)
+        del params
+        got, want, top_gap = both_routes(p16, cfg, "bfloat16")
     e_kernel, e_plain = rel_l2(got, exact), rel_l2(want, exact)
     gap = float((got.float() - want.float()).abs().max())
     same_argmax = int(got.argmax()) == int(want.argmax())
@@ -1808,8 +1877,8 @@ def check_routes(cfg) -> None:
         f"{top_gap:.3g})")
     if e_kernel > LLAMA_BF16_RATIO * e_plain \
             or not (same_argmax or top_gap < 2 * gap):
-        raise AssertionError("llama bfloat16: kernel route and plain route "
-                             "disagree beyond the stated tolerance")
+        raise AssertionError(f"{cfg.name} bfloat16: kernel route and plain "
+                             "route disagree beyond the stated tolerance")
 
 
 def check_smoke_config() -> None:
@@ -1840,28 +1909,32 @@ def check_smoke_config() -> None:
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
 
 
-def phase_llama() -> dict:
-    """llama3.2-3b serving at full width and depth; returns the launch
-    counts of the counted run (a warm prefill, then the decode)."""
+def serve_cell(cfg, batch: int, prompt_len: int, gen_len: int,
+               seed: int) -> tuple:
+    """``cfg`` at full width and depth, weights drawn on the card: a cold
+    and a warm prefill of batch x prompt_len (one K5 launch a layer
+    each; the process's first prefill pays cuBLAS set-up), the cache
+    grown by gen_len and gen_len greedy decode steps (no K5).  Returns
+    (params, prompt, the cache, the last tokens, the warm prefill's and
+    the decode's launch counts summed)."""
     import torch
-    from repro_torch.configs.llama3_2_3b import make_config
     from repro_torch.kernels.flashattn import FLASHATTN
     from repro_torch.models.transformer import (decode_step, grow_cache,
                                                 init_params, prefill_step)
     from repro_torch.tree import tree_leaves
-    cfg = make_config()
-    b, s = LLAMA_BATCH, LLAMA_PROMPT
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
     t0 = time.perf_counter()
     params = init_params(gen, cfg, device=DEVICE)
-    prompt = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=DEVICE)
+    prompt = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=gen,
+                           device=DEVICE)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(params))
-    log(f"  {cfg.name}: {n_params} parameters ({cfg.dtype}) drawn on the card"
-        f" in {time.perf_counter() - t0:.2f} s; prompt {b} x {s}")
+    log(f"  {cfg.name}: {n_params} parameters ({cfg.dtype}, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card) drawn"
+        f" in {time.perf_counter() - t0:.2f} s; prompt {batch} x "
+        f"{prompt_len}")
     torch.cuda.reset_peak_memory_stats()
     with torch.no_grad():
-        # the process's first prefill pays cuBLAS set-up: reported as cold
         times = []
         for run in ("cold", "warm"):
             reset_counts()
@@ -1869,41 +1942,54 @@ def phase_llama() -> dict:
             logits, cache = prefill_step(params, prompt, cfg)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-            prefill = kernel_only(f"{run} prefill", FLASHATTN, cfg.n_layers)
+            prefill = kernel_only(f"{cfg.name} {run} prefill", FLASHATTN,
+                                  cfg.n_layers)
             if run == "cold":
                 del cache
-        finite_logits("prefill", logits, b, cfg)
-        log(f"  prefill {b} x {s}: cold {times[0]:.3f} s "
-            f"({b * s / times[0]:.0f} tokens/s), warm {times[1]:.3f} s "
-            f"({b * s / times[1]:.0f} tokens/s); launches {prefill}")
-
-        cache = grow_cache(cache, LLAMA_GEN)
+        finite_logits(f"{cfg.name} prefill", logits, batch, cfg)
+        log(f"  prefill {batch} x {prompt_len}: cold {times[0]:.3f} s "
+            f"({batch * prompt_len / times[0]:.0f} tokens/s), warm "
+            f"{times[1]:.3f} s ({batch * prompt_len / times[1]:.0f} "
+            f"tokens/s); K5 launches {prefill[FLASHATTN]} a prefill")
+        cache = grow_cache(cache, gen_len)
         tokens = torch.argmax(logits, -1)[:, None]
         ids = [tokens]
         reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(LLAMA_GEN):
+        for _ in range(gen_len):
             logits, cache = decode_step(params, cache, tokens, cfg)
             tokens = torch.argmax(logits, -1)[:, None]
             ids.append(tokens)
         torch.cuda.synchronize()
         decode_s = time.perf_counter() - t0
-        decode = kernel_only("decode", FLASHATTN, 0)
-        finite_logits("decode", logits, b, cfg)
-        peak = torch.cuda.max_memory_allocated()
-        gen_ids = torch.cat(ids, dim=1)
-        log(f"  decode: {LLAMA_GEN} steps of {b} tokens from a cache of "
-            f"{cache['k'].shape[2]} slots, "
-            f"{decode_s / LLAMA_GEN * 1e3:.2f} ms "
-            f"a step ({b * LLAMA_GEN / decode_s:.1f} tokens/s); launches "
-            f"{decode}; cache at len {cache['len']}; peak memory "
-            f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated); "
-            f"first ids {gen_ids[0, :8].tolist()} / {gen_ids[1, :8].tolist()}")
+        decode = kernel_only(f"{cfg.name} decode", FLASHATTN, 0)
+        finite_logits(f"{cfg.name} decode", logits, batch, cfg)
+    log(f"  decode: {gen_len} steps of {batch} tokens from a cache of "
+        f"{cache['k'].shape[2]} slots, {decode_s / gen_len * 1e3:.2f} ms a "
+        f"step ({batch * gen_len / decode_s:.1f} tokens/s); K5 launches "
+        f"{decode[FLASHATTN]}; cache at len {cache['len']}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated); first ids "
+        f"{torch.cat(ids, dim=1)[:, :8].tolist()}")
+    return params, prompt, cache, tokens, {k: prefill[k] + decode[k]
+                                           for k in prefill}
+
+
+def phase_llama() -> dict:
+    """llama3.2-3b serving at full width and depth; returns the launch
+    counts of the counted run (a warm prefill, then the decode)."""
+    import torch
+    from repro_torch.configs.llama3_2_3b import make_config
+    from repro_torch.models.transformer import decode_step, prefill_step
+    cfg = make_config()
+    params, prompt, cache, tokens, counts = serve_cell(
+        cfg, LLAMA_BATCH, LLAMA_PROMPT, LLAMA_GEN, SEED)
+    with torch.no_grad():
         # profiled steps rewrite the last two slots: the counted run is over
         profile_serving("decode step", lambda: decode_step(
             params, {**cache, "len": cache["len"] - 2}, tokens, cfg))
-        del cache, logits
+        del cache
         torch.cuda.empty_cache()
         profile_serving("warm prefill", lambda: prefill_step(params, prompt,
                                                              cfg))
@@ -1912,7 +1998,7 @@ def phase_llama() -> dict:
     check_routes(cfg)
     torch.cuda.empty_cache()
     check_smoke_config()
-    return {k: prefill[k] + decode[k] for k in prefill}
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -4622,6 +4708,259 @@ def phase_gnn_cells() -> tuple:
     return row, paths
 
 
+# ---------------------------------------------------------------------------
+# [21] MoE serving (granite, moonshot), qwen2 and MIND's four cells
+# ---------------------------------------------------------------------------
+
+def moe_prefill_routing(params, prompt, cfg) -> tuple:
+    """One more prefill with every MoE layer's routing recomputed beside
+    it (``route`` on the layer's FFN input): each layer's share of
+    (token, slot) choices dropped by capacity, and layer 0's float32
+    router probabilities.  Counted as a prefill (one K5 launch a
+    layer)."""
+    import torch
+    from unittest import mock
+    from repro_torch.kernels.flashattn import FLASHATTN
+    from repro_torch.models import moe, transformer
+    real = transformer.moe_ffn
+    dropped, first = [], []
+
+    def observed(p, x, mcfg):
+        s = min(mcfg.group_size, x.shape[0])
+        probs = moe.router_probs(p["router"], x.reshape(-1, s, x.shape[1]))
+        dropped.append((~moe.route(probs, mcfg).keep).float().mean())
+        if not first:
+            first.append(probs)
+        return real(p, x, mcfg)
+
+    reset_counts()
+    with torch.no_grad(), mock.patch.object(transformer, "moe_ffn",
+                                            observed):
+        transformer.prefill_step(params, prompt, cfg)
+    torch.cuda.synchronize()
+    counts = kernel_only(f"{cfg.name} observed prefill", FLASHATTN,
+                         cfg.n_layers)
+    shares = torch.stack(dropped).tolist()
+    log(f"  dropped by capacity ({moe.capacity(cfg.moe.group_size, cfg.moe)}"
+        f" slots an expert a group of {cfg.moe.group_size}): share of "
+        f"(token, slot) choices a layer, layers 0-{len(shares) - 1}: "
+        + " ".join(f"{x:.4f}" for x in shares)
+        + f"; mean {sum(shares) / len(shares):.4f}")
+    return first[0], counts
+
+
+def check_routing_on_devices(probs, mcfg) -> None:
+    """``route`` on the card against the CPU on the same float32 router
+    probabilities (G, S, E): expert ids, kept choices and slots bitwise;
+    then on the probabilities rounded to multiples of 2^-6, where most
+    tokens tie at their k-th expert, which the stable sort must break
+    toward the lower index on both."""
+    import torch
+    from repro_torch.models.moe import route
+    for label, p in (("as drawn", probs),
+                     ("rounded to 2^-6", torch.round(probs * 64) / 64)):
+        card, host = route(p, mcfg), route(p.cpu(), mcfg)
+        same = {k: torch.equal(getattr(card, k).cpu(), getattr(host, k))
+                for k in ("expert_ids", "keep", "pos")}
+        top = torch.sort(p, dim=-1, descending=True).values
+        k = mcfg.top_k
+        ties = int((top[..., k - 1] == top[..., k]).sum())
+        gate_gap = float((card.gates.cpu() - host.gates).abs().max())
+        log(f"  routing {label} {tuple(p.shape)}: card vs CPU bitwise "
+            f"{same}; tokens tied at the k-th expert {ties}; kept "
+            f"{int(host.keep.sum())} of {host.keep.numel()}; gates max "
+            f"|diff| {gate_gap:.3g}")
+        if not all(same.values()):
+            raise AssertionError(f"routing {label}: the card and the CPU "
+                                 "route differently")
+
+
+def phase_moe_serving() -> dict:
+    """[21] (a)-(c): granite-moe, moonshot and qwen2 at full width, each
+    freed before the next is drawn.  Returns the paths' launch counts."""
+    import torch
+    from repro_torch.configs import (granite_moe_3b_a800m,
+                                     moonshot_v1_16b_a3b, qwen2_7b)
+    paths = {}
+    cfg = granite_moe_3b_a800m.make_config()
+    log(f"[21a] {cfg.name} serving: prefill {GRANITE_BATCH} x "
+        f"{GRANITE_PROMPT} (prefill_32k's length, batch cut from 32), "
+        f"{GRANITE_GEN} decode steps, bfloat16 at full width and depth")
+    params, prompt, cache, _, paths["granite_serve"] = serve_cell(
+        cfg, GRANITE_BATCH, GRANITE_PROMPT, GRANITE_GEN, SEED + 21)
+    del cache
+    torch.cuda.empty_cache()
+    probs, paths["granite_observed"] = moe_prefill_routing(params, prompt,
+                                                           cfg)
+    del params, prompt
+    torch.cuda.empty_cache()
+    check_routing_on_devices(probs, cfg.moe)
+    del probs
+    check_routes(cfg)
+    torch.cuda.empty_cache()
+
+    cfg = moonshot_v1_16b_a3b.make_config()
+    log(f"[21b] {cfg.name} serving: prefill 1 x {MOONSHOT_PROMPT}, "
+        f"{MOONSHOT_GEN} decode steps, bfloat16 at full width and depth "
+        f"(cut: batch 1 and a prompt of {MOONSHOT_PROMPT}: its weights and "
+        "a 2 x 32k cache exceed 80 GB)")
+    params, _, cache, _, paths["moonshot_serve"] = serve_cell(
+        cfg, 1, MOONSHOT_PROMPT, MOONSHOT_GEN, SEED + 22)
+    del params, cache
+    torch.cuda.empty_cache()
+
+    cfg = qwen2_7b.make_config()
+    log(f"[21c] {cfg.name} serving: prefill 1 x {QWEN_PROMPT}, {QWEN_GEN} "
+        f"decode steps, bfloat16 at full width and depth")
+    params, _, cache, _, paths["qwen2_serve"] = serve_cell(
+        cfg, 1, QWEN_PROMPT, QWEN_GEN, SEED + 23)
+    del params, cache
+    torch.cuda.empty_cache()
+    return paths
+
+
+def profile_granite() -> None:
+    """granite-moe at [21a]'s shapes under the profiler, after every
+    timed run (a profiler session leaves overhead on later launches): a
+    decode step from a 2 x 32,800-slot cache and a warm 2 x 32,768
+    prefill, device time by kernel and idle share (``profile_serving``).
+    Not a phase of the smoke: ``tools/moe_recsys_phase.py`` calls it."""
+    import torch
+    from repro_torch.configs.granite_moe_3b_a800m import make_config
+    from repro_torch.models.transformer import (decode_step, grow_cache,
+                                                init_params, prefill_step)
+    cfg = make_config()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 21)
+    params = init_params(gen, cfg, device=DEVICE)
+    prompt = torch.randint(0, cfg.vocab, (GRANITE_BATCH, GRANITE_PROMPT),
+                           generator=gen, device=DEVICE)
+    with torch.no_grad():
+        logits, cache = prefill_step(params, prompt, cfg)
+        cache = grow_cache(cache, 2)
+        tokens = torch.argmax(logits, -1)[:, None]
+        profile_serving("granite decode step", lambda: decode_step(
+            params, {**cache, "len": GRANITE_PROMPT}, tokens, cfg))
+        del cache, logits
+        torch.cuda.empty_cache()
+        profile_serving("granite warm prefill",
+                        lambda: prefill_step(params, prompt, cfg))
+    del params
+    torch.cuda.empty_cache()
+
+
+def mind_train(params, cfg, batch: int) -> tuple:
+    """MIND_STEPS AdamW steps at ``batch`` through the port's train step,
+    a new batch a step; (losses, ms a step, peak GiB)."""
+    import torch
+    from repro_torch.data import recsys_batch_fn
+    from repro_torch.models.recsys import train_loss
+    from repro_torch.optim import AdamWConfig, init_state
+    from repro_torch.train import make_train_step
+    make = recsys_batch_fn(cfg.n_items, batch, cfg.hist_len, seed=SEED,
+                           device=DEVICE)
+    step = make_train_step(lambda p, b: train_loss(p, b, cfg), AdamWConfig())
+    state = init_state(params)
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for i in range(MIND_STEPS):
+        b = make(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, b)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms, torch.cuda.max_memory_allocated() / 2**30
+
+
+def phase_mind() -> dict:
+    """[21d] MIND at ``make_config()`` width (a 2^21 x 64 float32 table)
+    on its four cells, batches from ``recsys_batch_fn``; no kernel runs.
+    Returns the cells' launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.configs._families import RECSYS_SHAPES
+    from repro_torch.configs.mind import make_config
+    from repro_torch.data import recsys_batch_fn
+    from repro_torch.kernels.flashattn import FLASHATTN
+    from repro_torch.models.recsys import (init_params, retrieval_scores,
+                                           serve_interests)
+    from repro_torch.tree import tree_map
+    cfg = make_config()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 24)
+    params = init_params(gen, cfg, device=DEVICE)
+    log(f"[21d] mind: {cfg}, table {cfg.n_items} x {cfg.embed_dim} float32 "
+        "drawn on the card")
+    paths = {}
+
+    def counted(label, fn, iters):
+        reset_counts()
+        with torch.no_grad():
+            out = fn()
+        torch.cuda.synchronize()
+        paths[f"mind_{label}"] = kernel_only(f"mind {label}", FLASHATTN, 0)
+        with torch.no_grad():
+            ms = cuda_time_ms(fn, iters)
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"mind {label}: not finite")
+        return out, ms
+
+    for cell, iters in (("serve_p99", 20), ("serve_bulk", 3)):
+        b = RECSYS_SHAPES[cell]["batch"]
+        batch = recsys_batch_fn(cfg.n_items, b, cfg.hist_len, seed=SEED,
+                                device=DEVICE)(0)
+        out, ms = counted(cell, lambda: serve_interests(params, batch, cfg),
+                          iters)
+        norms = torch.linalg.vector_norm(out, dim=-1)
+        log(f"  {cell}: {b} users -> interests {tuple(out.shape)} in "
+            f"{ms:.3f} ms a call ({b / ms * 1e3:.0f} users/s; CUDA events, "
+            f"{iters} calls after a warm-up); norms {float(norms.min()):.6f}"
+            f"-{float(norms.max()):.6f}")
+        if cell == "serve_p99":
+            host = tree_map(lambda t: t.cpu(), params)
+            want = serve_interests(host, {k: v.cpu() for k, v in
+                                          batch.items()}, cfg)
+            gap = float((out.cpu() - want).abs().max()) / float(
+                want.abs().max())
+            log(f"  serve_p99 on the card vs the CPU (same weights and "
+                f"batch): max |diff| {gap:.3g} of the largest entry (limit "
+                f"{MIND_SERVE_REL})")
+            if not gap <= MIND_SERVE_REL:
+                raise AssertionError("mind serve_p99: the card and the CPU "
+                                     "disagree beyond the stated tolerance")
+            del host
+        del batch, out
+
+    cell = RECSYS_SHAPES["retrieval_cand"]
+    hist = recsys_batch_fn(cfg.n_items, 1, cfg.hist_len, seed=SEED,
+                           device=DEVICE)(1)
+    rng = np.random.default_rng((SEED, 21))
+    batch = {"hist": hist["hist"], "hist_mask": hist["hist_mask"],
+             "candidates": torch.from_numpy(rng.integers(
+                 0, cfg.n_items, cell["candidates"]).astype(np.int32))
+             .to(DEVICE)}
+    out, ms = counted("retrieval_cand",
+                      lambda: retrieval_scores(params, batch, cfg), 10)
+    log(f"  retrieval_cand: 1 user x {cell['candidates']} candidates -> "
+        f"{tuple(out.shape)} scores in {ms:.3f} ms a call (one (K, D) @ (D,"
+        f" C) product and a max over K; 10 calls after a warm-up); best "
+        f"{float(out.max()):.4f}")
+    del batch, out
+
+    b = RECSYS_SHAPES["train_batch"]["batch"]
+    reset_counts()
+    losses, ms, peak = mind_train(params, cfg, b)
+    torch.cuda.synchronize()
+    paths["mind_train"] = kernel_only("mind train", FLASHATTN, 0)
+    log(f"  train_batch: {MIND_STEPS} AdamW steps at batch {b}: losses {[round(x, 6) for x in losses]}, ms a step "
+        f"{[round(x, 1) for x in ms]}, peak memory {peak:.2f} GiB")
+    if not all(np.isfinite(losses)):
+        raise AssertionError("mind train: loss not finite")
+    del params
+    torch.cuda.empty_cache()
+    return paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4744,8 +5083,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     log(f"[11] flash-attention kernel at the serving path's shapes: "
-        f"(B, S, H, KV, dh) = {FLASH_SHAPE} bfloat16 causal, "
-        f"{FLASH_F32_SHAPE} float32, {FLASH_RAGGED_SHAPE} non-causal")
+        f"(B, S, H, KV, dh) = {FLASH_SHAPE} and {FLASH_DH64_SHAPE} bfloat16 "
+        f"causal, {FLASH_F32_SHAPE} float32, {FLASH_RAGGED_SHAPE} "
+        "non-causal")
     rows.append({"name": FLASHATTN, "route": "cuda",
                  "source": "src/repro_torch/kernels/flashattn/csrc/"
                            "flashattn.cu",
@@ -4813,6 +5153,13 @@ def main() -> int:
     paths.update(gnn_paths)
     next(r for r in rows if r["name"] == SEGSUM).update(k4_row)
     log(f"  [20] took {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    log(f"[21] MoE serving (granite-moe, moonshot), qwen2 and MIND's four "
+        f"cells; {smi}")
+    paths.update(phase_moe_serving())
+    paths.update(phase_mind())
+    log(f"  [21] took {time.perf_counter() - t0:.1f} s")
 
     # each row's launches: the run of the path that row's kernel carries;
     # the node-blocked rows' words pass beside it

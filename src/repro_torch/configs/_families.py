@@ -1,10 +1,10 @@
 """The port's copy of the cell shapes (``repro.configs._families``): the
-LM cells and every GNN cell (full-batch classification, the
+LM cells, every GNN cell (full-batch classification, the
 neighbour-sampled ``minibatch_lg`` and the batched ``molecule``
-regression).  The registry, ``ArchDef`` and the family builders wait
-for their slice, with ``launch/dryrun.py``."""
+regression) and MIND's recsys cells.  The registry, ``ArchDef`` and
+the family builders wait for their slice, with ``launch/dryrun.py``."""
 
-__all__ = ["GNN_SHAPES", "LM_SHAPES"]
+__all__ = ["GNN_SHAPES", "LM_SHAPES", "RECSYS_SHAPES"]
 
 LM_SHAPES = {
     "train_4k": dict(seq=4096, batch=256),
@@ -32,4 +32,14 @@ GNN_SHAPES = {
     "molecule": dict(nodes=4096, edges=8192, d_feat=1, classes=0,
                      graphs=128, task="reg",
                      logical="n_nodes=30 n_edges=64 batch=128"),
+}
+
+# MIND: training on in-batch negatives, online and bulk serving, and one
+# user against ~10^6 candidates (padded to a multiple of 1,024)
+RECSYS_SHAPES = {
+    "train_batch": dict(batch=65536, kind="train"),
+    "serve_p99": dict(batch=512, kind="serve"),
+    "serve_bulk": dict(batch=262144, kind="serve"),
+    "retrieval_cand": dict(batch=1, candidates=1000448, kind="retrieval",
+                           logical="n_candidates=1,000,000"),
 }

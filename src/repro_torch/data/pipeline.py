@@ -1,11 +1,11 @@
 """Data pipeline (``repro.data.pipeline``): the full-batch GraphBatch of
-a graph, the layer-wise neighbour sampler and a one-thread prefetcher.
+a graph, the layer-wise neighbour sampler, MIND's session histories
+(``recsys_batch_fn``) and a one-thread prefetcher.
 
 Batches are host-side numpy, a pure function of (seed, step), so a
 restart from step N reproduces the same sequence; the numpy draws are
 the JAX package's in the same order, so every leaf is bitwise its
-batch's.  The LM and recsys streams (``lm_batch_fn``,
-``recsys_batch_fn``) wait for LM training and MIND.
+batch's.  The LM stream (``lm_batch_fn``) waits for LM training.
 """
 from __future__ import annotations
 
@@ -19,7 +19,8 @@ import torch
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..models.gnn.message_passing import GraphBatch
 
-__all__ = ["NeighborSampler", "PrefetchIterator", "graph_to_batch"]
+__all__ = ["NeighborSampler", "PrefetchIterator", "graph_to_batch",
+           "recsys_batch_fn"]
 
 
 class PrefetchIterator:
@@ -190,3 +191,36 @@ class NeighborSampler:
             edge_mask=put(em), node_mask=put(nm), labels=put(lab),
             graph_id=put(np.zeros(pn, np.int32)),
             y=put(np.zeros(1, np.float32)), n_graphs=1)
+
+
+# ---------------------------------------------------------------------------
+# recsys: session histories with latent-interest structure
+# ---------------------------------------------------------------------------
+
+def recsys_batch_fn(n_items: int, batch: int, hist_len: int, seed: int = 0,
+                    n_latent: int = 64, *, device=DEFAULT_DEVICE):
+    """``make(step)`` -> {hist (batch, hist_len) int32, hist_mask float32,
+    target (batch,) int32} on ``device``.  Users draw items from three of
+    ``n_latent`` clusters, which gives MIND's multi-interest routing
+    something to learn; histories hold hist_len // 2 to hist_len items.
+    The numpy draws are the reference's, bitwise."""
+    dev = resolve_device(device)
+    width = n_items // n_latent
+
+    def make(step: int) -> dict:
+        rng = np.random.default_rng((seed, step))
+        cluster_of_user = rng.integers(0, n_latent, (batch, 3))
+        which = rng.integers(0, 3, (batch, hist_len))
+        cluster = np.take_along_axis(cluster_of_user, which, axis=1)
+        items = (cluster * width
+                 + rng.integers(0, width, (batch, hist_len))).astype(np.int32)
+        lengths = rng.integers(hist_len // 2, hist_len + 1, batch)
+        mask = (np.arange(hist_len)[None, :] < lengths[:, None]) \
+            .astype(np.float32)
+        tgt_cluster = cluster_of_user[np.arange(batch),
+                                      rng.integers(0, 3, batch)]
+        target = (tgt_cluster * width
+                  + rng.integers(0, width, batch)).astype(np.int32)
+        return {k: torch.from_numpy(v).to(dev) for k, v in
+                (("hist", items), ("hist_mask", mask), ("target", target))}
+    return make

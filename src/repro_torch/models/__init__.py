@@ -1,2 +1,2 @@
-"""Models of the port (``repro.models``): the four GNNs and the dense
-LM's serving path so far."""
+"""Models of the port (``repro.models``): the GNNs, the LM's serving
+path (dense and MoE) and MIND so far."""

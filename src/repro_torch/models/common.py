@@ -8,6 +8,8 @@ role, so nothing here takes a ``loop=`` argument.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -18,11 +20,24 @@ __all__ = ["DEFAULT_DTYPE", "apply_rope", "dense_init", "embed_init",
 DEFAULT_DTYPE = torch.bfloat16
 
 
+# a leaf of more draws than this is drawn a slice of dim 0 at a time, so
+# that its float32 draws never exist whole (moonshot's stacked experts,
+# 8.9e9 values, would take 35 GB in float32)
+_DRAW_LIMIT = 1 << 31
+
+
 def _normal(generator: torch.Generator, shape, std: float, dtype,
             device) -> torch.Tensor:
-    x = torch.randn(tuple(shape), generator=generator, dtype=torch.float32,
+    shape = tuple(shape)
+    device = device or generator.device
+    if len(shape) > 1 and math.prod(shape) > _DRAW_LIMIT:
+        out = torch.empty(shape, dtype=dtype, device=device)
+        for i in range(shape[0]):
+            out[i] = _normal(generator, shape[1:], std, dtype, device)
+        return out
+    x = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=generator.device) * std
-    return x.to(dtype=dtype, device=device or generator.device)
+    return x.to(dtype=dtype, device=device)
 
 
 def dense_init(generator: torch.Generator, shape, dtype=DEFAULT_DTYPE,

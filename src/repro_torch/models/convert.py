@@ -7,7 +7,6 @@ import numpy as np
 import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
-from ..tree import tree_map
 
 __all__ = ["lm_params_from_numpy"]
 
@@ -22,7 +21,18 @@ def _tensor(a) -> torch.Tensor:
 def lm_params_from_numpy(tree, *, dtype=None, device=DEFAULT_DEVICE) -> dict:
     """``tree`` holds ``embed``, ``ln_f``, ``groups`` (a list of dicts of
     stacked leaves), ``remainder`` (a list of dicts) and optionally
-    ``lm_head``, each leaf an array.  Leaves keep their type unless
-    ``dtype`` is given."""
+    ``lm_head``, each leaf an array; an MoE layer's dict nests ``moe``
+    (``router``, ``w_gate``, ``w_up``, ``w_down``).  Leaves keep their
+    type unless ``dtype`` is given, which casts every leaf but the MoE
+    router: that stays float32, as the reference draws and uses it."""
     dev = resolve_device(device)
-    return tree_map(lambda a: _tensor(a).to(device=dev, dtype=dtype), tree)
+
+    def carry(t, key=None):
+        if isinstance(t, dict):
+            return {k: carry(v, k) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(carry(v) for v in t)
+        return _tensor(t).to(device=dev, dtype=None if key == "router"
+                             else dtype)
+
+    return carry(tree)

@@ -1,8 +1,10 @@
-"""Decoder-only LM (``repro.models.transformer``), its dense serving path:
+"""Decoder-only LM (``repro.models.transformer``), its serving path:
 prefill and KV-cache decode.
 
-One config describes the family; the port runs the dense models
-(llama3.2-3b).  Layers come in *groups*, one period of the local/global
+One config describes the family; the port serves the dense models
+(llama3.2-3b, qwen2-7b with its QKV bias) and the MoE ones (granite-moe,
+moonshot: ``models/moe.py``); gemma3's sliding-window prefill beyond one
+``attn_chunk`` waits (below).  Layers come in *groups*, one period of the local/global
 pattern; each parameter leaf of a group is stacked over the groups, as
 in the JAX package, so its param tree carries across unchanged
 (``models.convert.lm_params_from_numpy``).  The JAX ``lax.scan`` over
@@ -39,6 +41,7 @@ from ..kernels.flashattn import flash_attention
 from .attention import decode_attention, dense_attention
 from .common import (DEFAULT_DTYPE, apply_rope, dense_init, embed_init,
                      ones_init, rms_norm, swiglu, zeros_init)
+from .moe import MoEConfig, init_moe_params, moe_ffn
 
 __all__ = ["TransformerConfig", "decode_step", "forward", "grow_cache",
            "init_cache", "init_params", "prefill_step"]
@@ -49,8 +52,8 @@ class TransformerConfig:
     """The JAX package's config, field for field.  ``remat``,
     ``remat_policy``, ``train_microbatch``, ``attn_trapezoid`` and
     ``batch_axes`` steer training and the TPU mesh and have no effect on
-    the serving path; MoE, FSDP and the chunked loss raise until their
-    slices land."""
+    the serving path; FSDP and the chunked loss raise until their slices
+    land."""
 
     name: str
     n_layers: int
@@ -60,7 +63,7 @@ class TransformerConfig:
     d_ff: int
     vocab: int
     head_dim: Optional[int] = None        # default d_model // n_heads
-    moe: Optional[Any] = None             # None => dense FFN
+    moe: Optional[MoEConfig] = None       # None => dense FFN
     layer_pattern: tuple = ("global",)
     window: int = 1024                    # sliding window of "local" layers
     qkv_bias: bool = False
@@ -78,9 +81,6 @@ class TransformerConfig:
     batch_axes: tuple = ("pod", "data")
 
     def __post_init__(self):
-        if self.moe is not None:
-            raise NotImplementedError(
-                "MoE FFN (models/moe.py): ROADMAP §1 item 16")
         if self.param_sharding == "fsdp":
             raise NotImplementedError(
                 "param_sharding='fsdp' (FSDP and TP sharding on several "
@@ -111,11 +111,14 @@ class TransformerConfig:
         d, hd = self.d_model, self.hd
         n_attn = (self.n_heads + 2 * self.n_kv_heads) * hd * d \
             + self.n_heads * hd * d
+        if self.moe is not None:    # the k routed experts a token runs
+            return n_attn, 3 * self.moe.top_k * d * self.moe.d_ff
         return n_attn, 3 * d * self.d_ff
 
     def flops_per_token_fwd(self) -> float:
         """Analytic model FLOPs per token (forward): 2 N_active, the
-        attention scores left out, as in the JAX package."""
+        attention scores and the router left out, as in the JAX
+        package."""
         n_attn, n_ffn = self._layer_params()
         return 2.0 * (self.n_layers * (n_attn + n_ffn)
                       + self.d_model * self.vocab)
@@ -151,9 +154,13 @@ def _init_layer(generator, cfg: TransformerConfig, dev, n: Optional[int]):
         for name, width in (("bq", hq * hd), ("bk", hkv * hd),
                             ("bv", hkv * hd)):
             p[name] = zeros_init(lead + (width,), cfg.dtype, device=dev)
-    p["w_gate"] = dense((d, cfg.d_ff))
-    p["w_up"] = dense((d, cfg.d_ff))
-    p["w_down"] = dense((cfg.d_ff, d), out_scale)
+    if cfg.moe is not None:
+        p["moe"] = init_moe_params(generator, cfg.moe, cfg.dtype,
+                                   device=dev, lead=lead)
+    else:
+        p["w_gate"] = dense((d, cfg.d_ff))
+        p["w_up"] = dense((d, cfg.d_ff))
+        p["w_down"] = dense((cfg.d_ff, d), out_scale)
     return p
 
 
@@ -183,13 +190,20 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig, *,
     return params
 
 
+def _view(tree: dict, g: int) -> dict:
+    """Group ``g``'s slice of a dict of stacked leaves (nested dicts, such
+    as an MoE layer's ``moe``, included): views, no copies."""
+    return {k: _view(v, g) if isinstance(v, dict) else v[g]
+            for k, v in tree.items()}
+
+
 def _layers(params, cfg: TransformerConfig):
     """(layer params, kind) in depth order: the groups' views, then the
     remainder layers."""
     period = len(cfg.layer_pattern)
     for g in range(cfg.n_groups):
         for i, kind in enumerate(cfg.layer_pattern):
-            yield {k: leaf[g] for k, leaf in params["groups"][i].items()}, kind
+            yield _view(params["groups"][i], g), kind
     for i, p in enumerate(params["remainder"]):
         yield p, cfg.layer_pattern[i % period]
 
@@ -229,8 +243,16 @@ def _attention_block(p, x, kind: str, cfg: TransformerConfig, positions, *,
 
 
 def _ffn_block(p, x, cfg: TransformerConfig):
+    """x + FFN(x) and the MoE aux loss (a float32 0 for a dense FFN).  An
+    MoE layer routes the B * S tokens of the call: a prefill's in groups
+    of ``group_size``, a decode step's B as one group."""
     h = rms_norm(x, p["ln_ffn"])
-    return x + swiglu(h @ p["w_gate"], h @ p["w_up"]) @ p["w_down"]
+    if cfg.moe is not None:
+        b, s, d = x.shape
+        out, aux = moe_ffn(p["moe"], h.reshape(b * s, d), cfg.moe)
+        return x + out.reshape(b, s, d), aux
+    out = swiglu(h @ p["w_gate"], h @ p["w_up"]) @ p["w_down"]
+    return x + out, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def _head(x, params):
@@ -239,20 +261,22 @@ def _head(x, params):
 
 
 def forward(params, tokens, cfg: TransformerConfig):
-    """tokens (B, S) -> logits (B, S, vocab_pad).  The JAX function also
-    returns the MoE auxiliary loss, always 0 for a dense FFN; the port
-    returns the logits alone."""
-    return _head(_backbone(params, tokens, cfg), params)
+    """tokens (B, S) -> (logits (B, S, vocab_pad), aux loss () float32,
+    the layers' MoE aux losses summed: 0 for a dense FFN)."""
+    x, aux = _backbone(params, tokens, cfg)
+    return _head(x, params), aux
 
 
 def _backbone(params, tokens, cfg: TransformerConfig):
-    """tokens (B, S) -> final normed hidden states (B, S, d)."""
+    """tokens (B, S) -> (final normed hidden states (B, S, d), aux)."""
     x = F.embedding(tokens, params["embed"])
     positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, kind in _layers(params, cfg):
         x, _, _ = _attention_block(p, x, kind, cfg, positions)
-        x = _ffn_block(p, x, cfg)
-    return rms_norm(x, params["ln_f"])
+        x, a = _ffn_block(p, x, cfg)
+        aux = aux + a
+    return rms_norm(x, params["ln_f"]), aux
 
 
 # ---------------------------------------------------------------------------
@@ -291,7 +315,7 @@ def prefill_step(params, tokens, cfg: TransformerConfig, *, use_kernel=None):
                                    use_kernel=use_kernel)
         cache["k"][li] = k
         cache["v"][li] = v
-        x = _ffn_block(p, x, cfg)
+        x, _ = _ffn_block(p, x, cfg)
     x_last = rms_norm(x[:, -1:], params["ln_f"])
     cache["len"] = s
     return _head(x_last, params)[:, 0], cache
@@ -318,7 +342,7 @@ def decode_step(params, cache: dict, tokens, cfg: TransformerConfig):
         o = decode_attention(q, cache["k"][li], cache["v"][li], pos,
                              window=window)
         x = x + o.reshape(b, 1, cfg.n_heads * cfg.hd) @ p["wo"]
-        x = _ffn_block(p, x, cfg)
+        x, _ = _ffn_block(p, x, cfg)
     x = rms_norm(x, params["ln_f"])
     return _head(x, params)[:, 0], {"k": cache["k"], "v": cache["v"],
                                     "len": pos + 1}

@@ -152,6 +152,26 @@ def test_stale_ring_slot_control_exceeds_the_row_limit(s):
                        want[:, :KV_STAGES * KV_TILE])
 
 
+def test_stale_ring_slot_control_reaches_every_consumer_slab_at_dh_64():
+    """The same control at head dim 64 (granite-moe's), held as
+    chip_smoke.py holds it: a stale read corrupts the 64 query rows of
+    one head that the reading consumer warpgroup owns, so in every such
+    slab past the stale tile at least one row lies beyond the per-row
+    limit.  S = 1024 gives ten slabs a head."""
+    bh, s, dh, slab = 16, 1024, 64, 64
+    q, k, v = [torch.from_numpy(_normal((bh, s, dh), 7 + i)).to(
+        torch.bfloat16) for i in range(3)]
+    want = tf.flash_attention_ref(q, k, v, causal=True).float()
+    bad = tf.flash_attention_ref(q, _stale_ring_slot(k), _stale_ring_slot(v),
+                                 causal=True).float()
+    past = (KV_STAGES + 1) * KV_TILE
+    rel = ((bad - want).norm(dim=-1)
+           / want.norm(dim=-1).clamp_min(1e-30))[:, past:]
+    per_slab = rel.unflatten(1, (-1, slab)).amax(-1)
+    assert per_slab.shape == (bh, (s - past) // slab)
+    assert float(per_slab.min()) > FLASH_ROW_REL
+
+
 def test_dispatcher_refuses_what_it_cannot_honour():
     q = torch.zeros(1, 8, 2, 64)
     k = torch.zeros(1, 8, 1, 64)

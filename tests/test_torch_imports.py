@@ -300,3 +300,43 @@ def test_guard_walks_the_gnn_slice():
         sampler.to_graph_batch(sampler.sample(0), feats,
                                torch.zeros(16, dtype=torch.int32).numpy(),
                                n_classes=2)
+
+
+def test_guard_walks_the_moe_and_recsys_slice():
+    """The import guard reaches the MoE FFN, MIND, their converters and
+    the new configs; the card's [21] script names no JAX; without a card
+    their entry points raise unless the CPU is asked for."""
+    assert {"repro_torch.models.moe", "repro_torch.models.recsys",
+            "repro_torch.models.recsys.mind",
+            "repro_torch.models.recsys.convert",
+            "repro_torch.configs.granite_moe_3b_a800m",
+            "repro_torch.configs.moonshot_v1_16b_a3b",
+            "repro_torch.configs.qwen2_7b",
+            "repro_torch.configs.mind"} <= set(_submodules())
+    path = SRC.parents[1] / "tools" / "moe_recsys_phase.py"
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else [node.module or ""])
+            assert not any(n.split(".")[0] in ("jax", "jaxlib", "repro")
+                           for n in names), (path.name, node.lineno)
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from repro_torch.configs import granite_moe_3b_a800m, mind, qwen2_7b
+    from repro_torch.data import recsys_batch_fn
+    from repro_torch.models import moe, recsys
+    gen = torch.Generator().manual_seed(0)
+    calls = [
+        lambda: lm.init_params(gen, granite_moe_3b_a800m.make_smoke_config()),
+        lambda: lm.init_params(gen, qwen2_7b.make_smoke_config()),
+        lambda: moe.init_moe_params(
+            gen, granite_moe_3b_a800m.make_smoke_config().moe),
+        lambda: recsys.init_params(gen, mind.make_smoke_config()),
+        lambda: recsys.mind_params_from_numpy(
+            {k: v.numpy() for k, v in recsys.init_params(
+                gen, mind.make_smoke_config(), device="cpu").items()}),
+        lambda: recsys_batch_fn(1024, 4, 10),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()

@@ -1328,3 +1328,79 @@ def test_weighted_run_on_the_card(cuda):
     assert res.distance_cap > 0
     for rep in res.reports:
         assert np.isfinite(rep.scores).all()
+
+
+# ---------------------------------------------------------------------------
+# MoE routing and serving, MIND: the card against the CPU
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("experts,k", [(40, 8), (64, 6), (4, 2)])
+def test_moe_route_on_the_card_is_the_cpu_s(cuda, experts, k):
+    """``route`` on the same float32 probabilities, as drawn and rounded
+    to multiples of 2^-6 (ties at most tokens' k-th expert): expert ids,
+    kept choices and slots bitwise the CPU's."""
+    from repro_torch.models import moe
+    cfg = moe.MoEConfig(n_experts=experts, top_k=k, d_model=8, d_ff=8)
+    gen = torch.Generator(device=cuda).manual_seed(experts)
+    logits = torch.randn((3, 1024, experts), generator=gen, device=cuda)
+    probs = torch.softmax(logits, -1)
+    for p in (probs, torch.round(probs * 64) / 64):
+        card, host = moe.route(p, cfg), moe.route(p.cpu(), cfg)
+        for name in ("expert_ids", "keep", "pos"):
+            assert torch.equal(getattr(card, name).cpu(),
+                               getattr(host, name)), name
+
+
+def test_moe_smoke_prefill_on_the_card(cuda):
+    """granite's smoke config (float32, head dim 16, 4 experts top-2)
+    prefilled on the card: one K5 launch a layer, logits within float32
+    reach of the CPU's plain route; a decode step launches none."""
+    from repro_torch.configs.granite_moe_3b_a800m import make_smoke_config
+    from repro_torch.models import transformer as lm
+    from repro_torch.tree import tree_map
+    cfg = make_smoke_config()
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, 96),
+                           generator=torch.Generator().manual_seed(1))
+    want, _ = lm.prefill_step(params, tokens, cfg)
+    gpu_params = tree_map(lambda x: x.to(cuda), params)
+    fa.reset_launch_counts()
+    got, cache = lm.prefill_step(gpu_params, tokens.to(cuda), cfg)
+    torch.cuda.synchronize()
+    assert fa.launch_counts[fa.FLASHATTN] == cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    fa.reset_launch_counts()
+    lm.decode_step(gpu_params, lm.grow_cache(cache, 1),
+                   got.argmax(-1)[:, None], cfg)
+    torch.cuda.synchronize()
+    assert fa.launch_counts[fa.FLASHATTN] == 0
+
+
+def test_mind_on_the_card_matches_the_cpu(cuda):
+    """MIND's smoke config: serving, retrieval and the training loss on
+    the card within 1e-5 of the CPU's, same weights and batch."""
+    from repro_torch.configs.mind import make_smoke_config
+    from repro_torch.data import recsys_batch_fn
+    from repro_torch.models import recsys
+    cfg = make_smoke_config()
+    params = recsys.init_params(torch.Generator().manual_seed(0), cfg,
+                                device="cpu")
+    batch = recsys_batch_fn(cfg.n_items, 64, cfg.hist_len,
+                            device="cpu")(0)
+    gp = {k: v.to(cuda) for k, v in params.items()}
+    gb = {k: v.to(cuda) for k, v in batch.items()}
+    torch.testing.assert_close(recsys.serve_interests(gp, gb, cfg).cpu(),
+                               recsys.serve_interests(params, batch, cfg),
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(recsys.train_loss(gp, gb, cfg).cpu(),
+                               recsys.train_loss(params, batch, cfg),
+                               rtol=1e-5, atol=1e-6)
+    cand = torch.arange(cfg.n_items, dtype=torch.int32)
+    one = {"hist": batch["hist"][:1], "hist_mask": batch["hist_mask"][:1],
+           "candidates": cand}
+    torch.testing.assert_close(
+        recsys.retrieval_scores(gp,
+                                {k: v.to(cuda) for k, v in one.items()},
+                                cfg).cpu(),
+        recsys.retrieval_scores(params, one, cfg), rtol=1e-5, atol=1e-6)

@@ -1,9 +1,12 @@
 """The port's LM serving slice on the CPU against the JAX package: the
 model substrate (rms_norm, swiglu, RoPE), dense and decode attention,
-``forward``, ``prefill_step`` with its cache, ``decode_step`` and the
-greedy loop of ``examples/serve_lm_torch.py``, with the JAX weights
-carried across by ``lm_params_from_numpy``.  On the CPU every
-full-attention layer runs the flash-attention dispatcher's plain route.
+``forward`` with its MoE aux loss, ``prefill_step`` with its cache,
+``decode_step`` and the greedy loop of ``examples/serve_lm_torch.py``,
+with the JAX weights carried across by ``lm_params_from_numpy``, on
+llama-, qwen2- (QKV bias) and MoE-shaped (granite's smoke config and a
+narrow one with several routing groups and drops) configs.  On the CPU
+every full-attention layer runs the flash-attention dispatcher's plain
+route.
 
 Tolerance, float32 throughout: rtol 1e-5, and for entries near zero an
 atol of 1e-5 of the array's largest magnitude.  Both packages compute
@@ -11,6 +14,7 @@ the same float32 expressions; attention and the matmuls sum in other
 orders (XLA's chunked online softmax against PyTorch's dense one),
 which leaves gaps of ~2e-6 of the largest logit after two layers.
 """
+import dataclasses
 import functools
 import importlib.util
 from pathlib import Path
@@ -21,13 +25,21 @@ import numpy as np
 import pytest
 import torch
 
+import repro.configs.granite_moe_3b_a800m as jgranite
 import repro.configs.llama3_2_3b as jcfg
+import repro.configs.moonshot_v1_16b_a3b as jmoonshot
+import repro.configs.qwen2_7b as jqwen
 import repro.models.attention as jatt
 import repro.models.common as jcom
+import repro.models.moe as jmoe
 import repro.models.transformer as jt
+import repro_torch.configs.granite_moe_3b_a800m as tgranite
 import repro_torch.configs.llama3_2_3b as tcfg
+import repro_torch.configs.moonshot_v1_16b_a3b as tmoonshot
+import repro_torch.configs.qwen2_7b as tqwen
 import repro_torch.models.attention as tatt
 import repro_torch.models.common as tcom
+import repro_torch.models.moe as tmoe
 import repro_torch.models.transformer as tt
 from repro.configs._families import LM_SHAPES as J_LM_SHAPES
 from repro_torch.configs._families import LM_SHAPES
@@ -61,6 +73,17 @@ def _narrow(mod, dtype, **kw):
     return mod.TransformerConfig(**{**args, **kw})
 
 
+def _moe_narrow(mod, moe_mod, dtype):
+    """The narrow config with an MoE FFN: 8 experts of width 64, top-2,
+    groups of 64 rows at capacity factor 1.0 (capacity 24 against a mean
+    load of 16), so a 2 x 128 prefill routes 4 groups and drops some
+    choices."""
+    return _narrow(mod, dtype, name="moe-narrow", d_ff=0,
+                   moe=moe_mod.MoEConfig(n_experts=8, top_k=2, d_model=128,
+                                         d_ff=64, capacity_factor=1.0,
+                                         group_size=64))
+
+
 CONFIGS = {
     # (JAX config, port config, prompt length)
     "smoke": (jcfg.make_smoke_config(), tcfg.make_smoke_config(), 48),
@@ -72,7 +95,14 @@ CONFIGS = {
                 window=16, attn_impl="dense"),
         _narrow(tt, torch.float32, layer_pattern=("local", "global"),
                 window=16, attn_impl="dense"), 48),
+    "granite_smoke": (jgranite.make_smoke_config(),
+                      tgranite.make_smoke_config(), 48),
+    "moe_narrow": (_moe_narrow(jt, jmoe, jnp.float32),
+                   _moe_narrow(tt, tmoe, torch.float32), 128),
+    "qwen_smoke": (jqwen.make_smoke_config(), tqwen.make_smoke_config(), 48),
 }
+ALL = ["smoke", "narrow", "local_global", "granite_smoke", "moe_narrow",
+       "qwen_smoke"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -107,15 +137,74 @@ def test_configs_match_the_reference():
     assert abs(tcfg.make_config().active_params() - 3.61e9) < 0.01e9
 
 
+_CONFIG_FIELDS = ("name", "n_layers", "d_model", "n_heads", "n_kv_heads",
+                  "d_ff", "vocab", "head_dim", "layer_pattern", "window",
+                  "qkv_bias", "rope_theta", "tie_embeddings", "attn_impl",
+                  "attn_chunk", "hd", "vocab_pad", "n_groups", "n_remainder")
+
+
+@pytest.mark.parametrize("jmod,tmod,active", [
+    (jgranite, tgranite, 0.956e9), (jmoonshot, tmoonshot, 3.968e9),
+    (jqwen, tqwen, 7.615e9)], ids=["granite", "moonshot", "qwen2"])
+def test_moe_and_qwen2_configs_match_the_reference(jmod, tmod, active):
+    """Field for field, the MoE config's fields included, with the
+    analytic FLOPs a token and active parameters (the k routed experts a
+    token runs) equal to the reference's."""
+    for make in ("make_config", "make_smoke_config"):
+        j, t = getattr(jmod, make)(), getattr(tmod, make)()
+        for field in _CONFIG_FIELDS:
+            assert getattr(t, field) == getattr(j, field), field
+        if j.moe is None:
+            assert t.moe is None
+        else:
+            assert dataclasses.asdict(t.moe) == dataclasses.asdict(j.moe)
+        assert t.flops_per_token_fwd() == j.flops_per_token_fwd()
+        assert t.active_params() == j.active_params()
+        assert str(t.dtype).split(".")[-1] == jnp.dtype(j.dtype).name
+    assert abs(tmod.make_config().active_params() - active) < 0.001e9
+
+
+def test_moe_param_tree_in_bfloat16():
+    """A bfloat16 MoE model: the router float32, every other leaf
+    bfloat16, the experts' spread 1 / sqrt(n_experts) per leaf (the
+    reference's fan in) stacked over the groups; and
+    ``lm_params_from_numpy`` carries the JAX tree across with the same
+    types, also when asked for a dtype."""
+    jc = _moe_narrow(jt, jmoe, jnp.bfloat16)
+    tc = _moe_narrow(tt, tmoe, torch.bfloat16)
+    jp = jt.init_params(jax.random.PRNGKey(0), jc)
+    tp = tt.init_params(torch.Generator().manual_seed(0), tc, device="cpu")
+    moe = tp["groups"][0]["moe"]
+    assert moe["router"].dtype == torch.float32
+    assert tuple(moe["w_gate"].shape) == (2, 8, 128, 64)
+    for leaf in ("w_gate", "w_up", "w_down"):
+        assert moe[leaf].dtype == torch.bfloat16
+        assert abs(float(moe[leaf].float().std()) - 8 ** -0.5) < 0.01
+    assert abs(float(moe["router"].std()) - 128 ** -0.5) < 0.01
+    host = jax.tree.map(np.asarray, jp)
+    for dtype in (None, torch.bfloat16, torch.float32):
+        carried = lm_params_from_numpy(host, dtype=dtype, device="cpu")
+        cm = carried["groups"][0]["moe"]
+        assert cm["router"].dtype == torch.float32
+        assert cm["w_up"].dtype == (dtype or torch.bfloat16)
+        assert carried["embed"].dtype == (dtype or torch.bfloat16)
+        np.testing.assert_array_equal(
+            np_(cm["w_up"].float()),
+            np.asarray(jp["groups"][0]["moe"]["w_up"].astype(jnp.float32)))
+        np.testing.assert_array_equal(np_(cm["router"]),
+                                      np.asarray(jp["groups"][0]["moe"]
+                                                 ["router"]))
+
+
 @pytest.mark.parametrize("kw,item", [
-    (dict(moe=object()), "moe"), (dict(param_sharding="fsdp"), "fsdp"),
+    (dict(param_sharding="fsdp"), "fsdp"),
     (dict(loss_chunk=512), "loss_chunk")])
 def test_unported_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=f"{item}.*ROADMAP"):
         _narrow(tt, torch.float32, **kw)
 
 
-@pytest.mark.parametrize("name", ["smoke", "narrow", "local_global"])
+@pytest.mark.parametrize("name", ALL)
 def test_init_params_has_the_reference_tree(name):
     """Same leaves in the same order, shapes and types; the per-leaf
     spread follows the JAX initializers' scales."""
@@ -188,14 +277,20 @@ def test_decode_attention(pos, window):
 # the model
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", ["smoke", "narrow", "local_global"])
+@pytest.mark.parametrize("name", ALL)
 def test_forward_logits(name):
+    """``forward`` returns (logits, aux) as the JAX function does: aux is
+    the layers' MoE losses summed (within 1e-6), a float32 0 for a dense
+    FFN."""
     jc, tc, jp, tp, tokens = _setup(name)
-    want, _aux = jax.jit(lambda p, t: jt.forward(p, t, jc))(
+    want, want_aux = jax.jit(lambda p, t: jt.forward(p, t, jc))(
         jp, jnp.asarray(tokens))
-    got = tt.forward(tp, torch.from_numpy(tokens), tc)
+    got, aux = tt.forward(tp, torch.from_numpy(tokens), tc)
     assert got.shape == (2, tokens.shape[1], tc.vocab_pad)
     _close(got, want)
+    assert aux.shape == () and aux.dtype == torch.float32
+    assert abs(float(aux) - float(want_aux)) <= 1e-6
+    assert (float(aux) > 0) == (tc.moe is not None)
 
 
 def test_local_layer_beyond_one_chunk_raises():
@@ -205,7 +300,7 @@ def test_local_layer_beyond_one_chunk_raises():
         tt.prefill_step(tp, long, tc)
 
 
-@pytest.mark.parametrize("name", ["smoke", "narrow", "local_global"])
+@pytest.mark.parametrize("name", ALL)
 def test_prefill_and_four_decode_steps(name):
     """prefill_step's logits and cache, then 4 decode_steps on a cache
     grown by 4 (as serve_lm.py grows it), logits at every step and the
