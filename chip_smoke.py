@@ -299,7 +299,30 @@ any failed phase.  Phases:
    candidates) through ``retrieval_scores``, each timed with CUDA events
    after a warm-up; serve_p99 on the card within MIND_SERVE_REL of the
    CPU's on the same weights and batch; train_batch: MIND_STEPS AdamW
-   steps at 65,536 through ``train/step.py``, the losses finite.  No kernel runs in (d).
+   steps at 65,536 through ``train/step.py``, the losses finite.  No kernel runs in (d);
+22. gemma3-27b, after [21]: (a) K5's sliding-window mode (each query
+   tile's KV loop from the first tile of its window, the tiles where a
+   window begins masked) at gemma3's local layers' prefill shape, q (1,
+   32768, 32, 128), k and v (1, 32768, 16, 128), bfloat16, window 1,024,
+   against its windowed plain version within 2e-2 and per row within
+   1e-2, with the stale-ring-slot control counted from each query tile's
+   first KV tile (beyond the row limit in every 64-row slab); float32 at
+   (1, 4096, 32/16, 128) within 3e-5 with its TF32 control; the ragged
+   (1, 1000, 6/2, 64) in both types at windows 1, 100, 128 and 1,000.
+   Each timed beside its plain version, its bound, the causal kernel on
+   the same inputs and ``scaled_dot_product_attention`` with the band as
+   a boolean mask (memory-efficient backend).  (b) gemma3-27b at full
+   width and depth in bfloat16 (2.84e10 parameters, 52.9 GiB, drawn on
+   the card): a prefill of 1 x 16,384 (62 K5 launches, 52 windowed), the
+   cache grown by 8 and 8 greedy decode steps (no K5), then 1 x 32,768
+   prefilled twice (first and warm) where its projected peak fits the
+   card, else 16,384 with the reason printed; each prefill's seconds,
+   tokens/s and peak memory.  (c) The kernel route against the plain
+   route at full width on one period of 6 layers (5 local, 1 global),
+   one prompt of 4,096 tokens: the plain route's local layers through
+   ``masked_chunk_attention`` and, with ``attn_trapezoid``, through
+   ``trapezoid_attention``; float32 within LLAMA_F32_RTOL and bfloat16
+   within LLAMA_BF16_RATIO, as [12].
 
 Every run resets the launch counts just before it and reads them just
 after: each kernel of the run must have carried all of its work.
@@ -487,6 +510,32 @@ QWEN_PROMPT, QWEN_GEN = 32768, 8
 # on the card against the CPU within MIND_SERVE_REL of the largest entry
 # (the same float32 expressions, summed in other orders)
 MIND_STEPS, MIND_SERVE_REL = 3, 1e-5
+# [22] gemma3-27b.  (a) K5's sliding-window mode at the shape of
+# gemma3's local layers in a 32k prefill (B, S, H, KV, dh) =
+# FLASH_WINDOW_SHAPE, bfloat16, window GEMMA_WINDOW, held as [11] holds
+# the causal kernel (2e-2, each row within FLASH_ROW_REL, a stale-slot
+# control per 64-row slab); float32 at FLASH_WINDOW_F32_SHAPE; the ragged
+# FLASH_RAGGED_SHAPE in both types at the windows FLASH_WINDOW_RAGGED.
+# (b) The model at full width and depth (52.9 GiB of bfloat16 weights):
+# prefills of 1 x GEMMA_PROMPT (prefill_32k's length, its batch of 32
+# cut to 1: one 32k cache is 15.5 GiB), first and again, and of 1 x
+# GEMMA_DECODE_PROMPT before GEMMA_GEN greedy decode steps (cut from 32k:
+# grow_cache holds two caches at once, 52.9 + 2 x 15.5 GiB).  (c) The
+# kernel route against the plain route at full width on one period of
+# the pattern (6 layers: depth cut from 62), GEMMA_ROUTE_PROMPT tokens,
+# so that the plain route's local layers run 4 chunks of attn_chunk,
+# through masked_chunk_attention and trapezoid_attention
+GEMMA_WINDOW = 1024
+FLASH_WINDOW_SHAPE = (1, 32768, 32, 16, 128)
+FLASH_WINDOW_F32_SHAPE = (1, 4096, 32, 16, 128)
+FLASH_WINDOW_RAGGED = (1, 100, 128, 1000)
+GEMMA_PROMPT, GEMMA_DECODE_PROMPT, GEMMA_GEN = 32768, 16384, 8
+GEMMA_ROUTE_PROMPT = 4096
+# the 32k prefill runs if its projected peak (allocated) leaves this much
+# of the card for the allocator's fragmentation: 2.72 GiB were reserved
+# but unallocated when a 32k prefill with a larger FFN peak ran out of
+# memory on an NVIDIA H100 80GB HBM3 at 700.00 W
+GEMMA_MARGIN_GIB = 3.0
 GROUP_SETTINGS = ("DEVICE", "SEED", "RMAT_SCALE", "EDGE_FACTOR", "BATCH",
                   "MAIN_EPS", "MAIN_DELTA", "HYPER_N", "HYPER_EPS",
                   "HYPER_BLOCK_V", "GROUP_SHARDS", "GROUP_MAX_EPOCHS")
@@ -948,7 +997,8 @@ def read_counts(label: str, kernel_name: str, bfs_levels: int,
     centrality run."""
     from repro_torch.kernels import flashattn, frontier, segsum, stopcheck
     counts = all_counts()
-    if counts[segsum.SEGSUM] != 0 or counts[flashattn.FLASHATTN] != 0:
+    if counts[segsum.SEGSUM] != 0 or counts[flashattn.FLASHATTN] != 0 \
+            or counts[flashattn.FLASHATTN_WINDOW] != 0:
         raise AssertionError(f"{label}: the gather-segment-sum or "
                              "flash-attention kernel ran in a centrality "
                              f"run: {counts}")
@@ -1400,12 +1450,27 @@ def clone_tree(tree):
 def kernel_only(label: str, name: str, want: int) -> dict:
     """The launch counts of a model run: ``want`` launches of the kernel
     ``name`` and no other kernel."""
+    return kernels_only(label, {name: want})
+
+
+def kernels_only(label: str, want: dict) -> dict:
+    """The launch counts of a model run: each kernel named in ``want`` as
+    many launches as it says, every other kernel none."""
     counts = all_counts()
-    others = sum(v for k, v in counts.items() if k != name)
-    if counts[name] != want or others:
-        raise AssertionError(f"{label}: expected {want} {name} launches and "
-                             f"no other kernel, got {counts}")
+    if any(v != want.get(k, 0) for k, v in counts.items()):
+        raise AssertionError(f"{label}: expected the launches {want} and no "
+                             f"other kernel, got {counts}")
     return counts
+
+
+def k5_launches(cfg) -> dict:
+    """K5's launches in one prefill of ``cfg``: a causal launch a global
+    layer, a window launch a local (sliding-window) layer."""
+    from repro_torch.kernels.flashattn import FLASHATTN, FLASHATTN_WINDOW
+    period = cfg.layer_pattern
+    local = sum(period[i % len(period)] == "local"
+                for i in range(cfg.n_layers))
+    return {FLASHATTN: cfg.n_layers - local, FLASHATTN_WINDOW: local}
 
 
 def step_gaps(params, plain_params, m, plain_m, opt) -> tuple:
@@ -1547,14 +1612,22 @@ def phase_graphsage(cfg, batch) -> dict:
     return {k: fwd[k] + train[k] for k in fwd}
 
 
-def flash_cost(shape, causal: bool, elem: int) -> tuple:
+def flash_pairs(s: int, causal: bool, window=None) -> float:
+    """The (query, key) pairs a head the mask keeps: the causal triangle
+    S (S + 1) / 2, or with a window w the triangle's first w rows and w
+    keys each after them."""
+    if window is not None and s > window:
+        return window * (window + 1) / 2 + (s - window) * window
+    return s * (s + 1) / 2 if causal else s * s
+
+
+def flash_cost(shape, causal: bool, elem: int, window=None) -> tuple:
     """(bytes, operations) of one attention call: q, k, v read once and
     the output written once; 4 dh operations for every (query, key)
-    pair the mask keeps (q . k and p v), the causal triangle
-    S (S + 1) / 2 a head."""
+    pair the mask keeps (q . k and p v)."""
     b, s, h, kv, dh = shape
-    pairs = s * (s + 1) / 2 if causal else s * s
-    return (2 * b * s * (h + kv) * dh * elem, 4.0 * b * h * pairs * dh)
+    return (2 * b * s * (h + kv) * dh * elem,
+            4.0 * b * h * flash_pairs(s, causal, window) * dh)
 
 
 def flash_inputs(shape, dtype, seed: int):
@@ -1617,6 +1690,86 @@ def check_flash_rows(label: str, q, k, v, got, want, causal: bool) -> dict:
             "stale_tile_rows_at_or_below_limit": below}
 
 
+def stale_window_ref(q, k, v, window: int) -> dict:
+    """The windowed plain version with a stale ring slot: for each query
+    tile of FLASH_KV_TILE rows whose KV loop (from its first window tile
+    j0 to its diagonal) visits more than FLASH_KV_STAGES tiles, tile j0 +
+    FLASH_KV_STAGES read as tile j0, what a consumer reading the slot
+    before its refill would see.  Float32 scores, softmax and P V, as the
+    plain version.  {query tile: its rows' output (B, rows, H, dh)}."""
+    import torch
+    _, s, h, dh = q.shape
+    g = h // k.shape[2]
+    tile = FLASH_KV_TILE
+    out = {}
+    for qt in range(-(-s // tile)):
+        j0 = max(0, qt * tile - window + 1) // tile
+        if qt - j0 + 1 <= FLASH_KV_STAGES:
+            continue
+        lo, hi = j0 * tile, min(s, (qt + 1) * tile)
+        kk, vv = (x[:, lo:hi].to(torch.float32, copy=True) for x in (k, v))
+        st = FLASH_KV_STAGES * tile
+        n = min(hi - lo, st + tile) - st
+        kk[:, st:st + n], vv[:, st:st + n] = kk[:, :n], vv[:, :n]
+        kk = kk.repeat_interleave(g, dim=2)
+        vv = vv.repeat_interleave(g, dim=2)
+        rows = q[:, qt * tile:hi].float()
+        scores = torch.einsum("bqhd,bkhd->bhqk", rows, kk) / dh ** 0.5
+        qpos = torch.arange(qt * tile, hi, device=q.device)[:, None]
+        kpos = torch.arange(lo, hi, device=q.device)[None, :]
+        scores = scores.masked_fill((kpos > qpos) | (qpos - kpos >= window),
+                                    -1e30)
+        out[qt] = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(scores, -1),
+                               vv)
+    return out
+
+
+def check_flash_window_rows(label: str, q, k, v, got, want,
+                            window: int) -> dict:
+    """The windowed bfloat16 output held per row within FLASH_ROW_REL, and
+    its stale-slot control (``stale_window_ref``), which must lie beyond
+    that in at least one row of every FLASH_SLAB_ROWS-row slab (one
+    consumer warpgroup's, of one head) of each query tile whose loop
+    reaches a third tile.  Where no loop does (a window of at most
+    FLASH_KV_STAGES tiles), the ring never wraps and there is no
+    control."""
+    sound = float(row_rel_err(got, want).max())
+    tile = FLASH_KV_TILE
+    bad = stale_window_ref(q, k, v, window)
+    if not bad:
+        log(f"  flash {label} window {window}: per-row ||diff|| / ||plain|| "
+            f"at most {sound:.4g} (limit {FLASH_ROW_REL}); no query tile "
+            f"visits more than {FLASH_KV_STAGES} KV tiles, so the ring never "
+            "wraps: no stale-slot control")
+        if not sound <= FLASH_ROW_REL:
+            raise AssertionError(f"flash {label}: per-row gap {sound} beyond "
+                                 f"{FLASH_ROW_REL}")
+        return {"row_rel_err": sound}
+    slab_min, row_min, below = float("inf"), float("inf"), 0
+    for qt, rows in bad.items():
+        w = want[:, qt * tile:qt * tile + rows.shape[1]]
+        gaps = row_rel_err(rows, w)                       # (B, rows, H)
+        row_min = min(row_min, float(gaps.min()))
+        below += int((gaps <= FLASH_ROW_REL).sum())
+        for r in range(0, gaps.shape[1], FLASH_SLAB_ROWS):
+            slab = gaps[:, r:r + FLASH_SLAB_ROWS].amax(dim=1)  # (B, H)
+            slab_min = min(slab_min, float(slab.min()))
+    log(f"  flash {label} window {window}: per-row ||diff|| / ||plain|| at "
+        f"most {sound:.4g} (limit {FLASH_ROW_REL}); control with a stale "
+        f"ring slot (each query tile's KV tile j0 + {FLASH_KV_STAGES} read "
+        f"as its first, j0), {len(bad)} query tiles: at least "
+        f"{slab_min:.4g} in the worst row of every {FLASH_SLAB_ROWS}-row "
+        f"slab, at least {row_min:.4g} in every row ({below} rows at or "
+        "below the limit)")
+    if not sound <= FLASH_ROW_REL < slab_min:
+        raise AssertionError(f"flash {label}: per-row gap {sound} or the "
+                             f"stale-slot control {slab_min} on the wrong "
+                             f"side of {FLASH_ROW_REL}")
+    return {"row_rel_err": sound, "stale_tile_row_rel_err_min": row_min,
+            "stale_tile_slab_rel_err_min": slab_min,
+            "stale_tile_rows_at_or_below_limit": below}
+
+
 def tf32_round(x):
     """float32 rounded to TF32 (10 mantissa bits), to nearest, ties away
     from zero (``cvt.rna.tf32.f32``)."""
@@ -1625,14 +1778,14 @@ def tf32_round(x):
 
 
 def check_flash_tf32_control(label: str, q, k, v, want, causal: bool,
-                             excess: float) -> dict:
+                             excess: float, window=None) -> dict:
     """The float32 route's control: the plain version on q, k, v rounded
     to TF32 must lie beyond the 3e-5 that the kernel meets (``excess``,
     its largest gap over the allowed one, at most 1)."""
     from repro_torch.kernels.flashattn import flash_attention_gqa_ref
     tol = FLASH_TOL["float32"]
     bad = flash_attention_gqa_ref(tf32_round(q), tf32_round(k),
-                                  tf32_round(v), causal=causal)
+                                  tf32_round(v), causal=causal, window=window)
     gap = (bad - want).abs()
     control = float((gap / (tol + tol * want.abs())).max())
     log(f"  flash {label}: control, the plain version on q, k, v rounded "
@@ -1646,21 +1799,25 @@ def check_flash_tf32_control(label: str, q, k, v, want, causal: bool,
 
 
 def check_flash_case(label: str, shape, dtype, causal: bool, seed: int,
-                     iters: int, tf32_control: bool = False) -> dict:
+                     iters: int, tf32_control: bool = False,
+                     window=None) -> dict:
     """K5 against its plain version on N(0, 1) inputs within the dtype's
     tolerance (and bfloat16 per row too, with its control; float32 with
     the TF32 control where asked); then timed beside the plain version,
     the bound and ``scaled_dot_product_attention`` on KV heads repeated
     beforehand.  A float32 bound is three TF32 products' (the float32
-    pipe's figure beside it)."""
+    pipe's figure beside it).  With a ``window``: the window mode against
+    the windowed plain version, its stale-slot control counted from each
+    query tile's first KV tile, also timed beside the causal kernel on
+    the same inputs, and SDPA given the band as a boolean mask."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flashattn import (flash_attention_cuda,
                                                flash_attention_gqa_ref)
     b, s, h, kv, dh = shape
     q, k, v = flash_inputs(shape, dtype, seed)
-    got = flash_attention_cuda(q, k, v, causal=causal)
-    want = flash_attention_gqa_ref(q, k, v, causal=causal)
+    got = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    want = flash_attention_gqa_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     tol = FLASH_TOL[str(dtype)[6:]]
     gap = (got.float() - want.float()).abs()
@@ -1670,24 +1827,49 @@ def check_flash_case(label: str, shape, dtype, causal: bool, seed: int,
     if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
         raise AssertionError(f"flash {label}: max |diff| {err} beyond atol "
                              f"= rtol = {tol}")
-    rows = (check_flash_rows(label, q, k, v, got, want, causal)
-            if dtype == torch.bfloat16 else {})
+    if dtype != torch.bfloat16:
+        rows = {}
+    elif window is None:
+        rows = check_flash_rows(label, q, k, v, got, want, causal)
+    else:
+        rows = check_flash_window_rows(label, q, k, v, got, want, window)
     if tf32_control:
-        rows = check_flash_tf32_control(label, q, k, v, want, causal, excess)
-    ms = cuda_time_ms(lambda: flash_attention_cuda(q, k, v, causal=causal),
-                      iters)
-    plain = cuda_time_ms(lambda: flash_attention_gqa_ref(q, k, v,
-                                                         causal=causal), 1)
+        rows = check_flash_tf32_control(label, q, k, v, want, causal, excess,
+                                        window)
+    ms = cuda_time_ms(lambda: flash_attention_cuda(q, k, v, causal=causal,
+                                                   window=window), iters)
+    plain = cuda_time_ms(lambda: flash_attention_gqa_ref(
+        q, k, v, causal=causal, window=window), 1)
     qt = q.transpose(1, 2)
     kt = k.repeat_interleave(h // kv, dim=2).transpose(1, 2)
     vt = v.repeat_interleave(h // kv, dim=2).transpose(1, 2)
-    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    if window is None:
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=causal)
+        also_causal = {}
+    else:
+        # the band as a boolean mask (True: attend), on the memory-
+        # efficient backend: the math backend would hold (B, H, S, S)
+        # float32 scores, 137 GB at 32 heads of 32,768
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+        pos = torch.arange(s, device=q.device)
+        band = (pos[:, None] >= pos[None, :]) \
+            & (pos[:, None] - pos[None, :] < window)
+
+        def sdpa():
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      attn_mask=band)
+        causal_ms = cuda_time_ms(lambda: flash_attention_cuda(q, k, v),
+                                 iters)
+        also_causal = {"causal_kernel_ms": causal_ms}
+    lib = sdpa()
     torch.cuda.synchronize()
     lib_err = float((lib.transpose(1, 2).float() - want.float()).abs().max())
     del got, want, lib
-    lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=causal), iters)
-    n_bytes, n_ops = flash_cost(shape, causal, q.element_size())
+    lib_ms = cuda_time_ms(sdpa, iters)
+    n_bytes, n_ops = flash_cost(shape, causal, q.element_size(), window)
     if dtype == torch.bfloat16:
         b_ms, b_by = bound(n_bytes, n_ops, BF16_OPS_PER_S)
         bounds = {}
@@ -1702,7 +1884,14 @@ def check_flash_case(label: str, shape, dtype, causal: bool, seed: int,
                 f"pipe's bound {fp32_ms:.3f} ms at "
                 f"{FP32_OPS_PER_S / 1e12:.0f} TFLOP/s")
     tflops = n_ops / ms / 1e9
-    log(f"  flash {label} {str(dtype)[6:]} {'causal' if causal else 'full'}"
+    mode = "causal" if causal else "full"
+    if window is not None:
+        mode = f"window {window}"
+        also += (f"; the causal kernel on the same inputs "
+                 f"{also_causal['causal_kernel_ms']:.3f} ms; kept pairs a "
+                 f"head {flash_pairs(s, causal, window):.4g} against "
+                 f"{flash_pairs(s, causal):.4g} causal")
+    log(f"  flash {label} {str(dtype)[6:]} {mode}"
         f" (B, S, H/KV, dh) = ({b}, {s}, {h}/{kv}, {dh}): max |diff| "
         f"{err:.3g} (atol = rtol = {tol}; largest gap / allowed "
         f"{excess:.3g}); {ms:.3f} ms ({tflops:.1f} TFLOP/s), plain "
@@ -1710,9 +1899,9 @@ def check_flash_case(label: str, shape, dtype, causal: bool, seed: int,
         f"|diff| vs plain {lib_err:.3g}), bound {b_ms:.3f} ms ({b_by}{also})")
     return {"max_abs_err": err, "ms": ms, "tflops": tflops,
             "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-            **bounds, "library_ms": lib_ms, **rows,
+            **bounds, "library_ms": lib_ms, **also_causal, **rows,
             "shape": f"(B, S, H/KV, dh) = ({b}, {s}, {h}/{kv}, {dh}) "
-                     f"{str(dtype)[6:]}, {'causal' if causal else 'full'}"}
+                     f"{str(dtype)[6:]}, {mode}"}
 
 
 def flash_f32_smem(dh: int) -> int:
@@ -1752,11 +1941,13 @@ def phase_flash() -> dict:
         log(f"  cuobjdump -sass: {func}: {counts}")
     bf16 = [n for f, n in ops.items() if "flash_bf16_kernel" in f]
     f32 = [n for f, n in ops.items() if "flash_f32_kernel" in f]
-    if len(bf16) != 2 or not all(n["HGMMA"] and n["UTMALDG"] for n in bf16):
+    # each kernel with and without the window mode: bf16 at dh 64 and
+    # 128, float32 at dh 16, 64 and 128
+    if len(bf16) != 4 or not all(n["HGMMA"] and n["UTMALDG"] for n in bf16):
         raise AssertionError(f"flash_bf16_kernel lacks HGMMA or UTMALDG: {ops}")
-    if len(f32) != 3 or not all(n["HMMA"] for n in f32):
+    if len(f32) != 6 or not all(n["HMMA"] for n in f32):
         raise AssertionError(f"flash_f32_kernel lacks HMMA: {ops}")
-    if len(spills) != 3 or not all(
+    if len(spills) != 6 or not all(
             "0 bytes spill stores, 0 bytes spill loads" in x
             for x in spills.values()):
         raise AssertionError(f"flash_f32_kernel spills: {spills}")
@@ -1807,18 +1998,21 @@ def rel_l2(got, want) -> float:
     return float((got.float() - want.float()).norm() / want.float().norm())
 
 
-def check_routes(cfg) -> None:
+def check_routes(cfg, prompt_len: int = LLAMA_F32_PROMPT,
+                 variants=(("", {}),)) -> None:
     """Full width and depth, one prompt prefilled through K5 and through
-    the dispatcher's plain route, on weights drawn in float32 and
-    rounded to bfloat16 values.  Float32: last-token logits within
-    LLAMA_F32_RTOL of the largest plain logit.  Bfloat16: the kernel
-    route within LLAMA_BF16_RATIO of the plain route's relative L2
-    distance from the float32 plain logits.
+    the plain route, on weights drawn in float32 and rounded to bfloat16
+    values.  Float32: last-token logits within LLAMA_F32_RTOL of the
+    largest plain logit.  Bfloat16: the kernel route within
+    LLAMA_BF16_RATIO of the plain route's relative L2 distance from the
+    float32 plain logits.
     In both, the argmax equal unless the plain route's top-2 gap could
-    be closed by the gap allowed (float32) or seen (bfloat16)."""
+    be closed by the gap allowed (float32) or seen (bfloat16).
+    ``variants`` are (name, config fields) of the plain route, each held
+    against the one kernel route (``attn_trapezoid`` picks a local
+    layer's plain schedule; the kernel route ignores it)."""
     import dataclasses
     import torch
-    from repro_torch.kernels.flashattn import FLASHATTN
     from repro_torch.models.transformer import init_params, prefill_step
     from repro_torch.tree import tree_leaves
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
@@ -1826,59 +2020,68 @@ def check_routes(cfg) -> None:
     params = init_params(gen, cfg32, device=DEVICE)
     for leaf in tree_leaves(params):
         leaf.copy_(leaf.to(torch.bfloat16))
-    prompt = torch.randint(0, cfg.vocab, (1, LLAMA_F32_PROMPT), generator=gen,
+    prompt = torch.randint(0, cfg.vocab, (1, prompt_len), generator=gen,
                            device=DEVICE)
 
     def both_routes(params, c, label):
         reset_counts()
         got, _ = prefill_step(params, prompt, c)
         torch.cuda.synchronize()
-        kernel_only(f"{label} kernel route", FLASHATTN, cfg.n_layers)
-        reset_counts()
-        want, _ = prefill_step(params, prompt, c, use_kernel=False)
-        torch.cuda.synchronize()
-        kernel_only(f"{label} plain route", FLASHATTN, 0)
+        kernels_only(f"{label} kernel route", k5_launches(cfg))
         finite_logits(f"{label} kernel route", got, 1, cfg)
-        top2 = torch.topk(want[0].float(), 2).values
-        return got, want, float(top2[0] - top2[1])
+        wants = {}
+        for name, fields in variants:
+            reset_counts()
+            want, _ = prefill_step(params, prompt,
+                                   dataclasses.replace(c, **fields),
+                                   use_kernel=False)
+            torch.cuda.synchronize()
+            kernels_only(f"{label} plain route{name}", {})
+            top2 = torch.topk(want[0].float(), 2).values
+            wants[name] = want, float(top2[0] - top2[1])
+        return got, wants
 
     with torch.no_grad():
-        got, want, top_gap = both_routes(params, cfg32, "float32")
-        tol = LLAMA_F32_RTOL * float(want.abs().max())
-        gap = float((got - want).abs().max())
-        same_argmax = int(got.argmax()) == int(want.argmax())
-        log(f"  kernel route vs plain route, float32, 1 x {LLAMA_F32_PROMPT}: "
-            f"last-token logits max |diff| {gap:.3g} (tolerance {tol:.3g} = "
-            f"{LLAMA_F32_RTOL} of the largest |logit| "
-            f"{float(want.abs().max()):.3g}"
-            f"); argmax {int(got.argmax())} vs {int(want.argmax())} (plain "
-            f"top-2 gap {top_gap:.3g})")
-        if gap > tol or not (same_argmax or top_gap < tol):
-            raise AssertionError(f"{cfg.name} float32: kernel route and "
-                                 "plain route disagree beyond the stated "
-                                 "tolerance")
-        exact = want
+        got, wants = both_routes(params, cfg32, "float32")
+        for name, (want, top_gap) in wants.items():
+            tol = LLAMA_F32_RTOL * float(want.abs().max())
+            gap = float((got - want).abs().max())
+            same_argmax = int(got.argmax()) == int(want.argmax())
+            log(f"  kernel route vs plain route{name}, float32, 1 x "
+                f"{prompt_len}: last-token logits max |diff| {gap:.3g} "
+                f"(tolerance {tol:.3g} = {LLAMA_F32_RTOL} of the largest "
+                f"|logit| {float(want.abs().max()):.3g}"
+                f"); argmax {int(got.argmax())} vs {int(want.argmax())} "
+                f"(plain top-2 gap {top_gap:.3g})")
+            if gap > tol or not (same_argmax or top_gap < tol):
+                raise AssertionError(f"{cfg.name} float32: kernel route and "
+                                     f"plain route{name} disagree beyond the "
+                                     "stated tolerance")
+        exact = {name: want for name, (want, _) in wants.items()}
         # the same values in the bfloat16 model's types (an MoE router
         # stays float32)
         p16 = init_params(gen, cfg, device=DEVICE)
         for dst, src in zip(tree_leaves(p16), tree_leaves(params)):
             dst.copy_(src)
         del params
-        got, want, top_gap = both_routes(p16, cfg, "bfloat16")
-    e_kernel, e_plain = rel_l2(got, exact), rel_l2(want, exact)
-    gap = float((got.float() - want.float()).abs().max())
-    same_argmax = int(got.argmax()) == int(want.argmax())
-    log(f"  kernel route vs plain route, bfloat16, 1 x {LLAMA_F32_PROMPT}: "
-        f"last-token logits' relative L2 distance from the float32 plain "
-        f"route {e_kernel:.4g} (kernel) vs {e_plain:.4g} (plain), ratio "
-        f"{e_kernel / e_plain:.3g} (limit {LLAMA_BF16_RATIO}); kernel vs "
-        f"plain {rel_l2(got, want):.4g}, max |diff| {gap:.3g}; argmax "
-        f"{int(got.argmax())} vs {int(want.argmax())} (plain top-2 gap "
-        f"{top_gap:.3g})")
-    if e_kernel > LLAMA_BF16_RATIO * e_plain \
-            or not (same_argmax or top_gap < 2 * gap):
-        raise AssertionError(f"{cfg.name} bfloat16: kernel route and plain "
-                             "route disagree beyond the stated tolerance")
+        got, wants = both_routes(p16, cfg, "bfloat16")
+    for name, (want, top_gap) in wants.items():
+        e_kernel, e_plain = rel_l2(got, exact[name]), rel_l2(want,
+                                                             exact[name])
+        gap = float((got.float() - want.float()).abs().max())
+        same_argmax = int(got.argmax()) == int(want.argmax())
+        log(f"  kernel route vs plain route{name}, bfloat16, 1 x "
+            f"{prompt_len}: last-token logits' relative L2 distance from the "
+            f"float32 plain route {e_kernel:.4g} (kernel) vs {e_plain:.4g} "
+            f"(plain), ratio {e_kernel / e_plain:.3g} (limit "
+            f"{LLAMA_BF16_RATIO}); kernel vs plain {rel_l2(got, want):.4g}, "
+            f"max |diff| {gap:.3g}; argmax {int(got.argmax())} vs "
+            f"{int(want.argmax())} (plain top-2 gap {top_gap:.3g})")
+        if e_kernel > LLAMA_BF16_RATIO * e_plain \
+                or not (same_argmax or top_gap < 2 * gap):
+            raise AssertionError(f"{cfg.name} bfloat16: kernel route and "
+                                 f"plain route{name} disagree beyond the "
+                                 "stated tolerance")
 
 
 def check_smoke_config() -> None:
@@ -1942,15 +2145,15 @@ def serve_cell(cfg, batch: int, prompt_len: int, gen_len: int,
             logits, cache = prefill_step(params, prompt, cfg)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-            prefill = kernel_only(f"{cfg.name} {run} prefill", FLASHATTN,
-                                  cfg.n_layers)
+            prefill = kernels_only(f"{cfg.name} {run} prefill",
+                                   k5_launches(cfg))
             if run == "cold":
                 del cache
         finite_logits(f"{cfg.name} prefill", logits, batch, cfg)
         log(f"  prefill {batch} x {prompt_len}: cold {times[0]:.3f} s "
             f"({batch * prompt_len / times[0]:.0f} tokens/s), warm "
             f"{times[1]:.3f} s ({batch * prompt_len / times[1]:.0f} "
-            f"tokens/s); K5 launches {prefill[FLASHATTN]} a prefill")
+            f"tokens/s); K5 launches {k5_summary(prefill)} a prefill")
         cache = grow_cache(cache, gen_len)
         tokens = torch.argmax(logits, -1)[:, None]
         ids = [tokens]
@@ -1974,6 +2177,16 @@ def serve_cell(cfg, batch: int, prompt_len: int, gen_len: int,
         f"{torch.cat(ids, dim=1)[:, :8].tolist()}")
     return params, prompt, cache, tokens, {k: prefill[k] + decode[k]
                                            for k in prefill}
+
+
+def k5_summary(counts: dict) -> str:
+    """K5's launches in ``counts``: their number, and how many of them
+    ran the window mode where any did."""
+    from repro_torch.kernels.flashattn import FLASHATTN, FLASHATTN_WINDOW
+    n = counts[FLASHATTN] + counts[FLASHATTN_WINDOW]
+    if counts[FLASHATTN_WINDOW]:
+        return f"{n} ({counts[FLASHATTN_WINDOW]} windowed)"
+    return str(n)
 
 
 def phase_llama() -> dict:
@@ -2261,7 +2474,8 @@ def read_sharded_counts(label: str, bfs_levels: int,
     if counts[frontier.NODE_BLOCKED_WIDE] != bfs_levels or bfs_levels == 0 \
             or counts[frontier.WORDS] != bfs_levels \
             or counts[frontier.FLAT] or counts[frontier.NODE_BLOCKED] \
-            or counts[segsum.SEGSUM] or counts[flashattn.FLASHATTN]:
+            or counts[segsum.SEGSUM] or counts[flashattn.FLASHATTN] \
+            or counts[flashattn.FLASHATTN_WINDOW]:
         raise AssertionError(f"{label}: expected {bfs_levels} level "
                              f"launches and words passes and no other "
                              f"frontier kernel, got {counts}")
@@ -4819,6 +5033,159 @@ def phase_moe_serving() -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# [22] gemma3-27b: K5's window mode, the model at full width, the routes
+# ---------------------------------------------------------------------------
+
+def phase_flash_window() -> dict:
+    """[22a] K5's sliding-window mode: bfloat16 at gemma3's local shape,
+    float32, and the ragged shape in both types at several windows; the
+    row of the window mode (the bfloat16 case's numbers, the others'
+    under their own keys)."""
+    import torch
+    row = check_flash_case("gemma3 local", FLASH_WINDOW_SHAPE, torch.bfloat16,
+                           True, SEED + 30, 5, window=GEMMA_WINDOW)
+    torch.cuda.empty_cache()
+    f32 = check_flash_case("gemma3 local float32", FLASH_WINDOW_F32_SHAPE,
+                           torch.float32, True, SEED + 31, 10,
+                           tf32_control=True, window=GEMMA_WINDOW)
+    row.update({f"float32_{k}": v for k, v in f32.items()})
+    for dtype in (torch.bfloat16, torch.float32):
+        for window in FLASH_WINDOW_RAGGED:
+            ragged = check_flash_case("ragged", FLASH_RAGGED_SHAPE, dtype,
+                                      True, SEED + 32 + window, 20,
+                                      window=window)
+            row.update({f"ragged_{str(dtype)[6:]}_w{window}_{k}": v
+                        for k, v in ragged.items()})
+    torch.cuda.empty_cache()
+    return row
+
+
+def gemma_prefill(params, prompt, cfg, label: str) -> tuple:
+    """One counted prefill (a K5 launch a layer, a window launch for each
+    local one): (logits, cache, seconds, peak GiB from just before it)."""
+    import torch
+    from repro_torch.models.transformer import prefill_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill_step(params, prompt, cfg)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = kernels_only(f"{cfg.name} {label}", k5_launches(cfg))
+    finite_logits(f"{cfg.name} {label}", logits, prompt.shape[0], cfg)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  {label} 1 x {prompt.shape[1]}: {seconds:.3f} s "
+        f"({prompt.shape[1] / seconds:.0f} tokens/s), K5 launches "
+        f"{k5_summary(counts)}, peak memory {peak:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated)")
+    return logits, cache, seconds, peak, counts
+
+
+def phase_gemma() -> dict:
+    """[22b] gemma3-27b at full width and depth in bfloat16, weights drawn
+    on the card: a prefill of 1 x GEMMA_DECODE_PROMPT, the cache grown by
+    GEMMA_GEN and as many greedy decode steps (no K5); then 1 x
+    GEMMA_PROMPT prefilled twice (first and warm) if its peak, projected
+    from the shorter prefill's (weights, and cache and activations linear
+    in the prompt), fits the card, else once more at GEMMA_DECODE_PROMPT
+    with the reason printed.  [22c] the kernel route against the plain
+    route at full width, one period of 6 layers.  Returns the paths'
+    launch counts."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.configs.gemma3_27b import make_config
+    from repro_torch.models.transformer import (decode_step, grow_cache,
+                                                init_params)
+    from repro_torch.tree import tree_leaves
+    cfg = make_config()
+    paths = {}
+    # earlier phases' tensors kept only by reference cycles (after [21d]:
+    # 7.6-9.1 GiB, MIND's tables) go before 52.9 GiB of weights are drawn
+    held = torch.cuda.memory_allocated() / 2**30
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  held on the card before drawing: {held:.2f} GiB, after "
+        f"gc.collect() {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 33)
+    t0 = time.perf_counter()
+    params = init_params(gen, cfg, device=DEVICE)
+    prompt = torch.randint(0, cfg.vocab, (1, GEMMA_PROMPT), generator=gen,
+                           device=DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    weights = torch.cuda.memory_allocated() / 2**30
+    log(f"[22b] {cfg.name}: {n_params} parameters ({cfg.dtype}, "
+        f"{weights:.2f} GiB on the card) drawn in "
+        f"{time.perf_counter() - t0:.2f} s; {cfg.n_groups} groups of "
+        f"{cfg.layer_pattern} and {cfg.n_remainder} remainder layers, "
+        f"window {cfg.window}")
+    with torch.no_grad():
+        short = prompt[:, :GEMMA_DECODE_PROMPT]
+        logits, cache, _, peak, prefill = gemma_prefill(
+            params, short, cfg, "prefill before decode")
+        cache = grow_cache(cache, GEMMA_GEN)
+        tokens = torch.argmax(logits, -1)[:, None]
+        ids = [tokens]
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(GEMMA_GEN):
+            logits, cache = decode_step(params, cache, tokens, cfg)
+            tokens = torch.argmax(logits, -1)[:, None]
+            ids.append(tokens)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        decode = kernels_only(f"{cfg.name} decode", {})
+        finite_logits(f"{cfg.name} decode", logits, 1, cfg)
+        log(f"  decode: {GEMMA_GEN} steps of 1 token from a cache of "
+            f"{cache['k'].shape[2]} slots, {decode_s / GEMMA_GEN * 1e3:.2f} "
+            f"ms a step; K5 launches {k5_summary(decode)}; cache at len "
+            f"{cache['len']}; first ids {torch.cat(ids, dim=1).tolist()}")
+        paths["gemma3_serve"] = {k: prefill[k] + decode[k] for k in prefill}
+        del cache, logits
+        torch.cuda.empty_cache()
+        total = torch.cuda.mem_get_info()[1] / 2**30
+        scale = GEMMA_PROMPT / GEMMA_DECODE_PROMPT
+        projected = weights + scale * (peak - weights)
+        if projected < total - GEMMA_MARGIN_GIB:
+            long = prompt
+            log(f"  1 x {GEMMA_PROMPT}: projected peak {projected:.2f} GiB "
+                f"({weights:.2f} of weights + {scale:g} x the "
+                f"{peak - weights:.2f} above them at {GEMMA_DECODE_PROMPT}) "
+                f"within the card's {total:.2f} GiB")
+        else:
+            long = short
+            log(f"  1 x {GEMMA_PROMPT} left out: its projected peak "
+                f"{projected:.2f} GiB ({weights:.2f} of weights + {scale:g} "
+                f"x the {peak - weights:.2f} above them at "
+                f"{GEMMA_DECODE_PROMPT}) does not fit the card's "
+                f"{total:.2f} GiB less {GEMMA_MARGIN_GIB} GiB; prefilled at "
+                f"{GEMMA_DECODE_PROMPT} instead")
+        for run in ("first", "warm"):
+            logits, cache, _, _, counts = gemma_prefill(
+                params, long, cfg, f"{run} prefill")
+            paths[f"gemma3_prefill_{run}"] = counts
+            del cache, logits
+            torch.cuda.empty_cache()
+    del params, prompt
+    torch.cuda.empty_cache()
+
+    period = dataclasses.replace(cfg, n_layers=len(cfg.layer_pattern))
+    log(f"[22c] {cfg.name} kernel route vs plain route at full width, depth "
+        f"cut to one period ({period.n_layers} layers: "
+        f"{period.layer_pattern}), 1 x {GEMMA_ROUTE_PROMPT} tokens (the "
+        f"plain route's local layers in {GEMMA_ROUTE_PROMPT // cfg.attn_chunk}"
+        f" chunks of {cfg.attn_chunk})")
+    check_routes(period, GEMMA_ROUTE_PROMPT, (
+        (" (masked_chunk_attention)", {}),
+        (" (trapezoid_attention)", {"attn_trapezoid": True})))
+    torch.cuda.empty_cache()
+    return paths
+
+
 def profile_granite() -> None:
     """granite-moe at [21a]'s shapes under the profiler, after every
     timed run (a profiler session leaves overhead on later launches): a
@@ -4977,7 +5344,7 @@ def main() -> int:
     from repro_torch.configs.graphsage_reddit import (cfg_for_shape,
                                                       make_config)
     from repro_torch.data import graph_to_batch
-    from repro_torch.kernels.flashattn import FLASHATTN
+    from repro_torch.kernels.flashattn import FLASHATTN, FLASHATTN_WINDOW
     from repro_torch.kernels.frontier import (FLAT, NODE_BLOCKED,
                                               NODE_BLOCKED_WIDE, WORDS)
     from repro_torch.kernels.segsum import SEGSUM
@@ -5161,6 +5528,19 @@ def main() -> int:
     paths.update(phase_mind())
     log(f"  [21] took {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    log(f"[22] gemma3-27b: K5's window mode at (B, S, H, KV, dh) = "
+        f"{FLASH_WINDOW_SHAPE} bfloat16 and {FLASH_WINDOW_F32_SHAPE} float32,"
+        f" window {GEMMA_WINDOW}, {FLASH_RAGGED_SHAPE} at windows "
+        f"{FLASH_WINDOW_RAGGED}; the model at full width; its routes; {smi}")
+    window_row = {"name": FLASHATTN_WINDOW, "route": "cuda",
+                  "source": "src/repro_torch/kernels/flashattn/csrc/"
+                            "flashattn.cu",
+                  "replaces": "src/repro/models/attention.py:97",
+                  "launches": 0, **phase_flash_window()}
+    paths.update(phase_gemma())
+    log(f"  [22] took {time.perf_counter() - t0:.1f} s")
+
     # each row's launches: the run of the path that row's kernel carries;
     # the node-blocked rows' words pass beside it
     for row, main_path in zip(rows, ("rmat_bidir", "grid", "forward",
@@ -5181,6 +5561,11 @@ def main() -> int:
         row["launches_by_path"] = {k: c.get(row["name"], 0)
                                    for k, c in paths.items()}
     rows.extend(weighted_rows)
+    # K5's window mode: launches of [22b]'s prefill and decode
+    window_row["launches"] = paths["gemma3_serve"][FLASHATTN_WINDOW]
+    window_row["launches_by_path"] = {k: c.get(FLASHATTN_WINDOW, 0)
+                                      for k, c in paths.items()}
+    rows.append(window_row)
     log(f"[13] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

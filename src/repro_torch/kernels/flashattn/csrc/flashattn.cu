@@ -2,7 +2,8 @@
 // interface:
 //
 //   out[b, s, h] = softmax_k(q[b, s, h] . k[b, k, h / g] * sm_scale,
-//                            masked to k <= s when causal)
+//                            masked to k <= s when causal, and to
+//                            s - k < window with a window)
 //                  @ v[b, :, h / g]
 //
 // with g = H / KV (grouped-query attention), q (B, S, H, dh) and k, v
@@ -24,11 +25,39 @@
 // in a loop of its own: (m, l, acc) stay in registers and never reach
 // device memory.  With `causal` the loop ends at the query tile's
 // diagonal, so the tiles above it are skipped, not masked, and only the
-// diagonal tile (and a ragged last tile) is masked.  Every row starts at
-// KV tile 0, which always holds a key the row may see, so the finite
-// -1e30 mask of the reference never gives exp(m - m) = 1 for a masked
-// key.  Keys past S are masked and query rows past S are not written;
-// the TPU's S % block == 0 is a fact of its tiling, not of the function.
+// diagonal tile (and a ragged last tile) is masked.  Without a window
+// every row starts at KV tile 0, which always holds a key the row may
+// see, so the finite -1e30 mask of the reference never gives
+// exp(m - m) = 1 for a masked key.  Keys past S are masked and query
+// rows past S are not written; the TPU's S % block == 0 is a fact of its
+// tiling, not of the function.
+//
+// Sliding-window mode (window > 0, causal only; 0 means none).  Row r
+// sees keys r - window < k <= r, the mask of the JAX package's
+// masked_chunk_attention and trapezoid_attention
+// (src/repro/models/attention.py:97, :60), which compute it in XLA: no
+// TPU kernel has a window.  It is gemma3's local layers (5 of every 6,
+// window 1024).  A query tile's KV loop starts at j0, the first tile
+// holding a key at or above (first row) - window + 1, and ends at the
+// diagonal as before: the trapezoid schedule at the kernel's tile.  The
+// tiles where some row's window begins (one when window is a multiple
+// of the tile, else two) are masked like the diagonal.  The ring slot
+// and mbarrier phase count from j - j0, so producer and consumers agree
+// whatever tile the loop starts at.  A row may see no key of its first
+// tile (window 1024, 128-key tiles: row 128 qt + 127 in tile qt - 8):
+// its scores are all -1e30, the running max stays -1e30, P = exp2(0) =
+// 1 for those keys, and the next tile, which holds a key the row sees,
+// rescales that by exp2(-1e30 - m) = 0, as the reference's next chunk
+// does; the finite -1e30 keeps it NaN-free.  Bound at gemma3's local
+// shape (B 1, S 32768, 32 / 16 heads, dh 128, window 1024): 33.03e6 kept
+// (query, key) pairs a head, 5.41e11 operations, 0.547 ms at the bf16
+// rate, against 0.805 GB of bytes, 0.240 ms: bound by operations, 16.3x
+// fewer than causal.  The loop visits 9 tiles a query tile (8 at the
+// window's start when window is a multiple of 128), about 1.1x the kept
+// pairs; the kernel is the causal one otherwise, not tuned for windows.
+// The window mode is its own instantiation of each kernel (template flag
+// kWin, below), so the kernels without it keep the causal and full
+// modes' tiles, order, arithmetic and code.
 //
 // Bound on the card.  The function reads q, k, v once and writes out
 // once; at the serving path's shape (B = 2, S = 32768, 24 / 8 heads,
@@ -159,7 +188,22 @@ struct Params {
   int group;                   // H / KV
   int causal;
   float sm_scale;
+  int window;                  // sliding window (causal only); 0: none
 };
+
+// The window mode is a template flag (kWin) of each kernel, and every
+// window term sits under `if constexpr (kWin)`: the kernels without it
+// are the causal and full modes' code as it was, instruction for
+// instruction.  (A runtime window in one kernel, folded to 0 by the
+// compiler, still moved its schedule: the causal mode ran 16% slower at
+// dh 128 and 27% at dh 64 on an NVIDIA H100 80GB HBM3 at 700.00 W.)
+
+// the first KV tile of `tile` keys that holds a key of query tile qt's
+// window (rows of `rows` a tile): key (first row) - window + 1
+__device__ __forceinline__ int first_kv_tile(const Params& p, int qt,
+                                             int rows, int tile) {
+  return max(0, qt * rows - p.window + 1) / tile;
+}
 
 // ---------------------------------------------------------------------------
 // PTX helpers
@@ -375,6 +419,7 @@ __device__ __forceinline__ float fast_exp2(float x) {
 // log2 units, masked when `edge`, folded into the running max and sum:
 // sc becomes P = exp2(S - m) (float32), alpha the factor that rescales
 // the accumulator of the earlier tiles
+template <bool kWin>
 __device__ __forceinline__ void online_softmax(
     float (&sc)[64], float (&m_run)[2], float (&l_run)[2],
     float (&alpha)[2], float scale, bool edge, int k0, int row_a, int row_b,
@@ -389,6 +434,9 @@ __device__ __forceinline__ void online_softmax(
         const int key = k0 + nt * 8 + t * 2 + (e & 1);
         const int row = (e < 2) ? row_a : row_b;
         if (key >= p.seq || (p.causal && key > row)) x = kNegBig;
+        if constexpr (kWin) {
+          if (row - key >= p.window) x = kNegBig;
+        }
       }
       sc[4 * nt + e] = x;
       mx[e >> 1] = fmaxf(mx[e >> 1], x);
@@ -434,7 +482,9 @@ constexpr int bf16_smem_bytes() {
        + (1 + 3 * kStages) * 8 + kSwizzleAtom;
 }
 
-template <int D>
+// kWin: the sliding-window mode (p.window > 0); without it the window
+// is the constant 0
+template <int D, bool kWin>
 __global__ void __launch_bounds__(kBf16Threads, 1)
 flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap tk,
@@ -458,6 +508,8 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int n_kv = p.causal ? qt + 1 : n_qt;
+  int j0 = 0;                                // the loop's first KV tile
+  if constexpr (kWin) j0 = first_kv_tile(p, qt, kTile, kTile);
   const int wg = threadIdx.x / kWgThreads;
 
   if (threadIdx.x == 0) {
@@ -481,9 +533,9 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
       for (int x = 0; x < kBoxes; ++x)
         tma_load(q_s + x * kBoxBytes, &tq, q_full, x * kBoxCols, qt * kTile,
                  h, b);
-      for (int j = 0; j < n_kv; ++j) {
-        const int s = j % kStages;
-        mbar_wait(empty + 8 * s, ((j / kStages) & 1) ^ 1);
+      for (int j = j0; j < n_kv; ++j) {
+        const int s = (j - j0) % kStages;
+        mbar_wait(empty + 8 * s, (((j - j0) / kStages) & 1) ^ 1);
         mbar_expect_tx(k_full + 8 * s, kTileBytes);
         for (int x = 0; x < kBoxes; ++x)
           tma_load(k_s + s * kTileBytes + x * kBoxBytes, &tk, k_full + 8 * s,
@@ -521,9 +573,9 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     const uint32_t q_rows = q_s + c * 64 * 128;
 
     mbar_wait(q_full, 0);
-    for (int j = 0; j < n_kv; ++j) {
-      const int s = j % kStages;
-      const uint32_t parity = (j / kStages) & 1;
+    for (int j = j0; j < n_kv; ++j) {
+      const int s = (j - j0) % kStages;
+      const uint32_t parity = ((j - j0) / kStages) & 1;
       // S = Q K^T: this warpgroup's 64 rows against the tile's 128 keys
       mbar_wait(k_full + 8 * s, parity);
       fence_regs(sc);
@@ -540,9 +592,13 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
       fence_regs(sc);
 
       const int k0 = j * kTile;
-      online_softmax(sc, m_run, l_run, alpha, scale,
-                     (p.causal && j == qt) || k0 + kTile > p.seq, k0, row_a,
-                     row_b, t, p);
+      bool edge = (p.causal && j == qt) || k0 + kTile > p.seq;
+      // a tile where a window begins: the query tile's last row sees no
+      // key k0
+      if constexpr (kWin)
+        edge = edge || qt * kTile + kTile - 1 - k0 >= p.window;
+      online_softmax<kWin>(sc, m_run, l_run, alpha, scale, edge, k0, row_a,
+                           row_b, t, p);
       pack_p(sc, pa);
 #pragma unroll
       for (int i = 0; i < D / 8; ++i) {
@@ -687,7 +743,8 @@ __device__ __forceinline__ void load_rows_f32(uint32_t dst, const float* src,
   }
 }
 
-template <int D>
+// kWin: the sliding-window mode, as in flash_bf16_kernel
+template <int D, bool kWin>
 __global__ void __launch_bounds__(kF32Threads, 1)
 flash_f32_kernel(const Params p) {
   constexpr int kLd = f32_ld_qk<D>();                // Q and K rows
@@ -709,6 +766,8 @@ flash_f32_kernel(const Params p) {
   const int n_kt = (p.seq + kF32Keys - 1) / kF32Keys;
   const int n_kv = p.causal ? min(n_kt, (qt + 1) * (kF32Rows / kF32Keys))
                             : n_kt;
+  int j0 = 0;                                // the loop's first KV tile
+  if constexpr (kWin) j0 = first_kv_tile(p, qt, kF32Rows, kF32Keys);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;                   // row in the 8-row group
@@ -722,11 +781,11 @@ flash_f32_kernel(const Params p) {
   const float* vg = static_cast<const float*>(p.v) + b * p.v_sb
       + kvh * p.v_sh;
 
-  // the Q tile and KV tile 0: one group of copies
+  // the Q tile and KV tile j0: one group of copies
   load_rows_f32<D, kF32Rows, kLd>(q_s, qg, p.q_ss, qt * kF32Rows, p.seq);
-  load_rows_f32<D, kF32Keys, kLd>(ring_s, kg, p.k_ss, 0, p.seq);
-  load_rows_f32<D, kF32Keys, kLdV>(ring_s + kF32Keys * kLd * 4, vg, p.v_ss, 0,
-                                   p.seq);
+  load_rows_f32<D, kF32Keys, kLd>(ring_s, kg, p.k_ss, j0 * kF32Keys, p.seq);
+  load_rows_f32<D, kF32Keys, kLdV>(ring_s + kF32Keys * kLd * 4, vg, p.v_ss,
+                                   j0 * kF32Keys, p.seq);
   cp_async_commit();
   // this thread's Q rows g and g + 8 of the warp's 16, at column 4 t
   const float* q_rows = q_tile + (warp * 16 + g) * kLd + 4 * t;
@@ -738,10 +797,11 @@ flash_f32_kernel(const Params p) {
   float l_run[2] = {0.0f, 0.0f};             // this thread's columns
   const float scale = p.sm_scale * kLog2e;
 
-  for (int j = 0; j < n_kv; ++j) {
-    const int s = j % kF32Stages;
+  for (int j = j0; j < n_kv; ++j) {
+    const int s = (j - j0) % kF32Stages;
     if (j + 1 < n_kv) {
-      const uint32_t next = ring_s + ((j + 1) % kF32Stages) * kStage * 4;
+      const uint32_t next = ring_s
+          + ((j - j0 + 1) % kF32Stages) * kStage * 4;
       load_rows_f32<D, kF32Keys, kLd>(next, kg, p.k_ss, (j + 1) * kF32Keys,
                                       p.seq);
       load_rows_f32<D, kF32Keys, kLdV>(next + kF32Keys * kLd * 4, vg, p.v_ss,
@@ -752,8 +812,10 @@ flash_f32_kernel(const Params p) {
     __syncthreads();
     const int k0 = j * kF32Keys;
     // a warp whose rows all lie past S, or (causal) before every key of
-    // the tile, gains nothing from it
-    if (r0 < p.seq && !(p.causal && k0 > r0 + 15)) {
+    // the tile, or (window) a window or more past every key of it, gains
+    // nothing from it
+    if (r0 < p.seq && !(p.causal && k0 > r0 + 15)
+        && !(kWin && r0 - (k0 + kF32Keys - 1) >= p.window)) {
       const float* ks = ring + s * kStage;
       const float* vs = ks + kF32Keys * kLd;
       // S = Q K^T: in slice i, k-step e takes columns 16 i + 4 t + 2 e
@@ -792,8 +854,9 @@ flash_f32_kernel(const Params p) {
 
       // online softmax: sc[n] holds rows g (0, 1) and g + 8 (2, 3) at
       // keys k0 + 8 n + 2 t (0, 2) and + 1 (1, 3)
-      const bool edge = k0 + kF32Keys > p.seq
+      bool edge = k0 + kF32Keys > p.seq
           || (p.causal && k0 + kF32Keys - 1 > r0);
+      if constexpr (kWin) edge = edge || r0 + 15 - k0 >= p.window;
       float mx[2] = {kNegBig, kNegBig};
 #pragma unroll
       for (int n = 0; n < kKeyBlocks; ++n) {
@@ -804,6 +867,9 @@ flash_f32_kernel(const Params p) {
             const int key = k0 + 8 * n + 2 * t + (e & 1);
             const int row = e < 2 ? row_a : row_b;
             if (key >= p.seq || (p.causal && key > row)) x = kNegBig;
+            if constexpr (kWin) {
+              if (row - key >= p.window) x = kNegBig;
+            }
           }
           sc[n][e] = x;
           mx[e >> 1] = fmaxf(mx[e >> 1], x);
@@ -889,17 +955,18 @@ flash_f32_kernel(const Params p) {
   }
 }
 
-template <int D>
+template <int D, bool kWin>
 int launch_f32(const Params& p, int batch, int n_heads, cudaStream_t stream) {
   const int smem = f32_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_f32_kernel<D, kWin>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_qt = (p.seq + kF32Rows - 1) / kF32Rows;
   if (n_qt > 65535 || batch > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(n_heads, batch, n_qt);
-  flash_f32_kernel<D><<<grid, kF32Threads, smem, stream>>>(p);
+  flash_f32_kernel<D, kWin><<<grid, kF32Threads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -921,7 +988,7 @@ CUresult encode_map(CUtensorMap* map, const void* ptr, int head_dim, int seq,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int D>
+template <int D, bool kWin>
 int launch_bf16(const Params& p, int batch, int n_heads, int n_kv_heads,
                 cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
@@ -936,22 +1003,24 @@ int launch_bf16(const Params& p, int batch, int n_heads, int n_kv_heads,
   if (res != CUDA_SUCCESS) return -static_cast<int>(res);
   const int smem = bf16_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bf16_kernel<D, kWin>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_qt = (p.seq + kTile - 1) / kTile;
   if (n_qt > 65535 || batch > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(n_heads, batch, n_qt);
-  flash_bf16_kernel<D><<<grid, kBf16Threads, smem, stream>>>(tq, tk, tv, p);
+  flash_bf16_kernel<D, kWin><<<grid, kBf16Threads, smem, stream>>>(tq, tk, tv,
+                                                                  p);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  Strides in elements; the last axis of
-// every tensor is contiguous.  Returns a CUDA error code (0 = launched),
-// or minus the CUresult of a tensor map the driver refused.
+// dtype: 0 float32, 1 bfloat16.  window: 0 none, else (causal only) the
+// sliding window.  Strides in elements; the last axis of every tensor is
+// contiguous.  Returns a CUDA error code (0 = launched), or minus the
+// CUresult of a tensor map that cuTensorMapEncodeTiled refused.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o,
     long long q_sb, long long q_ss, long long q_sh,
@@ -959,22 +1028,29 @@ extern "C" int flash_attention_launch(
     long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh,
     int batch, int seq, int n_heads, int n_kv_heads, int head_dim,
-    int dtype, int causal, float sm_scale, void* stream) {
+    int dtype, int causal, int window, float sm_scale, void* stream) {
   if (seq < 1 || batch < 1 || n_heads < 1 || n_kv_heads < 1
-      || n_heads % n_kv_heads != 0)
+      || n_heads % n_kv_heads != 0 || window < 0 || (window > 0 && !causal))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{q, k, v, o, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-           o_sb, o_ss, o_sh, seq, n_heads / n_kv_heads, causal, sm_scale};
+           o_sb, o_ss, o_sh, seq, n_heads / n_kv_heads, causal, sm_scale,
+           window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool w = window > 0;
   if (dtype == 1 && head_dim == 128)
-    return launch_bf16<128>(p, batch, n_heads, n_kv_heads, s);
+    return w ? launch_bf16<128, true>(p, batch, n_heads, n_kv_heads, s)
+             : launch_bf16<128, false>(p, batch, n_heads, n_kv_heads, s);
   if (dtype == 1 && head_dim == 64)
-    return launch_bf16<64>(p, batch, n_heads, n_kv_heads, s);
+    return w ? launch_bf16<64, true>(p, batch, n_heads, n_kv_heads, s)
+             : launch_bf16<64, false>(p, batch, n_heads, n_kv_heads, s);
   if (dtype == 0 && head_dim == 128)
-    return launch_f32<128>(p, batch, n_heads, s);
+    return w ? launch_f32<128, true>(p, batch, n_heads, s)
+             : launch_f32<128, false>(p, batch, n_heads, s);
   if (dtype == 0 && head_dim == 64)
-    return launch_f32<64>(p, batch, n_heads, s);
+    return w ? launch_f32<64, true>(p, batch, n_heads, s)
+             : launch_f32<64, false>(p, batch, n_heads, s);
   if (dtype == 0 && head_dim == 16)
-    return launch_f32<16>(p, batch, n_heads, s);
+    return w ? launch_f32<16, true>(p, batch, n_heads, s)
+             : launch_f32<16, false>(p, batch, n_heads, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

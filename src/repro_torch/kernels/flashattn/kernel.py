@@ -13,9 +13,15 @@ tensor maps the C entry point encodes with the driver's
 product taken as three TF32 products, which keeps the route within the
 float32 tolerance, 3e-5, of the plain version.
 
+With a sliding ``window`` (causal only) each query tile's KV loop
+starts at the first tile holding a key of its window, and the tiles
+where a row's window begins are masked: the same kernels, the same
+arithmetic, fewer tiles.
+
 :func:`flash_attention_cuda` launches it and raises on CPU tensors; the
 dispatcher in ``ops.py`` sends those to the plain version.  Each launch
-adds one to ``launch_counts["flash_attention"]``.
+adds one to ``launch_counts["flash_attention"]``, or, with a window, to
+``launch_counts["flash_attention_window"]``.
 """
 from __future__ import annotations
 
@@ -25,12 +31,14 @@ from pathlib import Path
 import torch
 
 from .. import _build
+from .ref import check_window
 
-__all__ = ["EXTRA_FLAGS", "FLASHATTN", "HEAD_DIMS", "SOURCE", "check_inputs",
-           "flash_attention_cuda", "launch_counts", "library",
-           "reset_launch_counts"]
+__all__ = ["EXTRA_FLAGS", "FLASHATTN", "FLASHATTN_WINDOW", "HEAD_DIMS",
+           "SOURCE", "check_inputs", "flash_attention_cuda", "launch_counts",
+           "library", "reset_launch_counts"]
 
 FLASHATTN = "flash_attention"
+FLASHATTN_WINDOW = "flash_attention_window"    # K5's sliding-window mode
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flashattn.cu"
 # head dims the kernel takes, by type: the float32 route is templated on
 # dh (16 is every smoke config's); the bfloat16 route's 128-byte swizzle
@@ -40,17 +48,18 @@ HEAD_DIMS = {torch.float32: (16, 64, 128), torch.bfloat16: (64, 128)}
 EXTRA_FLAGS = ("-lcuda",)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-launch_counts = {FLASHATTN: 0}
+launch_counts = {FLASHATTN: 0, FLASHATTN_WINDOW: 0}
 
 
 def reset_launch_counts() -> None:
-    launch_counts[FLASHATTN] = 0
+    for name in launch_counts:
+        launch_counts[name] = 0
 
 
 def _declare(lib) -> None:
     p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.flash_attention_launch.argtypes = (
-        [p] * 4 + [i64] * 12 + [i32] * 7 + [ctypes.c_float, p])
+        [p] * 4 + [i64] * 12 + [i32] * 8 + [ctypes.c_float, p])
     lib.flash_attention_launch.restype = i32
 
 
@@ -89,12 +98,14 @@ def check_inputs(q, k, v) -> None:
                              "16-byte chunks")
 
 
-def flash_attention_cuda(q, k, v, *, causal: bool = True):
+def flash_attention_cuda(q, k, v, *, causal: bool = True, window=None):
     """(B, S, H, dh) attention of q over k, v (B, S, KV, dh), one kernel
-    launch; contiguous output in ``q.dtype``."""
+    launch; contiguous output in ``q.dtype``.  ``window`` (causal only):
+    row r sees keys r - window < k <= r."""
     if not q.is_cuda:
         raise ValueError("flash_attention_cuda launches the CUDA kernel but "
                          "q lies on the CPU; call flash_attention")
+    check_window(causal, window)
     check_inputs(q, k, v)
     b, s, h, dh = q.shape
     out = torch.empty((b, s, h, dh), dtype=q.dtype, device=q.device)
@@ -105,10 +116,11 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True):
     code = library().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *strides,
         b, s, h, k.shape[2], dh, _DTYPES[q.dtype], int(causal),
-        1.0 / dh ** 0.5, stream)
+        0 if window is None else min(int(window), s), 1.0 / dh ** 0.5,
+        stream)
     if code < 0:
         raise RuntimeError("flash_attention: the driver refused a TMA tensor "
                            f"map (CUresult {-code})")
     _build.check(code, "flash_attention kernel launch")
-    launch_counts[FLASHATTN] += 1
+    launch_counts[FLASHATTN if window is None else FLASHATTN_WINDOW] += 1
     return out

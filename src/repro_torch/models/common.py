@@ -14,8 +14,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["DEFAULT_DTYPE", "apply_rope", "dense_init", "embed_init",
-           "ones_init", "rms_norm", "rope_frequencies", "swiglu",
-           "zeros_init"]
+           "ones_init", "rms_norm", "rope_frequencies", "silu_f32",
+           "swiglu", "zeros_init"]
 
 DEFAULT_DTYPE = torch.bfloat16
 
@@ -74,8 +74,18 @@ def rms_norm(x, gamma, eps: float = 1e-6):
     return (out * gamma.float()).to(x.dtype)
 
 
+def silu_f32(gate):
+    """silu(gate) in float32, cast back to ``gate.dtype`` (swiglu's
+    activation, as the reference computes it).  The float32 copy of a
+    bfloat16 ``gate`` is activated in place where no gradient flows
+    through it: the same values without a second float32 temporary."""
+    x = gate.float()
+    return F.silu(x, inplace=x is not gate and not x.requires_grad).to(
+        gate.dtype)
+
+
 def swiglu(gate, up):
-    return F.silu(gate.float()).to(gate.dtype) * up
+    return silu_f32(gate) * up
 
 
 def rope_frequencies(head_dim: int, theta: float = 10_000.0,

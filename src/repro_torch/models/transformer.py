@@ -2,24 +2,29 @@
 prefill and KV-cache decode.
 
 One config describes the family; the port serves the dense models
-(llama3.2-3b, qwen2-7b with its QKV bias) and the MoE ones (granite-moe,
-moonshot: ``models/moe.py``); gemma3's sliding-window prefill beyond one
-``attn_chunk`` waits (below).  Layers come in *groups*, one period of the local/global
-pattern; each parameter leaf of a group is stacked over the groups, as
+(llama3.2-3b, qwen2-7b with its QKV bias, gemma3-27b with its 5 local :
+1 global pattern) and the MoE ones (granite-moe, moonshot:
+``models/moe.py``).  Layers come in *groups*, one period of the
+local/global pattern, then the remainder layers (gemma3: 10 groups of 6
+and 2); each parameter leaf of a group is stacked over the groups, as
 in the JAX package, so its param tree carries across unchanged
 (``models.convert.lm_params_from_numpy``).  The JAX ``lax.scan`` over
 groups is a Python loop here, over views ``leaf[g]`` (no copies).
 
-Attention of a ``"global"`` layer goes through the flash-attention
-dispatcher (``kernels/flashattn``): on the card that is the CUDA kernel
-K5, whatever ``attn_impl`` says, and on the CPU the dispatcher's plain
-route.  The JAX package computes the same function in XLA
-(``dense_attention``, ``masked_chunk_attention`` or
-``trapezoid_attention``) and calls its Pallas kernel on no model path:
-a departure, held to the reference by the CPU parity tests.  A
-``"local"`` (sliding-window) layer runs ``dense_attention`` while the
-prompt fits one ``attn_chunk``; longer sliding-window prefills wait for
-the chunked schedules (ROADMAP).
+On the card (CUDA tensors, ``use_kernel`` None or True) every layer's
+attention goes through the flash-attention dispatcher
+(``kernels/flashattn``), that is the CUDA kernel K5, whatever
+``attn_impl`` says: a ``"local"`` layer in K5's sliding-window mode
+(``window=cfg.window``), a ``"global"`` one causal.  The JAX package
+computes the same functions in XLA (``dense_attention``,
+``masked_chunk_attention`` or ``trapezoid_attention``) and calls its
+Pallas kernel on no model path: a departure, held to the reference by
+the CPU parity tests.  On the plain route (the CPU, or ``use_kernel=
+False``) a global layer takes the dispatcher's plain version and a local
+layer the reference's dispatch: ``dense_attention`` when ``attn_impl``
+is ``"dense"`` or the prompt fits one ``attn_chunk``, else
+``trapezoid_attention`` when ``attn_trapezoid``, else
+``masked_chunk_attention``.
 
 Decode keeps a dense cache {"k", "v"} of (n_layers, B, S_max, KV, hd)
 and "len", a Python int, so a step never syncs on it.  ``decode_step``
@@ -38,9 +43,10 @@ import torch.nn.functional as F
 
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..kernels.flashattn import flash_attention
-from .attention import decode_attention, dense_attention
+from .attention import (decode_attention, dense_attention,
+                        masked_chunk_attention, trapezoid_attention)
 from .common import (DEFAULT_DTYPE, apply_rope, dense_init, embed_init,
-                     ones_init, rms_norm, swiglu, zeros_init)
+                     ones_init, rms_norm, silu_f32, zeros_init)
 from .moe import MoEConfig, init_moe_params, moe_ffn
 
 __all__ = ["TransformerConfig", "decode_step", "forward", "grow_cache",
@@ -50,10 +56,11 @@ __all__ = ["TransformerConfig", "decode_step", "forward", "grow_cache",
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """The JAX package's config, field for field.  ``remat``,
-    ``remat_policy``, ``train_microbatch``, ``attn_trapezoid`` and
-    ``batch_axes`` steer training and the TPU mesh and have no effect on
-    the serving path; FSDP and the chunked loss raise until their slices
-    land."""
+    ``remat_policy``, ``train_microbatch`` and ``batch_axes`` steer
+    training and the TPU mesh and have no effect on the serving path;
+    ``attn_impl``, ``attn_chunk`` and ``attn_trapezoid`` pick the plain
+    route's schedule for a local layer (the card's kernel route ignores
+    them); FSDP and the chunked loss raise until their slices land."""
 
     name: str
     n_layers: int
@@ -231,14 +238,18 @@ def _attention_block(p, x, kind: str, cfg: TransformerConfig, positions, *,
     """x + attention(x) @ wo, with the layer's k and v for the cache."""
     b, s, _ = x.shape
     q, k, v = _qkv(p, x, cfg, positions)
-    if kind != "local":
-        o = flash_attention(q, k, v, causal=True, use_kernel=use_kernel)
-    elif s <= cfg.attn_chunk:
-        o = dense_attention(q, k, v, causal=True, window=cfg.window)
+    window = cfg.window if kind == "local" else None
+    kernel = q.is_cuda if use_kernel is None else use_kernel
+    if kernel or window is None:
+        o = flash_attention(q, k, v, causal=True, window=window,
+                            use_kernel=use_kernel)
+    elif cfg.attn_impl == "dense" or s <= cfg.attn_chunk:
+        o = dense_attention(q, k, v, causal=True, window=window)
+    elif cfg.attn_trapezoid:
+        o = trapezoid_attention(q, k, v, window=window, chunk=cfg.attn_chunk)
     else:
-        raise NotImplementedError(
-            f"sliding-window prefill of {s} > attn_chunk={cfg.attn_chunk} "
-            "tokens (masked_chunk_attention, trapezoid_attention): ROADMAP")
+        o = masked_chunk_attention(q, k, v, causal=True, window=window,
+                                   chunk=cfg.attn_chunk)
     return x + o.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"], k, v
 
 
@@ -251,7 +262,10 @@ def _ffn_block(p, x, cfg: TransformerConfig):
         b, s, d = x.shape
         out, aux = moe_ffn(p["moe"], h.reshape(b * s, d), cfg.moe)
         return x + out.reshape(b, s, d), aux
-    out = swiglu(h @ p["w_gate"], h @ p["w_up"]) @ p["w_down"]
+    # swiglu(h @ w_gate, h @ w_up) with the activation taken before the
+    # up projection exists: the same values, and a 32k prefill's FFN
+    # holds one (S, d_ff) float32 temporary fewer at its peak
+    out = (silu_f32(h @ p["w_gate"]) * (h @ p["w_up"])) @ p["w_down"]
     return x + out, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -305,7 +319,8 @@ def prefill_step(params, tokens, cfg: TransformerConfig, *, use_kernel=None):
     vocab_pad), cache of length S).  Only the final position's logits
     are computed; each layer's K and V are written straight into the
     cache.  ``use_kernel`` goes to the flash-attention dispatcher:
-    ``False`` runs its plain route on either device."""
+    ``False`` runs the plain route on either device (for a local layer,
+    the reference's dispatch, see the module docstring)."""
     b, s = tokens.shape
     x = F.embedding(tokens, params["embed"])
     positions = torch.arange(s, device=x.device)[None, :]

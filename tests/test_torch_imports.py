@@ -340,3 +340,25 @@ def test_guard_walks_the_moe_and_recsys_slice():
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+
+
+def test_guard_walks_the_gemma3_slice():
+    """The import guard reaches gemma3's config; the card's [22] script
+    names no JAX; without a card the config's weights and cache raise
+    unless the CPU is asked for."""
+    assert "repro_torch.configs.gemma3_27b" in set(_submodules())
+    path = SRC.parents[1] / "tools" / "gemma_phase.py"
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else [node.module or ""])
+            assert not any(n.split(".")[0] in ("jax", "jaxlib", "repro")
+                           for n in names), (path.name, node.lineno)
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from repro_torch.configs import gemma3_27b
+    cfg = gemma3_27b.make_smoke_config()
+    for call in (lambda: lm.init_params(torch.Generator(), cfg),
+                 lambda: lm.init_cache(cfg, 1, 8)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()

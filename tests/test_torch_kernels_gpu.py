@@ -1106,6 +1106,88 @@ def test_smoke_config_prefill_runs_the_kernel_once_a_global_layer(cuda):
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
 
 
+# K5's sliding-window mode: each query tile's KV loop starts at the first
+# tile holding a key of its window; windows of 1 (the diagonal only), 100
+# and 1000 (two masked tiles where the window begins, at 128-key tiles),
+# 128 and 1024 (one), at a ragged S past several windows and at S = 1000
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("window", [1, 100, 128, 1000, 1024])
+@pytest.mark.parametrize("s", [1000, 2309])
+def test_flash_kernel_window_matches_plain(cuda, dtype, dh, window, s):
+    """The windowed kernel against its windowed plain twin, as
+    ``test_flash_kernel_matches_plain`` holds the causal one (bfloat16
+    also per row), one launch counted as a window launch."""
+    q, k, v = _qkv(2, s, 6, 2, dh, dtype, cuda, seed=s + window)
+    before = dict(fa.launch_counts)
+    got = fa.flash_attention_cuda(q, k, v, window=window)
+    want = fa.flash_attention_gqa_ref(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert fa.launch_counts == {**before, fa.FLASHATTN_WINDOW:
+                                before[fa.FLASHATTN_WINDOW] + 1}
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        g, w = got.float(), want.float()
+        rel = (g - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-30)
+        assert float(rel.max()) <= FLASH_ROW_REL
+    # a window as wide as S is the causal kernel's function
+    if window >= s:
+        causal = fa.flash_attention_cuda(q, k, v)
+        torch.testing.assert_close(got.float(), causal.float(), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel_window_reads_strided_views(cuda, dtype):
+    """A windowed call on views into wider tensors: the same output as on
+    contiguous copies."""
+    wide = torch.randn(2, 700, 6, 256, device=cuda).to(dtype)
+    kv = torch.randn(2, 700, 2, 384, device=cuda).to(dtype)
+    q, k, v = wide[..., 64:192], kv[..., :128], kv[..., 256:]
+    got = fa.flash_attention_cuda(q, k, v, window=200)
+    want = fa.flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), window=200)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="causal"):
+        fa.flash_attention_cuda(q, k, v, causal=False, window=200)
+
+
+def test_gemma3_smoke_prefill_runs_the_kernel_once_a_layer(cuda):
+    """gemma3's smoke config (float32, head dim 16, window 8; 7 layers, 5
+    local) prefilled on the card: each local layer one window launch of
+    K5, each global one a causal launch, logits and cache within float32
+    reach of the CPU's plain route; decode launches nothing."""
+    from repro_torch.configs.gemma3_27b import make_smoke_config
+    from repro_torch.models import transformer as lm
+    from repro_torch.tree import tree_map
+    cfg = make_smoke_config()
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, 96),
+                           generator=torch.Generator().manual_seed(1))
+    want, want_cache = lm.prefill_step(params, tokens, cfg)
+    gpu_params = tree_map(lambda x: x.to(cuda), params)
+    fa.reset_launch_counts()
+    got, cache = lm.prefill_step(gpu_params, tokens.to(cuda), cfg)
+    torch.cuda.synchronize()
+    kinds = [kind for _, kind in lm._layers(params, cfg)]
+    assert fa.launch_counts == {fa.FLASHATTN: kinds.count("global"),
+                                fa.FLASHATTN_WINDOW: kinds.count("local")}
+    assert (kinds.count("global"), kinds.count("local")) == (2, 5)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(cache["v"].cpu(), want_cache["v"], rtol=1e-4,
+                               atol=1e-4)
+    cache = lm.grow_cache(cache, 2)
+    fa.reset_launch_counts()
+    lm.decode_step(gpu_params, cache, got.argmax(-1)[:, None], cfg)
+    torch.cuda.synchronize()
+    assert fa.launch_counts == {fa.FLASHATTN: 0, fa.FLASHATTN_WINDOW: 0}
+
+
 # ---------------------------------------------------------------------------
 # The weighted lane's kernels: W1 (min-plus relaxation), W2 (DAG count)
 # ---------------------------------------------------------------------------

@@ -3,10 +3,13 @@ model substrate (rms_norm, swiglu, RoPE), dense and decode attention,
 ``forward`` with its MoE aux loss, ``prefill_step`` with its cache,
 ``decode_step`` and the greedy loop of ``examples/serve_lm_torch.py``,
 with the JAX weights carried across by ``lm_params_from_numpy``, on
-llama-, qwen2- (QKV bias) and MoE-shaped (granite's smoke config and a
-narrow one with several routing groups and drops) configs.  On the CPU
+llama-, qwen2- (QKV bias), gemma3- (5 local : 1 global; its smoke config
+has a remainder of one group) and MoE-shaped (granite's smoke config and
+a narrow one with several routing groups and drops) configs, and two
+narrow sliding-window configs whose prompt spans 4 ``attn_chunk``s, on
+``masked_chunk_attention`` and on ``trapezoid_attention``.  On the CPU
 every full-attention layer runs the flash-attention dispatcher's plain
-route.
+route, and a local layer the reference's dispatch.
 
 Tolerance, float32 throughout: rtol 1e-5, and for entries near zero an
 atol of 1e-5 of the array's largest magnitude.  Both packages compute
@@ -25,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+import repro.configs.gemma3_27b as jgemma
 import repro.configs.granite_moe_3b_a800m as jgranite
 import repro.configs.llama3_2_3b as jcfg
 import repro.configs.moonshot_v1_16b_a3b as jmoonshot
@@ -33,6 +37,7 @@ import repro.models.attention as jatt
 import repro.models.common as jcom
 import repro.models.moe as jmoe
 import repro.models.transformer as jt
+import repro_torch.configs.gemma3_27b as tgemma
 import repro_torch.configs.granite_moe_3b_a800m as tgranite
 import repro_torch.configs.llama3_2_3b as tcfg
 import repro_torch.configs.moonshot_v1_16b_a3b as tmoonshot
@@ -100,9 +105,20 @@ CONFIGS = {
     "moe_narrow": (_moe_narrow(jt, jmoe, jnp.float32),
                    _moe_narrow(tt, tmoe, torch.float32), 128),
     "qwen_smoke": (jqwen.make_smoke_config(), tqwen.make_smoke_config(), 48),
+    # 7 layers: 2 groups of (local, local, global) and a local remainder
+    "gemma3_smoke": (jgemma.make_smoke_config(), tgemma.make_smoke_config(),
+                     48),
+    # a sliding-window layer over 4 chunks of 16, then a global one: the
+    # chunked schedules of the plain route, each against the reference's
+    **{name: tuple(
+        [_narrow(mod, dt, name=name, layer_pattern=("local", "global"),
+                 window=20, attn_chunk=16, attn_trapezoid=trap)
+         for mod, dt in ((jt, jnp.float32), (tt, torch.float32))] + [64])
+       for name, trap in (("window_chunk", False),
+                          ("window_trapezoid", True))},
 }
 ALL = ["smoke", "narrow", "local_global", "granite_smoke", "moe_narrow",
-       "qwen_smoke"]
+       "qwen_smoke", "gemma3_smoke", "window_chunk", "window_trapezoid"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -194,6 +210,53 @@ def test_moe_param_tree_in_bfloat16():
         np.testing.assert_array_equal(np_(cm["router"]),
                                       np.asarray(jp["groups"][0]["moe"]
                                                  ["router"]))
+
+
+def test_gemma3_configs_match_the_reference():
+    """Both gemma3 configs field for field: 62 layers in 10 groups of 6
+    (5 local, 1 global) and 2 remainder layers, window 1024, 2.842e10
+    parameters; the smoke config's 7 layers in 2 groups and 1."""
+    for make in ("make_config", "make_smoke_config"):
+        j, t = getattr(jgemma, make)(), getattr(tgemma, make)()
+        for field in _CONFIG_FIELDS + ("attn_trapezoid", "remat"):
+            assert getattr(t, field) == getattr(j, field), field
+        assert t.moe is None and j.moe is None
+        assert t.flops_per_token_fwd() == j.flops_per_token_fwd()
+        assert t.active_params() == j.active_params()
+        assert str(t.dtype).split(".")[-1] == jnp.dtype(j.dtype).name
+    full = tgemma.make_config()
+    assert (full.n_groups, full.n_remainder, full.window) == (10, 2, 1024)
+    assert full.layer_pattern == ("local",) * 5 + ("global",)
+    assert abs(full.active_params() - 2.842e10) < 0.001e10
+    smoke = tgemma.make_smoke_config()
+    assert (smoke.n_groups, smoke.n_remainder) == (2, 1)
+
+
+def test_local_layer_routes(monkeypatch):
+    """The plain route of a local layer follows the reference's dispatch:
+    dense within one chunk or with ``attn_impl="dense"``, else the
+    trapezoid or the masked chunk schedule; a global layer takes the
+    flash-attention dispatcher's plain version.  ``use_kernel=True`` on
+    the CPU raises for a local layer too."""
+    _, tc, _, tp, tokens = _setup("window_chunk")
+    calls = []
+    for name in ("dense_attention", "masked_chunk_attention",
+                 "trapezoid_attention", "flash_attention"):
+        monkeypatch.setattr(tt, name, lambda *a, _n=name,
+                            _real=getattr(tt, name), **kw:
+                            calls.append(_n) or _real(*a, **kw))
+    for cfg, s, local in [
+            (tc, 64, "masked_chunk_attention"),
+            (dataclasses.replace(tc, attn_trapezoid=True), 64,
+             "trapezoid_attention"),
+            (dataclasses.replace(tc, attn_impl="dense"), 64,
+             "dense_attention"),
+            (tc, 16, "dense_attention")]:
+        calls.clear()
+        tt.prefill_step(tp, torch.from_numpy(tokens[:, :s]), cfg)
+        assert calls == [local, "flash_attention"], (cfg, s)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        tt.prefill_step(tp, torch.from_numpy(tokens), tc, use_kernel=True)
 
 
 @pytest.mark.parametrize("kw,item", [
@@ -291,13 +354,6 @@ def test_forward_logits(name):
     assert aux.shape == () and aux.dtype == torch.float32
     assert abs(float(aux) - float(want_aux)) <= 1e-6
     assert (float(aux) > 0) == (tc.moe is not None)
-
-
-def test_local_layer_beyond_one_chunk_raises():
-    jc, tc, _, tp, _ = _setup("local_global")
-    long = torch.zeros((1, tc.attn_chunk + 1), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="sliding-window prefill"):
-        tt.prefill_step(tp, long, tc)
 
 
 @pytest.mark.parametrize("name", ALL)

@@ -231,7 +231,7 @@ def launch(lib, q, k, v, causal=True):
     strides = [t.stride(i) for t in (q, k, v, out) for i in range(3)]
     code = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *strides,
-        b, s, h, k.shape[2], dh, 0, int(causal), 1.0 / dh ** 0.5,
+        b, s, h, k.shape[2], dh, 0, int(causal), 0, 1.0 / dh ** 0.5,
         torch.cuda.current_stream().cuda_stream)
     _build.check(code, "flash_attention_launch")
     return out
@@ -288,12 +288,12 @@ def main() -> int:
     funcs = sass.split("Function : ")
     listing = "".join(f for f in funcs if f.startswith("_Z")
                       and "flash_f32_kernel" in f.split()[0]
-                      and "Li128E" in f.split()[0])
+                      and "Li128ELb0E" in f.split()[0])
     (_build.BUILD_DIR / "flash_f32_probe" / "flash_f32_128.sass").write_text(
         listing)
     for name in NAMES:
         for func, hist in sass_histogram(libs[name][1]).items():
-            if name == "built" or "Li128E" in func:
+            if name == "built" or "Li128ELb0E" in func:
                 print(f"SASS {name} {func}: {sum(hist.values())} "
                       f"instructions; {hist.most_common(24)}")
 
