@@ -8,8 +8,9 @@ any failed phase.  Phases:
 
 1. the device: name, count, and ``nvidia-smi`` name and power limit;
 2. build the frontier, weighted-lane (``relax.cu``), stop-check,
-   gather-segment-sum and flash-attention kernels from their ``csrc/``
-   sources (one nvcc each,
+   gather-segment-sum and flash-attention kernels and the latter's
+   backward (``flashattn_bwd.cu``) from their ``csrc/`` sources (one
+   nvcc each,
    started together; sm_90a) and print the build seconds and the
    ``ptxas`` register, spill, shared-memory and warning lines;
 3. hold each kernel against its plain PyTorch version at main-path
@@ -177,7 +178,7 @@ any failed phase.  Phases:
    protocol, and the state's gather once a batch; the parent's
    ``ShardMesh(4)`` level on the same batch beside it.  (d)
    ``run_kadabra`` on the production cell stopped at GROUP_MAX_EPOCHS =
-   2 epochs (calibration's 128 samples, then 2 epochs of n0 = 1,000):
+   1 epoch (calibration's 128 samples, then an epoch of n0 = 1,000):
    every rank bitwise rank 0, and bitwise the parent's ``ShardMesh(4)``
    run of the same config where two such runs are bitwise alike, else
    within 2 eps; each collective's calls, bytes and seconds.  The run to
@@ -322,7 +323,34 @@ any failed phase.  Phases:
    one prompt of 4,096 tokens: the plain route's local layers through
    ``masked_chunk_attention`` and, with ``attn_trapezoid``, through
    ``trapezoid_attention``; float32 within LLAMA_F32_RTOL and bfloat16
-   within LLAMA_BF16_RATIO, as [12].
+   within LLAMA_BF16_RATIO, as [12];
+23. LM training, after [22]: (a) K5's backward kernel
+   (``csrc/flashattn_bwd.cu``, built in [2] beside the others) against
+   its plain backward in float32 on the same inputs (the kernel forward's
+   output and logsumexp) at llama's train_4k layer (1, 4096, 24/8, 128)
+   bfloat16 causal, gemma3's local layer (1, 4096, 32/16, 128) bfloat16
+   window 1,024, float32 (1, 2048, 24/8, 128) causal and windowed, head
+   dim 16 and the ragged (1, 1000, 6/2, 64) in both types at windows 1,
+   100 and 1,000: dq, dk, dv within TRAIN_BWD_REL in relative L2, two
+   calls the same bits, a control (the logsumexp shifted; a float32
+   window off by one) beyond the limit; each timed beside the plain
+   backward, its bound (five products over the kept pairs) and the
+   backward of ``scaled_dot_product_attention``; K5's forward with its
+   logsumexp output beside the serving call at [11]'s shape.  (c) The
+   kernel route against the plain route at full width on 2 layers, one
+   4,096-token batch: the loss and every leaf's gradient, float32 within
+   LLAMA_F32_RTOL, bfloat16 within LLAMA_BF16_RATIO of the plain route's
+   distance from float32.  (b) llama3.2-3b at full width and depth in
+   bfloat16 through ``launch/train.py``'s path (3.61e9 parameters drawn
+   on the card, the donating AdamW step, remat "full", 4,096 tokens):
+   two sizing steps at batch 1 and 2 project the batch (train_4k's 256
+   cut to what fits), then TRAIN_STEPS steps (56 K5 and 28 K5 bwd
+   launches each, asserted), their losses, seconds, tokens/s and peak
+   memory; a profiled step (device time by kernel, idle share); one step
+   with loss_chunk 1,024 on the last step's weights and batch.  (d)
+   ``examples/train_lm_torch.py``'s default run on the card (its loss
+   must fall by more than 1.0), and 3 steps of the llama, gemma3 and
+   granite smoke configs against the CPU's losses.
 
 Every run resets the launch counts just before it and reads them just
 after: each kernel of the run must have carried all of its work.
@@ -467,9 +495,12 @@ SPMD_SETTINGS = ("DEVICE", "SEED", "RMAT_SCALE", "EDGE_FACTOR", "BATCH",
 # the sharded lane over torch.distributed: the production graph in 4
 # shards at the card's blocking, one a rank, the ranks spawned on the one
 # card in a gloo group; (d) runs calibration and GROUP_MAX_EPOCHS epochs
-# (phase [17]'s docstring says why not to the stop rule); a rank that
-# raises, or a group that outlasts GROUP_TIMEOUT seconds, fails the smoke
-GROUP_SHARDS, GROUP_MAX_EPOCHS, GROUP_TIMEOUT = 4, 2, 400
+# (phase [17]'s docstring says why not to the stop rule; one epoch, cut
+# from two when [23] joined the smoke: the second took ~47 s of the
+# smoke's 1,014 s on an NVIDIA H100 80GB HBM3 at 700.00 W, and (e) runs
+# 3 epochs in the ranks); a rank that raises, or a group that outlasts
+# GROUP_TIMEOUT seconds, fails the smoke
+GROUP_SHARDS, GROUP_MAX_EPOCHS, GROUP_TIMEOUT = 4, 1, 400
 # the weighted lane: the production graph with the JAX package's dyadic
 # weights; its run at eps WEIGHTED_EPS, cut from the cell's 0.01 to fit
 # the phase (the log projects the cell's eps from the measured rate); a
@@ -536,6 +567,61 @@ GEMMA_ROUTE_PROMPT = 4096
 # but unallocated when a 32k prefill with a larger FFN peak ran out of
 # memory on an NVIDIA H100 80GB HBM3 at 700.00 W
 GEMMA_MARGIN_GIB = 3.0
+# [23] LM training.  (a) K5's backward kernel against its plain backward
+# in float32 on the same inputs: each of dq, dk, dv within TRAIN_BWD_REL
+# in relative L2 (float32: sums in another order, ~1e-7; bfloat16: the
+# kernel rounds each gradient once, 2^-9 relative, and reads the same
+# bfloat16 inputs), where a gradient is not 0 by construction (a window
+# of 1 leaves dq = dk = 0: there the largest entry is held to the same
+# number); its control, the logsumexp shifted by TRAIN_LSE_SHIFT (P
+# scaled by e^-0.05) and in a float32 window case narrower than S the
+# window off by one, must land beyond.  Shapes: llama's train_4k layer,
+# gemma3's local layer (window 1,024), float32 causal and windowed, head
+# dim 16, and the ragged FLASH_RAGGED_SHAPE in both types at
+# TRAIN_BWD_RAGGED_WINDOWS
+TRAIN_BWD_REL = {"bfloat16": 1e-2, "float32": 1e-5}
+TRAIN_LSE_SHIFT = 0.05
+# the forward that training runs (K5 with its logsumexp output) in each
+# case: its output bitwise the serving call's and within FLASH_TOL of
+# the plain forward in float32, its logsumexp within TRAIN_LSE_ATOL of
+# the plain one (float32: split TF32 products, 3e-5 on the output;
+# bfloat16: exact float32 scores of bfloat16 inputs, ex2.approx); the
+# control, the logsumexp moved down one row, must land beyond
+TRAIN_LSE_ATOL = {"bfloat16": 1e-4, "float32": 3e-5}
+# llama's layer at the batch (b) trains at on an NVIDIA H100 80GB HBM3
+# at 700.00 W; (b) checks the kernel again at its own batch if that
+# differs
+TRAIN_BWD_LLAMA = (3, 4096, 24, 8, 128)
+TRAIN_BWD_GEMMA = (1, 4096, 32, 16, 128)
+TRAIN_BWD_F32 = (1, 2048, 24, 8, 128)
+TRAIN_BWD_DH16 = (2, 512, 4, 2, 16)
+TRAIN_BWD_RAGGED_WINDOWS = (1, 100, 1000)
+# (b) llama3.2-3b trained at full width and depth: train_4k's sequence,
+# its batch of TRAIN_CELL_BATCH cut to what two sizing steps project to
+# fit the card with TRAIN_MARGIN_GIB to spare (the projection is linear
+# in the batch and fell short: 73.07 GiB projected at 4, 75.89 measured;
+# and late in the whole smoke 9.35 GiB sat reserved but unallocated when
+# the loss asked for 7.83 GiB, on an NVIDIA H100 80GB HBM3 at 700.00 W);
+# TRAIN_STEPS AdamW steps;
+# then one step with loss_chunk TRAIN_LOSS_CHUNK on the last step's
+# weights and batch, its loss within TRAIN_CHUNK_RTOL of the unchunked
+# one (the head's bfloat16 matmul over 1,024-row chunks may round its
+# logits otherwise than over the whole sequence, and the float32 sums
+# run in another order)
+TRAIN_SEQ, TRAIN_CELL_BATCH, TRAIN_STEPS = 4096, 256, 4
+TRAIN_MARGIN_GIB = 8.0
+TRAIN_LOSS_CHUNK, TRAIN_CHUNK_RTOL = 1024, 1e-3
+# (c) the kernel route against the plain route at full width on
+# TRAIN_ROUTE_LAYERS layers: float32 within LLAMA_F32_RTOL (the loss, and
+# each leaf's gradient in relative L2); bfloat16 each leaf within
+# LLAMA_BF16_RATIO of the plain route's distance from the float32 one,
+# the loss within TRAIN_BF16_LOSS_RTOL of the plain bfloat16 route's (a
+# few bfloat16 roundings, 2^-8 each)
+TRAIN_ROUTE_LAYERS, TRAIN_BF16_LOSS_RTOL = 2, 2.0 ** -6
+# (d) TRAIN_SMOKE_STEPS steps of three smoke configs on the card against
+# the CPU: each loss within TRAIN_SMOKE_RTOL (the float32 tolerance of
+# check_smoke_config)
+TRAIN_SMOKE_STEPS, TRAIN_SMOKE_RTOL = 3, 1e-4
 GROUP_SETTINGS = ("DEVICE", "SEED", "RMAT_SCALE", "EDGE_FACTOR", "BATCH",
                   "MAIN_EPS", "MAIN_DELTA", "HYPER_N", "HYPER_EPS",
                   "HYPER_BLOCK_V", "GROUP_SHARDS", "GROUP_MAX_EPOCHS")
@@ -629,7 +715,8 @@ def phase_build():
     t0 = time.perf_counter()
     libs = {"frontier": frontier.library, "relax": frontier.relax_library,
             "stopcheck": stopcheck.library, "segsum": segsum.library,
-            "flashattn": flashattn.library}
+            "flashattn": flashattn.library,
+            "flashattn_bwd": flashattn.bwd_library}
     with ThreadPoolExecutor(len(libs)) as pool:
         for fut in [pool.submit(build) for build in libs.values()]:
             fut.result()
@@ -1941,13 +2028,14 @@ def phase_flash() -> dict:
         log(f"  cuobjdump -sass: {func}: {counts}")
     bf16 = [n for f, n in ops.items() if "flash_bf16_kernel" in f]
     f32 = [n for f, n in ops.items() if "flash_f32_kernel" in f]
-    # each kernel with and without the window mode: bf16 at dh 64 and
-    # 128, float32 at dh 16, 64 and 128
-    if len(bf16) != 4 or not all(n["HGMMA"] and n["UTMALDG"] for n in bf16):
+    # each kernel with and without the window mode, each with and
+    # without the logsumexp output: bf16 at dh 64 and 128, float32 at dh
+    # 16, 64 and 128
+    if len(bf16) != 8 or not all(n["HGMMA"] and n["UTMALDG"] for n in bf16):
         raise AssertionError(f"flash_bf16_kernel lacks HGMMA or UTMALDG: {ops}")
-    if len(f32) != 6 or not all(n["HMMA"] for n in f32):
+    if len(f32) != 12 or not all(n["HMMA"] for n in f32):
         raise AssertionError(f"flash_f32_kernel lacks HMMA: {ops}")
-    if len(spills) != 6 or not all(
+    if len(spills) != 12 or not all(
             "0 bytes spill stores, 0 bytes spill loads" in x
             for x in spills.values()):
         raise AssertionError(f"flash_f32_kernel spills: {spills}")
@@ -5328,6 +5416,550 @@ def phase_mind() -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# [23] LM training: K5's backward, llama3.2-3b trained at full width
+# ---------------------------------------------------------------------------
+
+def bwd_cost(shape, causal: bool, elem: int, window=None) -> tuple:
+    """(bytes, operations) of one attention backward: q, o, dO (B, S, H,
+    dh) and k, v (B, S, KV, dh) read once, the float32 (B, H, S)
+    logsumexp read once, dq, dk, dv written once; the five products of
+    FlashAttention-2's backward (S, dP, dV, dS, dQ, dK: q . k, dO . v,
+    P^T dO, dS K, dS^T Q), 2 dh operations each, for every (query, key)
+    pair the mask keeps."""
+    b, s, h, kv, dh = shape
+    return ((4 * b * s * h * dh + 4 * b * s * kv * dh) * elem + 4 * b * h * s,
+            10.0 * b * h * flash_pairs(s, causal, window) * dh)
+
+
+def sdpa_bwd_ms(q, k, v, do, causal: bool, window, iters: int) -> float:
+    """The backward of ``scaled_dot_product_attention`` on the KV heads
+    repeated beforehand (the library yardstick, called only here): the
+    flash backend in bfloat16, the memory-efficient one in float32 or
+    with the band of a window as a boolean mask; the graph built once,
+    its backward timed."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    g = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2).detach().requires_grad_(True)
+    kt = k.repeat_interleave(g, dim=2).transpose(1, 2).detach() \
+        .requires_grad_(True)
+    vt = v.repeat_interleave(g, dim=2).transpose(1, 2).detach() \
+        .requires_grad_(True)
+    dot = do.transpose(1, 2)
+    flash = q.dtype == torch.bfloat16 and window is None
+    backend = SDPBackend.FLASH_ATTENTION if flash \
+        else SDPBackend.EFFICIENT_ATTENTION
+    with sdpa_kernel(backend):
+        if window is None:
+            out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        else:
+            pos = torch.arange(q.shape[1], device=q.device)
+            band = (pos[:, None] >= pos[None, :]) \
+                & (pos[:, None] - pos[None, :] < window)
+            out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band)
+    ms = cuda_time_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), iters)
+    del out
+    return ms
+
+
+def check_lse_forward(label: str, q, k, v, causal: bool, window) -> tuple:
+    """K5's forward with its logsumexp (the training route): its output
+    bitwise the serving call's and within FLASH_TOL of the plain forward
+    in float32 on the same inputs, its logsumexp within TRAIN_LSE_ATOL
+    of the plain one, and the control (the kernel's logsumexp moved down
+    one row) beyond that limit.  Returns (out, lse, the gaps)."""
+    import torch
+    from repro_torch.kernels.flashattn import (flash_attention_cuda,
+                                               flash_attention_gqa_ref)
+    out, lse = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                    return_lse=True)
+    serving = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    want, want_lse = flash_attention_gqa_ref(
+        q.float(), k.float(), v.float(), causal=causal, window=window,
+        return_lse=True)
+    torch.cuda.synchronize()
+    name = str(q.dtype)[6:]
+    gaps = {"out": float((out.float() - want).abs().max()),
+            "lse": float((lse - want_lse).abs().max()),
+            "lse_control": float((lse.roll(1, dims=-1) - want_lse)
+                                 .abs().max())}
+    same = torch.equal(out, serving)
+    del serving, want, want_lse
+    if not (same and gaps["out"] <= FLASH_TOL[name]
+            and gaps["lse"] <= TRAIN_LSE_ATOL[name] < gaps["lse_control"]):
+        raise AssertionError(
+            f"flash forward with logsumexp, {label}: output bitwise the "
+            f"serving call's {same}; gaps {gaps} (output limit "
+            f"{FLASH_TOL[name]}, logsumexp limit {TRAIN_LSE_ATOL[name]}, "
+            "which the control must exceed)")
+    return out, lse, gaps
+
+
+def check_bwd_case(label: str, shape, dtype, causal: bool, window,
+                   seed: int, iters: int) -> dict:
+    """K5 bwd against its plain backward in float32 on the same inputs
+    (N(0, 1) q, k, v, dO; the kernel forward's output and logsumexp,
+    checked first by ``check_lse_forward``): each of dq, dk, dv within
+    TRAIN_BWD_REL in relative L2; two calls the same bits; the control
+    (the logsumexp shifted by TRAIN_LSE_SHIFT, and in a float32 window
+    case the window off by one) beyond the limit.  Timed beside the
+    plain backward, its bound and SDPA's backward."""
+    import torch
+    from repro_torch.kernels.flashattn import (flash_attention_bwd_cuda,
+                                               flash_attention_gqa_bwd_ref)
+    b, s, h, kv, dh = shape
+    q, k, v = flash_inputs(shape, dtype, seed)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 1000)
+    do = torch.randn((b, s, h, dh), generator=gen, device=DEVICE,
+                     dtype=torch.float32).to(dtype)
+    out, lse, fwd_gaps = check_lse_forward(label, q, k, v, causal, window)
+
+    def kernel(lse=lse, window=window):
+        return flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=causal,
+                                        window=window)
+
+    got, again = kernel(), kernel()
+    want = flash_attention_gqa_bwd_ref(q.float(), k.float(), v.float(),
+                                       out.float(), lse, do.float(),
+                                       causal=causal, window=window)
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+
+    def gaps(grads):
+        # relative L2; a window of 1 leaves dq = dk = 0 (each row's one
+        # key takes all the weight): there the largest entry
+        return [float((g.float() - w).abs().max()) if window == 1 and i < 2
+                else rel_l2(g, w)
+                for i, (g, w) in enumerate(zip(grads, want))]
+
+    errs = gaps(got)
+    err = max(float((g.float() - w).abs().max()) for g, w in zip(got, want))
+    name = str(dtype)[6:]
+    limit = TRAIN_BWD_REL[name]
+    controls = {"lse": max(gaps(kernel(lse=lse + TRAIN_LSE_SHIFT)))}
+    if window is not None and window < s and dtype == torch.float32:
+        off = window - 1 if window > 1 else 2     # a window as wide as S
+        controls[f"window {off}"] = max(gaps(kernel(window=off)))
+    del got, again, want
+    if not (same and all(e <= limit for e in errs)
+            and all(c > limit for c in controls.values())):
+        raise AssertionError(
+            f"flash bwd {label}: relative L2 {errs} (limit {limit}), two "
+            f"calls alike {same}, controls {controls} (must exceed it)")
+    ms = cuda_time_ms(kernel, iters)
+    plain = cuda_time_ms(lambda: flash_attention_gqa_bwd_ref(
+        q, k, v, out, lse, do, causal=causal, window=window), 1)
+    lib_ms = sdpa_bwd_ms(q, k, v, do, causal, window, iters)
+    n_bytes, n_ops = bwd_cost(shape, causal, q.element_size(), window)
+    if dtype == torch.bfloat16:
+        b_ms, b_by = bound(n_bytes, n_ops, BF16_OPS_PER_S)
+        extra, also = {}, ""
+    else:
+        b_ms, b_by = bound(n_bytes, FLASH_F32_PRODUCTS * n_ops,
+                           TF32_OPS_PER_S)
+        fp32_ms, _ = bound(n_bytes, n_ops, FP32_OPS_PER_S)
+        extra = {"fp32_pipe_bound_ms": fp32_ms}
+        also = (f"; as {FLASH_F32_PRODUCTS} TF32 products; the float32 "
+                f"pipe's bound {fp32_ms:.3f} ms")
+    mode = "causal" if causal else "full"
+    if window is not None:
+        mode = f"window {window}"
+    log(f"  flash bwd {label} {name} {mode} (B, S, H/KV, dh) = ({b}, {s}, "
+        f"{h}/{kv}, {dh}): the forward with its logsumexp bitwise the "
+        f"serving call, max |diff| from the plain forward "
+        f"{fwd_gaps['out']:.3g}, logsumexp {fwd_gaps['lse']:.3g} (limit {TRAIN_LSE_ATOL[name]}; "
+        f"control {fwd_gaps['lse_control']:.3g}); dq, dk, dv relative L2 "
+        f"{', '.join(f'{e:.3g}' for e in errs)} (limit {limit}), max |diff| "
+        f"{err:.3g}; two calls bitwise alike; controls "
+        f"{', '.join(f'{k} {c:.3g}' for k, c in controls.items())}; "
+        f"{ms:.3f} ms ({n_ops / ms / 1e9:.1f} TFLOP/s), plain {plain:.3f} "
+        f"ms, SDPA backward {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}"
+        f"{also})")
+    return {"max_abs_err": err, "rel_l2": errs, "controls": controls,
+            "forward_lse_gaps": fwd_gaps,
+            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            **extra, "library_ms": lib_ms,
+            "library": "scaled_dot_product_attention backward",
+            "shape": f"(B, S, H/KV, dh) = ({b}, {s}, {h}/{kv}, {dh}) "
+                     f"{name}, {mode}"}
+
+
+def time_forward_lse() -> dict:
+    """K5's forward with its logsumexp output (the training route)
+    beside the serving call at [11]'s shape, in turns (serving, lse,
+    lse, serving)."""
+    import torch
+    from repro_torch.kernels.flashattn import flash_attention_cuda
+    q, k, v = flash_inputs(FLASH_SHAPE, torch.bfloat16, SEED + 5)
+    serving, lse = [], []
+    for fn, times in ((False, serving), (True, lse), (True, lse),
+                      (False, serving)):
+        times.append(cuda_time_ms(lambda: flash_attention_cuda(
+            q, k, v, return_lse=fn), 3))
+    log(f"  K5 forward at [11]'s shape {FLASH_SHAPE} bfloat16 causal: "
+        f"serving {serving[0]:.3f}, {serving[1]:.3f} ms; with the "
+        f"logsumexp output {lse[0]:.3f}, {lse[1]:.3f} ms")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return {"fwd_serving_ms": serving, "fwd_lse_ms": lse}
+
+
+def phase_flash_bwd() -> tuple:
+    """[23a] the backward kernel at the training shapes; returns the rows
+    of K5 bwd (llama's layer) and its window mode (gemma3's local
+    layer), the other cases under their own keys."""
+    import torch
+    bf16, f32 = torch.bfloat16, torch.float32
+    row = check_bwd_case("llama train_4k layer", TRAIN_BWD_LLAMA, bf16, True,
+                         None, SEED + 50, 3)
+    torch.cuda.empty_cache()
+    window_row = check_bwd_case("gemma3 local layer", TRAIN_BWD_GEMMA, bf16,
+                                True, GEMMA_WINDOW, SEED + 51, 3)
+    torch.cuda.empty_cache()
+    for key, args in (
+            ("float32", ("float32", TRAIN_BWD_F32, f32, True, None)),
+            ("float32_window", ("float32", TRAIN_BWD_F32, f32, True,
+                                GEMMA_WINDOW)),
+            ("dh16", ("head dim 16", TRAIN_BWD_DH16, f32, True, None))):
+        row.update({f"{key}_{k}": v for k, v in check_bwd_case(
+            *args, SEED + 52, 5).items()})
+    for dtype in (bf16, f32):
+        for window in TRAIN_BWD_RAGGED_WINDOWS:
+            ragged = check_bwd_case("ragged", FLASH_RAGGED_SHAPE, dtype,
+                                    True, window, SEED + 53 + window, 10)
+            window_row.update({f"ragged_{str(dtype)[6:]}_w{window}_{k}": v
+                               for k, v in ragged.items()})
+    torch.cuda.empty_cache()
+    row.update(time_forward_lse())
+    return row, window_row
+
+
+def profile_train(label: str, fn) -> None:
+    """Device time by kernel of ``fn``'s second run under the profiler
+    (K5's forward, its backward, the GEMMs, the rest) and its idle
+    share."""
+    rows, wall_ms = profile_twice(fn)
+    busy = sum(r[0] for r in rows)
+    share = 1.0 / max(busy, 1e-9)
+
+    def total(*names):
+        return sum(r[0] for r in rows if any(n in r[2] for n in names))
+
+    fwd = total("flash_bf16_kernel", "flash_f32_kernel")
+    bwd = total("bwd_dkdv_", "bwd_dq_", "bwd_delta_kernel")
+    gemm = sum(r[0] for r in rows if any(
+        w in r[2].lower() for w in ("gemm", "xmma", "cutlass", "nvjet")))
+    rest = busy - fwd - bwd - gemm
+    log(f"  profile of one {label}: wall {wall_ms:.1f} ms, device busy "
+        f"{busy:.1f} ms, idle share {1 - busy / wall_ms:.3f}; K5 forward "
+        f"{fwd:.1f} ms ({fwd * share:.1%}), K5 bwd {bwd:.1f} ms "
+        f"({bwd * share:.1%}), GEMMs {gemm:.1f} ms ({gemm * share:.1%}), the "
+        f"rest {rest:.1f} ms ({rest * share:.1%})")
+    for ms, calls, key in sorted(rows, reverse=True)[:12]:
+        log(f"  {ms:9.2f} ms {ms * share:6.1%} x{calls:<6d} {key[:80]}")
+
+
+def lm_batch(cfg, batch: int, seq: int, step: int, device=None) -> dict:
+    import torch
+    from repro_torch.data import lm_batch_fn
+    return {k: torch.from_numpy(v).to(device or DEVICE)
+            for k, v in lm_batch_fn(cfg.vocab, batch, seq, SEED)(step).items()}
+
+
+def train_launches(cfg, steps: int = 1, remat=None) -> dict:
+    """K5's launches in ``steps`` training steps of ``cfg``: a forward
+    launch a layer (two under remat "full" or "save_qkv", whose backward
+    runs the attention again; the remainder layers run once) and a
+    backward launch a layer, local layers in the window modes."""
+    from repro_torch.kernels.flashattn import (FLASHATTN, FLASHATTN_BWD,
+                                               FLASHATTN_BWD_WINDOW,
+                                               FLASHATTN_WINDOW)
+    from repro_torch.models.transformer import REMAT_SAVED
+    remat = cfg.remat if remat is None else remat
+    again = remat and "attn_out" not in REMAT_SAVED[cfg.remat_policy]
+    pattern = cfg.layer_pattern
+    kinds = [pattern[i % len(pattern)] for i in range(cfg.n_layers)]
+    grouped = cfg.n_groups * len(pattern)
+    fwd = {"global": 0, "local": 0}
+    for i, kind in enumerate(kinds):
+        fwd[kind] += 2 if again and i < grouped else 1
+    return {FLASHATTN: steps * fwd["global"],
+            FLASHATTN_WINDOW: steps * fwd["local"],
+            FLASHATTN_BWD: steps * kinds.count("global"),
+            FLASHATTN_BWD_WINDOW: steps * kinds.count("local")}
+
+
+def phase_train_llama() -> dict:
+    """[23b] llama3.2-3b at full width and depth, bfloat16, through
+    ``launch/train.py``'s path (weights drawn on the card, the donating
+    AdamW step, remat "full", sequence 4,096): the batch sized from two
+    steps at 1 and 2 (K5 and K5 bwd checked at it unless (a) did), then
+    TRAIN_STEPS steps, one profiled, and one step
+    with ``loss_chunk`` on the last step's weights and batch.  Returns
+    the launch counts of the TRAIN_STEPS steps."""
+    import dataclasses
+    import gc
+    import math
+    import torch
+    from repro_torch.configs.llama3_2_3b import make_config
+    from repro_torch.launch.train import build_lm_training
+    from repro_torch.models.transformer import lm_loss
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import tree_leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = make_config()
+    opt = AdamWConfig()
+    t0 = time.perf_counter()
+    params, state, step_fn = build_lm_training(cfg, opt, DEVICE, seed=SEED)
+    torch.cuda.synchronize()
+    leaves = tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    held = torch.cuda.memory_allocated()
+    log(f"  {cfg.name}: {n_params} parameters ({cfg.dtype}) and AdamW "
+        f"state drawn in {time.perf_counter() - t0:.2f} s, "
+        f"{held / 2**30:.2f} GiB on the card; remat {cfg.remat} "
+        f"({cfg.remat_policy}), loss_chunk {cfg.loss_chunk}")
+    want = train_launches(cfg)
+
+    def step(fn, batch, label):
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, metrics = fn(params, state, batch)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = kernels_only(label, want)
+        if not math.isfinite(loss):
+            raise AssertionError(f"{label}: loss {loss} not finite")
+        return loss, dt, torch.cuda.max_memory_allocated(), counts
+
+    peaks = [step(step_fn, lm_batch(cfg, n, TRAIN_SEQ, 0),
+                  f"{cfg.name} sizing step at batch {n}")[2] for n in (1, 2)]
+    torch.cuda.empty_cache()    # the sizing steps' blocks fit no later one
+    slope = max(peaks[1] - peaks[0], 1)
+    cap = torch.cuda.mem_get_info()[1] - TRAIN_MARGIN_GIB * 2**30
+    fits = int((cap - (peaks[0] - slope)) // slope)
+    batch = max(1, min(TRAIN_CELL_BATCH, fits))
+    log(f"  batch: train_4k's {TRAIN_CELL_BATCH} cut to {batch}: sizing "
+        f"steps at 1 and 2 peaked at {peaks[0] / 2**30:.2f} and "
+        f"{peaks[1] / 2**30:.2f} GiB, {slope / 2**30:.2f} GiB a sequence of "
+        f"{TRAIN_SEQ}; the card's {torch.cuda.mem_get_info()[1] / 2**30:.2f}"
+        f" GiB less {TRAIN_MARGIN_GIB} GiB of margin fit {fits} (params "
+        f"{param_bytes / 2**30:.2f} GiB, their bfloat16 gradients as much, "
+        f"AdamW's float32 moments {2 * 4 * n_params / 2**30:.2f} GiB)")
+    if batch != TRAIN_BWD_LLAMA[0]:     # (a) checked K5 at another batch
+        check_bwd_case(f"llama train_4k layer at batch {batch}",
+                       (batch,) + TRAIN_BWD_LLAMA[1:], torch.bfloat16, True,
+                       None, SEED + 50, 1)
+        torch.cuda.empty_cache()
+    losses, times, peak = [], [], 0
+    total = {}      # every kernel's launches over the steps
+    snapshot = None
+    for i in range(TRAIN_STEPS):
+        b = lm_batch(cfg, batch, TRAIN_SEQ, i)
+        if i == TRAIN_STEPS - 1:    # the chunked step's weights, on the host
+            snapshot = [t.to("cpu", copy=True) for t in leaves]
+        loss, dt, p, counts = step(step_fn, b, f"{cfg.name} step {i}")
+        losses.append(loss)
+        times.append(dt)
+        peak = max(peak, p)
+        total = {k: total.get(k, 0) + n for k, n in counts.items()}
+    per_step = sum(times[1:]) / len(times[1:])
+    log(f"  {TRAIN_STEPS} AdamW steps at {batch} x {TRAIN_SEQ}: losses "
+        f"{', '.join(f'{x:.5f}' for x in losses)}; {per_step:.3f} s a step "
+        f"after the first ({', '.join(f'{x:.3f}' for x in times)}), "
+        f"{batch * TRAIN_SEQ / per_step:.0f} tokens/s; peak "
+        f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated); K5 "
+        f"launches a step {want}")
+    profile_train(f"{cfg.name} training step ({batch} x {TRAIN_SEQ})",
+                  lambda: step_fn(params, state, b))
+    for t, s in zip(leaves, snapshot):
+        t.copy_(s)
+    del snapshot
+    chunked = dataclasses.replace(cfg, loss_chunk=TRAIN_LOSS_CHUNK)
+    loss_c, dt_c, peak_c, _ = step(
+        make_train_step(lambda p, x: lm_loss(p, x, chunked), opt,
+                        donate=True), b, f"{cfg.name} chunked step")
+    gap = abs(loss_c - losses[-1]) / abs(losses[-1])
+    log(f"  loss_chunk {TRAIN_LOSS_CHUNK} on step {TRAIN_STEPS - 1}'s weights "
+        f"and batch: loss {loss_c:.6f} vs {losses[-1]:.6f} unchunked "
+        f"(relative gap {gap:.3g}, limit {TRAIN_CHUNK_RTOL}); {dt_c:.3f} s; "
+        f"peak {peak_c / 2**30:.2f} GiB vs {peak / 2**30:.2f}")
+    if gap > TRAIN_CHUNK_RTOL:
+        raise AssertionError(f"{cfg.name}: the chunked loss {loss_c} and the "
+                             f"unchunked {losses[-1]} disagree")
+    del params, state, leaves, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def route_grads(params, cfg, batch, use_kernel, label) -> tuple:
+    """(loss, every leaf's gradient) of ``lm_loss`` on one route, its K5
+    launches checked."""
+    import torch
+    from repro_torch.models.transformer import lm_loss
+    from repro_torch.tree import tree_leaves, tree_unflatten
+    leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+    reset_counts()
+    loss = lm_loss(tree_unflatten(params, leaves), batch, cfg,
+                   use_kernel=use_kernel)
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    kernels_only(label, train_launches(cfg) if use_kernel is None else {})
+    return float(loss.detach()), [g.float() for g in grads]
+
+
+def check_train_routes() -> None:
+    """[23c] the kernel route against the plain route at full width, depth
+    cut to TRAIN_ROUTE_LAYERS, one batch of 1 x TRAIN_SEQ, weights drawn
+    in float32 and rounded to bfloat16 values: the loss and every leaf's
+    gradient.  Float32: within LLAMA_F32_RTOL (relative L2 a leaf).
+    bfloat16: each leaf's relative L2 distance from the float32 plain
+    route's within LLAMA_BF16_RATIO of the plain bfloat16 route's, the
+    loss within TRAIN_BF16_LOSS_RTOL of the plain bfloat16 route's."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.configs.llama3_2_3b import make_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.tree import tree_leaves
+    cfg = dataclasses.replace(make_config(), n_layers=TRAIN_ROUTE_LAYERS)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 41)
+    params = init_params(gen, cfg32, device=DEVICE)
+    for leaf in tree_leaves(params):
+        leaf.copy_(leaf.to(torch.bfloat16))
+    batch = lm_batch(cfg, 1, TRAIN_SEQ, 7)
+    k32 = route_grads(params, cfg32, batch, None, "float32 kernel route")
+    p32 = route_grads(params, cfg32, batch, False, "float32 plain route")
+    loss_gap = abs(k32[0] - p32[0]) / abs(p32[0])
+    leaf_gaps = [rel_l2(g, w) for g, w in zip(k32[1], p32[1])]
+    log(f"  route check, {cfg.name} at full width, {TRAIN_ROUTE_LAYERS} "
+        f"layers, 1 x {TRAIN_SEQ}, float32: loss {k32[0]:.7f} (kernel) vs "
+        f"{p32[0]:.7f} (plain), relative gap {loss_gap:.3g}; the largest "
+        f"leaf gradient's relative L2 gap {max(leaf_gaps):.3g} (limit "
+        f"{LLAMA_F32_RTOL}, {len(leaf_gaps)} leaves)")
+    if loss_gap > LLAMA_F32_RTOL or max(leaf_gaps) > LLAMA_F32_RTOL:
+        raise AssertionError("train routes float32: kernel and plain routes "
+                             "disagree beyond LLAMA_F32_RTOL")
+    del k32
+    p16 = init_params(gen, cfg, device=DEVICE)
+    for dst, src in zip(tree_leaves(p16), tree_leaves(params)):
+        dst.copy_(src)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    k16 = route_grads(p16, cfg, batch, None, "bfloat16 kernel route")
+    q16 = route_grads(p16, cfg, batch, False, "bfloat16 plain route")
+    ratios = []
+    for gk, gp, w in zip(k16[1], q16[1], p32[1]):
+        ratios.append(rel_l2(gk, w) / max(rel_l2(gp, w), 1e-30))
+    loss_gap = abs(k16[0] - q16[0]) / abs(q16[0])
+    worst = max(range(len(ratios)), key=ratios.__getitem__)
+    log(f"  route check, bfloat16: loss {k16[0]:.6f} (kernel) vs "
+        f"{q16[0]:.6f} (plain) vs {p32[0]:.6f} (float32 plain), kernel vs "
+        f"plain relative gap {loss_gap:.3g} (limit {TRAIN_BF16_LOSS_RTOL}); "
+        f"each leaf's gradient distance from the float32 plain route, "
+        f"kernel / plain: largest ratio {ratios[worst]:.3g} (leaf {worst}, "
+        f"limit {LLAMA_BF16_RATIO}), median "
+        f"{sorted(ratios)[len(ratios) // 2]:.3g}")
+    if max(ratios) > LLAMA_BF16_RATIO or loss_gap > TRAIN_BF16_LOSS_RTOL:
+        raise AssertionError("train routes bfloat16: the kernel route beyond "
+                             "the stated limits")
+    del p16, k16, q16, p32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def check_train_example() -> dict:
+    """[23d] ``examples/train_lm_torch.py``'s default run on the card
+    (its own assertion: the loss falls by more than 1.0); then
+    TRAIN_SMOKE_STEPS steps of the llama, gemma3 and granite smoke
+    configs on the card against the CPU's.  Returns the launch counts of
+    the example and of gemma3's smoke steps."""
+    import importlib
+    import importlib.util
+    import torch
+    from repro_torch.models.transformer import init_params, lm_loss
+    from repro_torch.optim import AdamWConfig, init_state
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import tree_map
+    path = Path(__file__).resolve().parent / "examples" / "train_lm_torch.py"
+    spec = importlib.util.spec_from_file_location("train_lm_torch", path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    cfg = example.make_config()
+    reset_counts()
+    t0 = time.perf_counter()
+    losses = example.main(["--device", DEVICE])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    paths = {"train_example": kernels_only(
+        "train_lm_torch example", train_launches(cfg, len(losses)))}
+    log(f"  examples/train_lm_torch.py ({cfg.name}, head dim {cfg.hd}, "
+        f"{str(cfg.dtype)[6:]}): {len(losses)} steps in {seconds:.1f} s, "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; K5 launches "
+        f"{paths['train_example']}")
+    for name in ("llama3_2_3b", "gemma3_27b", "granite_moe_3b_a800m"):
+        mod = importlib.import_module(f"repro_torch.configs.{name}")
+        cfg = mod.make_smoke_config()
+        step = make_train_step(lambda p, b, cfg=cfg: lm_loss(p, b, cfg),
+                               AdamWConfig(), donate=True)
+        params = init_params(torch.Generator().manual_seed(SEED), cfg,
+                             device="cpu")
+        card = tree_map(lambda x: x.to(DEVICE, copy=True), params)
+        states = init_state(params), init_state(card)
+        got, want = [], []
+        reset_counts()
+        for i in range(TRAIN_SMOKE_STEPS):
+            want.append(float(step(params, states[0], lm_batch(
+                cfg, 2, 96, i, "cpu"))[2]["loss"]))
+            got.append(float(step(card, states[1], lm_batch(
+                cfg, 2, 96, i))[2]["loss"]))
+        torch.cuda.synchronize()
+        counts = kernels_only(f"{cfg.name} steps",
+                              train_launches(cfg, TRAIN_SMOKE_STEPS))
+        paths[f"{cfg.name}_train"] = counts
+        gap = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+        log(f"  {cfg.name} ({cfg.n_layers} layers, head dim {cfg.hd}): "
+            f"{TRAIN_SMOKE_STEPS} steps of 2 x 96 on the card, losses "
+            f"{', '.join(f'{x:.6f}' for x in got)}, the CPU's "
+            f"{', '.join(f'{x:.6f}' for x in want)} (largest relative gap "
+            f"{gap:.3g}, limit {TRAIN_SMOKE_RTOL}); K5 launches {counts}")
+        if gap > TRAIN_SMOKE_RTOL:
+            raise AssertionError(f"{cfg.name}: the card's training losses "
+                                 "stray from the CPU's")
+    return paths
+
+
+def phase_train() -> tuple:
+    """[23]: (a), (c), (b), (d), each timed.  Returns the rows of K5 bwd
+    and its window mode, and the training paths' launch counts."""
+    t0 = time.perf_counter()
+    row, window_row = phase_flash_bwd()
+    log(f"  [23a] took {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    check_train_routes()
+    log(f"  [23c] took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    paths = {"llama_train": phase_train_llama()}
+    log(f"  [23b] took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    paths.update(check_train_example())
+    log(f"  [23d] took {time.perf_counter() - t1:.1f} s")
+    log(f"  [23] took {time.perf_counter() - t0:.1f} s")
+    return row, window_row, paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5344,7 +5976,9 @@ def main() -> int:
     from repro_torch.configs.graphsage_reddit import (cfg_for_shape,
                                                       make_config)
     from repro_torch.data import graph_to_batch
-    from repro_torch.kernels.flashattn import FLASHATTN, FLASHATTN_WINDOW
+    from repro_torch.kernels.flashattn import (FLASHATTN, FLASHATTN_BWD,
+                                               FLASHATTN_BWD_WINDOW,
+                                               FLASHATTN_WINDOW)
     from repro_torch.kernels.frontier import (FLAT, NODE_BLOCKED,
                                               NODE_BLOCKED_WIDE, WORDS)
     from repro_torch.kernels.segsum import SEGSUM
@@ -5541,6 +6175,16 @@ def main() -> int:
     paths.update(phase_gemma())
     log(f"  [22] took {time.perf_counter() - t0:.1f} s")
 
+    log(f"[23] LM training: K5's backward at (B, S, H, KV, dh) = "
+        f"{TRAIN_BWD_LLAMA} and {TRAIN_BWD_GEMMA} bfloat16 (window "
+        f"{GEMMA_WINDOW}), {TRAIN_BWD_F32} float32, {TRAIN_BWD_DH16}, "
+        f"{FLASH_RAGGED_SHAPE} at windows {TRAIN_BWD_RAGGED_WINDOWS}; the "
+        f"routes at {TRAIN_ROUTE_LAYERS} layers; llama3.2-3b trained at full "
+        f"width, {TRAIN_STEPS} steps at {TRAIN_SEQ} tokens; the example and "
+        f"three smoke configs; {smi}")
+    bwd_row, bwd_window_row, train_paths = phase_train()
+    paths.update(train_paths)
+
     # each row's launches: the run of the path that row's kernel carries;
     # the node-blocked rows' words pass beside it
     for row, main_path in zip(rows, ("rmat_bidir", "grid", "forward",
@@ -5566,6 +6210,20 @@ def main() -> int:
     window_row["launches_by_path"] = {k: c.get(FLASHATTN_WINDOW, 0)
                                       for k, c in paths.items()}
     rows.append(window_row)
+    # K5's backward: launches of [23b]'s llama steps; its window mode's,
+    # of [23d]'s gemma3 smoke steps
+    source = "src/repro_torch/kernels/flashattn/csrc/flashattn_bwd.cu"
+    kind = ("XLA autodiff of dense_attention / masked_chunk_attention (the "
+            "TPU kernel has no backward)")
+    for row, kernel, main_path in (
+            (bwd_row, FLASHATTN_BWD, "llama_train"),
+            (bwd_window_row, FLASHATTN_BWD_WINDOW, "gemma3-smoke_train")):
+        rows.append({"name": kernel, "route": "cuda", "source": source,
+                     "replaces": "src/repro/models/transformer.py:256",
+                     "replaces_kind": kind,
+                     "launches": paths[main_path][kernel], **row,
+                     "launches_by_path": {k: c.get(kernel, 0)
+                                          for k, c in paths.items()}})
     log(f"[13] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -31,7 +31,8 @@ Guarantees:
   * keep-last-k garbage collection that never deletes a step a restore
     is reading (``keep=0`` keeps everything);
   * restore onto any device: leaves are stored as whole host arrays and
-    come back as tensors on the ``device`` the restorer names;
+    come back as tensors on the ``device`` the restorer names, in the
+    types they were saved with (bfloat16 included, stored as its bits);
   * async save: the copy to host runs on the caller's thread, the CRC,
     ``np.save``, fsync and rename on a background thread.  A publish
     failure is re-raised from the next ``CheckpointManager.wait()`` or
@@ -156,12 +157,28 @@ def _describe(tree) -> str:
     return "*"
 
 
-def _to_host(x) -> np.ndarray:
-    """A copy of the leaf on the host (a later in-place write to the
-    leaf cannot reach the pending publish)."""
+def _to_host(x) -> tuple:
+    """(a copy of the leaf on the host, its dtype's name): a later
+    in-place write to the leaf cannot reach the pending publish.  numpy
+    has no bfloat16: such a leaf is kept as its int16 bits under the
+    name ``bfloat16``."""
     if isinstance(x, torch.Tensor):
-        return x.detach().to("cpu", copy=True).numpy()
-    return np.array(x)
+        x = x.detach().to("cpu", copy=True)
+        if x.dtype == torch.bfloat16:
+            return x.view(torch.int16).numpy(), "bfloat16"
+        x = x.numpy()
+    else:
+        x = np.array(x)
+    return x, str(x.dtype)
+
+
+def _to_tensor(arr: np.ndarray, dtype: str, device) -> torch.Tensor:
+    """A stored leaf back as a tensor on ``device``, a ``bfloat16`` one
+    from its 2-byte bits."""
+    if dtype == "bfloat16":
+        bits = np.ascontiguousarray(arr).view(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
 
 
 def _crc(arr: np.ndarray) -> int:
@@ -203,7 +220,8 @@ def save(root: str, step: int, tree, *, metadata: Optional[dict] = None,
         shutil.rmtree(tmp)
     os.makedirs(tmp)
 
-    host_leaves = [_to_host(x) for x in tree_leaves(tree)]
+    host = [_to_host(x) for x in tree_leaves(tree)]
+    host_leaves, dtypes = [a for a, _ in host], [d for _, d in host]
     treedef = _describe(tree)
 
     def publish():
@@ -216,7 +234,7 @@ def save(root: str, step: int, tree, *, metadata: Optional[dict] = None,
             "step": step,
             "n_leaves": len(host_leaves),
             "treedef": treedef,
-            "dtypes": [str(a.dtype) for a in host_leaves],
+            "dtypes": dtypes,
             "shapes": [list(a.shape) for a in host_leaves],
             "checksums": [_crc(a) for a in host_leaves],
             "metadata": metadata or {},
@@ -409,8 +427,8 @@ def _restore_step(root: str, step: int, tree_like, devices,
             raise CheckpointLayoutError(
                 f"checkpoint {d} leaf {i} has shape {tuple(a.shape)}, "
                 f"restorer expects {want}")
-    placed = [torch.from_numpy(a).to(dev)
-              for a, dev in zip(arrays, devices)]
+    placed = [_to_tensor(a, dt, dev)
+              for a, dt, dev in zip(arrays, manifest["dtypes"], devices)]
     return tree_unflatten(tree_like, placed), step, manifest["metadata"]
 
 
@@ -487,7 +505,8 @@ def restore_arrays(root: str, *, step: Optional[int] = None,
                    expect_schema: Optional[str] = None, telemetry=None):
     """Verified raw restore without a template: (list of host numpy
     arrays, step, metadata), for a caller that is about to change the
-    shapes.  Verification, quarantine, fallback and telemetry as in
+    shapes; a ``bfloat16`` leaf comes back as its int16 bits.
+    Verification, quarantine, fallback and telemetry as in
     :func:`restore`."""
     def load_one(s: int):
         d = os.path.join(root, f"step_{s:08d}")

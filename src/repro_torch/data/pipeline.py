@@ -1,11 +1,12 @@
-"""Data pipeline (``repro.data.pipeline``): the full-batch GraphBatch of
-a graph, the layer-wise neighbour sampler, MIND's session histories
-(``recsys_batch_fn``) and a one-thread prefetcher.
+"""Data pipeline (``repro.data.pipeline``): the LM token stream
+(``lm_batch_fn``), the full-batch GraphBatch of a graph, the layer-wise
+neighbour sampler, MIND's session histories (``recsys_batch_fn``) and a
+one-thread prefetcher.
 
 Batches are host-side numpy, a pure function of (seed, step), so a
 restart from step N reproduces the same sequence; the numpy draws are
 the JAX package's in the same order, so every leaf is bitwise its
-batch's.  The LM stream (``lm_batch_fn``) waits for LM training.
+batch's.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ from ..device import DEFAULT_DEVICE, resolve_device
 from ..models.gnn.message_passing import GraphBatch
 
 __all__ = ["NeighborSampler", "PrefetchIterator", "graph_to_batch",
-           "recsys_batch_fn"]
+           "lm_batch_fn", "recsys_batch_fn"]
 
 
 class PrefetchIterator:
@@ -53,6 +54,18 @@ class PrefetchIterator:
 
     def close(self):
         self._stop.set()
+
+
+def lm_batch_fn(vocab: int, batch: int, seq: int, seed: int = 0):
+    """step -> {"tokens", "targets"}, int32 numpy (batch, seq): a Zipf(1.3)
+    stream mod ``vocab`` from ``default_rng((seed, step))``, the targets
+    the tokens shifted by one (the reference's draws, so its bits)."""
+    def make(step: int) -> dict:
+        rng = np.random.default_rng((seed, step))
+        z = rng.zipf(1.3, size=(batch, seq + 1)).astype(np.int64)
+        tokens = (z % vocab).astype(np.int32)
+        return {"tokens": tokens[:, :-1], "targets": tokens[:, 1:]}
+    return make
 
 
 def graph_to_batch(graph, *, d_feat: int, n_classes: int, seed: int = 0,

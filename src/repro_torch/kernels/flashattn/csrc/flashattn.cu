@@ -140,6 +140,14 @@
 // tiles are masked.  The online softmax is float32, exp2f with log2 e
 // folded into the scale.  Query tiles run longest first, as in bf16.
 //
+// Row logsumexp (training).  Given an `lse` buffer, float32 (B, H, S),
+// each kernel also writes every row's logsumexp of its scaled scores,
+// (m + log2 l) ln 2 from the epilogue's running max m (log2 units) and
+// sum l (floored at 1e-30, as the output's divisor): the residual that
+// the backward kernels (csrc/flashattn_bwd.cu) need.  It is a template
+// flag (kLse) like kWin, so the serving path, which passes no buffer,
+// runs the kernels without it, instruction for instruction.
+//
 // Offsets are 64-bit (B S H dh passes 2^31 at the serving shapes).  The
 // entry point launches on the caller's stream and returns
 // cudaGetLastError() (or the error of raising the shared-memory limit);
@@ -172,6 +180,7 @@ constexpr int kConsumerRegs = 240;
 
 constexpr float kNegBig = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 typedef __nv_bfloat16 bf16;
 
@@ -189,6 +198,7 @@ struct Params {
   int causal;
   float sm_scale;
   int window;                  // sliding window (causal only); 0: none
+  float* lse;                  // (B, H, S) row logsumexp, kLse only
 };
 
 // The window mode is a template flag (kWin) of each kernel, and every
@@ -483,8 +493,8 @@ constexpr int bf16_smem_bytes() {
 }
 
 // kWin: the sliding-window mode (p.window > 0); without it the window
-// is the constant 0
-template <int D, bool kWin>
+// is the constant 0.  kLse: write each row's logsumexp to p.lse
+template <int D, bool kWin, bool kLse>
 __global__ void __launch_bounds__(kBf16Threads, 1)
 flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap tk,
@@ -633,6 +643,12 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq,
       l += __shfl_xor_sync(0xffffffffu, l, 1);
       l += __shfl_xor_sync(0xffffffffu, l, 2);
       inv[r] = 1.0f / fmaxf(l, 1e-30f);
+      if constexpr (kLse) {
+        const int row = r ? row_b : row_a;
+        if (t == 0 && row < p.seq)
+          p.lse[(static_cast<long long>(b) * gridDim.x + h) * p.seq + row] =
+              (m_run[r] + log2f(fmaxf(l, 1e-30f))) * kLn2;
+      }
     }
     bf16* og = static_cast<bf16*>(p.o) + b * p.o_sb + h * p.o_sh;
 #pragma unroll
@@ -743,8 +759,9 @@ __device__ __forceinline__ void load_rows_f32(uint32_t dst, const float* src,
   }
 }
 
-// kWin: the sliding-window mode, as in flash_bf16_kernel
-template <int D, bool kWin>
+// kWin: the sliding-window mode, kLse the logsumexp output, as in
+// flash_bf16_kernel
+template <int D, bool kWin, bool kLse>
 __global__ void __launch_bounds__(kF32Threads, 1)
 flash_f32_kernel(const Params p) {
   constexpr int kLd = f32_ld_qk<D>();                // Q and K rows
@@ -939,6 +956,12 @@ flash_f32_kernel(const Params p) {
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     inv[r] = 1.0f / fmaxf(l, 1e-30f);
+    if constexpr (kLse) {
+      const int row = r ? row_b : row_a;
+      if (t == 0 && row < p.seq)
+        p.lse[(static_cast<long long>(b) * gridDim.x + h) * p.seq + row] =
+            (m_run[r] + log2f(fmaxf(l, 1e-30f))) * kLn2;
+    }
   }
   float* og = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
 #pragma unroll
@@ -955,18 +978,18 @@ flash_f32_kernel(const Params p) {
   }
 }
 
-template <int D, bool kWin>
+template <int D, bool kWin, bool kLse>
 int launch_f32(const Params& p, int batch, int n_heads, cudaStream_t stream) {
   const int smem = f32_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_f32_kernel<D, kWin>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_f32_kernel<D, kWin, kLse>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_qt = (p.seq + kF32Rows - 1) / kF32Rows;
   if (n_qt > 65535 || batch > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(n_heads, batch, n_qt);
-  flash_f32_kernel<D, kWin><<<grid, kF32Threads, smem, stream>>>(p);
+  flash_f32_kernel<D, kWin, kLse><<<grid, kF32Threads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -988,7 +1011,7 @@ CUresult encode_map(CUtensorMap* map, const void* ptr, int head_dim, int seq,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int D, bool kWin>
+template <int D, bool kWin, bool kLse>
 int launch_bf16(const Params& p, int batch, int n_heads, int n_kv_heads,
                 cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
@@ -1003,24 +1026,42 @@ int launch_bf16(const Params& p, int batch, int n_heads, int n_kv_heads,
   if (res != CUDA_SUCCESS) return -static_cast<int>(res);
   const int smem = bf16_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bf16_kernel<D, kWin>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_bf16_kernel<D, kWin, kLse>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_qt = (p.seq + kTile - 1) / kTile;
   if (n_qt > 65535 || batch > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(n_heads, batch, n_qt);
-  flash_bf16_kernel<D, kWin><<<grid, kBf16Threads, smem, stream>>>(tq, tk, tv,
-                                                                  p);
+  flash_bf16_kernel<D, kWin, kLse><<<grid, kBf16Threads, smem, stream>>>(
+      tq, tk, tv, p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the kernel of (dtype, head_dim) in the mode (kWin, kLse)
+template <bool kWin, bool kLse>
+int launch_mode(const Params& p, int batch, int n_heads, int n_kv_heads,
+                int head_dim, int dtype, cudaStream_t s) {
+  if (dtype == 1 && head_dim == 128)
+    return launch_bf16<128, kWin, kLse>(p, batch, n_heads, n_kv_heads, s);
+  if (dtype == 1 && head_dim == 64)
+    return launch_bf16<64, kWin, kLse>(p, batch, n_heads, n_kv_heads, s);
+  if (dtype == 0 && head_dim == 128)
+    return launch_f32<128, kWin, kLse>(p, batch, n_heads, s);
+  if (dtype == 0 && head_dim == 64)
+    return launch_f32<64, kWin, kLse>(p, batch, n_heads, s);
+  if (dtype == 0 && head_dim == 16)
+    return launch_f32<16, kWin, kLse>(p, batch, n_heads, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16.  window: 0 none, else (causal only) the
-// sliding window.  Strides in elements; the last axis of every tensor is
-// contiguous.  Returns a CUDA error code (0 = launched), or minus the
-// CUresult of a tensor map that cuTensorMapEncodeTiled refused.
+// sliding window.  lse: null (serving), or a float32 (B, H, S) buffer
+// for each row's logsumexp.  Strides in elements; the last axis of every
+// tensor is contiguous.  Returns a CUDA error code (0 = launched), or
+// minus the CUresult of a tensor map that cuTensorMapEncodeTiled refused.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o,
     long long q_sb, long long q_ss, long long q_sh,
@@ -1028,29 +1069,22 @@ extern "C" int flash_attention_launch(
     long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh,
     int batch, int seq, int n_heads, int n_kv_heads, int head_dim,
-    int dtype, int causal, int window, float sm_scale, void* stream) {
+    int dtype, int causal, int window, float sm_scale, void* stream,
+    float* lse) {
   if (seq < 1 || batch < 1 || n_heads < 1 || n_kv_heads < 1
       || n_heads % n_kv_heads != 0 || window < 0 || (window > 0 && !causal))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{q, k, v, o, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
            o_sb, o_ss, o_sh, seq, n_heads / n_kv_heads, causal, sm_scale,
-           window};
+           window, lse};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool w = window > 0;
-  if (dtype == 1 && head_dim == 128)
-    return w ? launch_bf16<128, true>(p, batch, n_heads, n_kv_heads, s)
-             : launch_bf16<128, false>(p, batch, n_heads, n_kv_heads, s);
-  if (dtype == 1 && head_dim == 64)
-    return w ? launch_bf16<64, true>(p, batch, n_heads, n_kv_heads, s)
-             : launch_bf16<64, false>(p, batch, n_heads, n_kv_heads, s);
-  if (dtype == 0 && head_dim == 128)
-    return w ? launch_f32<128, true>(p, batch, n_heads, s)
-             : launch_f32<128, false>(p, batch, n_heads, s);
-  if (dtype == 0 && head_dim == 64)
-    return w ? launch_f32<64, true>(p, batch, n_heads, s)
-             : launch_f32<64, false>(p, batch, n_heads, s);
-  if (dtype == 0 && head_dim == 16)
-    return w ? launch_f32<16, true>(p, batch, n_heads, s)
-             : launch_f32<16, false>(p, batch, n_heads, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (window > 0)
+    return lse ? launch_mode<true, true>(p, batch, n_heads, n_kv_heads,
+                                         head_dim, dtype, s)
+               : launch_mode<true, false>(p, batch, n_heads, n_kv_heads,
+                                          head_dim, dtype, s);
+  return lse ? launch_mode<false, true>(p, batch, n_heads, n_kv_heads,
+                                        head_dim, dtype, s)
+             : launch_mode<false, false>(p, batch, n_heads, n_kv_heads,
+                                         head_dim, dtype, s);
 }

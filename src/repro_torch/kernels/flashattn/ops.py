@@ -12,23 +12,57 @@ device (the card's reference route).  Nothing falls back quietly.  ``window``
 package's sliding-window mask: the kernel's window mode, or the plain
 version's.
 
-There is no backward: the TPU kernel has none either.  A call on a
-tensor that requires a gradient, in grad mode, raises.
+In grad mode, on a tensor that requires a gradient, the call goes
+through :class:`FlashAttention`, an autograd function: its forward runs
+K5 with its row-logsumexp output (or the plain forward with its
+logsumexp), saves q, k, v, the output and the logsumexp, and its
+backward runs the backward kernel (``flash_attention_bwd_cuda``) or the
+plain backward on the same route.  Under ``torch.no_grad()``, or on
+tensors without gradients, the call is the serving path: one forward
+launch, no logsumexp.
 """
 from __future__ import annotations
 
 import torch
 
-from .kernel import flash_attention_cuda
-from .ref import check_window, flash_attention_gqa_ref
+from .kernel import flash_attention_bwd_cuda, flash_attention_cuda
+from .ref import check_window, flash_attention_gqa_bwd_ref, \
+    flash_attention_gqa_ref
 
-__all__ = ["flash_attention"]
+__all__ = ["FlashAttention", "flash_attention"]
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with a gradient: K5 and its backward kernel when
+    ``use_kernel``, else the plain forward and backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, use_kernel):
+        if use_kernel:
+            out, lse = flash_attention_cuda(q, k, v, causal=causal,
+                                            window=window, return_lse=True)
+        else:
+            out, lse = flash_attention_gqa_ref(q, k, v, causal=causal,
+                                               window=window, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.route = causal, window, use_kernel
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, use_kernel = ctx.route
+        bwd = flash_attention_bwd_cuda if use_kernel \
+            else flash_attention_gqa_bwd_ref
+        dq, dk, dv = bwd(q, k, v, out, lse, dout, causal=causal,
+                         window=window)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None,
                     use_kernel=None):
     """q (B, S, H, dh), k, v (B, S, KV, dh) -> (B, S, H, dh) in
-    ``q.dtype``, float32 softmax."""
+    ``q.dtype``, float32 softmax; differentiable in q, k and v."""
     check_window(causal, window)
     if use_kernel is None:
         use_kernel = q.is_cuda
@@ -36,8 +70,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
         raise ValueError("the flash-attention kernel is a CUDA kernel but q "
                          "lies on the CPU; use use_kernel=None or False")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise ValueError("flash_attention has no backward; call it under "
-                         "torch.no_grad() or on tensors without gradients")
+        return FlashAttention.apply(q, k, v, causal, window, use_kernel)
     if use_kernel:
         return flash_attention_cuda(q, k, v, causal=causal, window=window)
     return flash_attention_gqa_ref(q, k, v, causal=causal, window=window)

@@ -1,5 +1,6 @@
-"""Decoder-only LM (``repro.models.transformer``), its serving path:
-prefill and KV-cache decode.
+"""Decoder-only LM (``repro.models.transformer``): training (``lm_loss``,
+its sequence-chunked form, remat) and serving (prefill and KV-cache
+decode).
 
 One config describes the family; the port serves the dense models
 (llama3.2-3b, qwen2-7b with its QKV bias, gemma3-27b with its 5 local :
@@ -26,6 +27,27 @@ is ``"dense"`` or the prompt fits one ``attn_chunk``, else
 ``trapezoid_attention`` when ``attn_trapezoid``, else
 ``masked_chunk_attention``.
 
+Training: ``lm_loss`` is the reference's causal LM loss (float32
+logsumexp minus the gold logit, the padded vocab columns at -1e30, the
+mean, plus the MoE aux loss), ``cfg.loss_chunk`` its sequence-chunked
+form, whose (B, S, V) float32 logits never exist: each chunk's body runs
+under ``torch.utils.checkpoint`` (non-reentrant), so its logits are
+recomputed in the backward, as the reference's ``jax.checkpoint`` does.
+On the card the gradient of every layer's attention is K5's backward
+kernel (the dispatcher's autograd function).  With ``cfg.remat`` each
+group's layers run under ``torch.utils.checkpoint`` and the remainder
+layers outside it, as the reference's ``jax.checkpoint`` on its group
+body: ``remat_policy="full"`` saves only the group's input;
+``"save_qkv"`` and ``"save_proj"`` split each layer at the tensors the
+reference names (``q``, ``k``, ``v``; and ``attn_out``, ``ffn_hidden``),
+which are kept while the pieces between them are recomputed.  A split
+layer also keeps its input and its residual after attention, which the
+reference recomputes from the group's input.  Under "full" and
+"save_qkv" the attention's forward, K5 on the card, runs again in the
+backward (a llama step: 56 K5 launches and 28 of its backward); under
+"save_proj" its output is kept and it runs once.  Remat changes memory,
+never values: on the CPU every policy gives bitwise the same gradients.
+
 Decode keeps a dense cache {"k", "v"} of (n_layers, B, S_max, KV, hd)
 and "len", a Python int, so a step never syncs on it.  ``decode_step``
 writes the new token's K and V into the cache in place: the JAX package
@@ -40,6 +62,7 @@ from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..kernels.flashattn import flash_attention
@@ -49,18 +72,26 @@ from .common import (DEFAULT_DTYPE, apply_rope, dense_init, embed_init,
                      ones_init, rms_norm, silu_f32, zeros_init)
 from .moe import MoEConfig, init_moe_params, moe_ffn
 
-__all__ = ["TransformerConfig", "decode_step", "forward", "grow_cache",
-           "init_cache", "init_params", "prefill_step"]
+__all__ = ["REMAT_SAVED", "TransformerConfig", "decode_step", "forward",
+           "grow_cache", "init_cache", "init_params", "lm_loss",
+           "prefill_step"]
+
+# the tensors each remat policy keeps, by the reference's names
+REMAT_SAVED = {"full": (), "save_qkv": ("q", "k", "v"),
+               "save_proj": ("q", "k", "v", "attn_out", "ffn_hidden")}
 
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
-    """The JAX package's config, field for field.  ``remat``,
-    ``remat_policy``, ``train_microbatch`` and ``batch_axes`` steer
-    training and the TPU mesh and have no effect on the serving path;
-    ``attn_impl``, ``attn_chunk`` and ``attn_trapezoid`` pick the plain
-    route's schedule for a local layer (the card's kernel route ignores
-    them); FSDP and the chunked loss raise until their slices land."""
+    """The JAX package's config, field for field.  ``remat`` and
+    ``remat_policy`` (one of ``REMAT_SAVED``) steer the backward's memory
+    and ``loss_chunk`` (0: off; else a divisor of the sequence, or at
+    least its length) the loss's; none of them moves a value, and none
+    touches the serving path.  ``train_microbatch`` and ``batch_axes``
+    steer the TPU mesh and have no effect here; ``attn_impl``,
+    ``attn_chunk`` and ``attn_trapezoid`` pick the plain route's schedule
+    for a local layer (the card's kernel route ignores them); FSDP raises
+    until its slice lands."""
 
     name: str
     n_layers: int
@@ -92,9 +123,10 @@ class TransformerConfig:
             raise NotImplementedError(
                 "param_sharding='fsdp' (FSDP and TP sharding on several "
                 "GPUs): ROADMAP §1 item 16")
-        if self.loss_chunk:
-            raise NotImplementedError(
-                "loss_chunk (lm_loss and LM training): ROADMAP §1 item 16")
+        if self.remat_policy not in REMAT_SAVED:
+            raise ValueError(f"remat_policy must be one of "
+                             f"{sorted(REMAT_SAVED)}, got "
+                             f"{self.remat_policy!r}")
 
     @property
     def hd(self) -> int:
@@ -197,20 +229,32 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig, *,
     return params
 
 
-def _view(tree: dict, g: int) -> dict:
-    """Group ``g``'s slice of a dict of stacked leaves (nested dicts, such
-    as an MoE layer's ``moe``, included): views, no copies."""
-    return {k: _view(v, g) if isinstance(v, dict) else v[g]
-            for k, v in tree.items()}
+def _unbind(tree: dict) -> list:
+    """The per-group dicts of a dict of stacked leaves (nested dicts, such
+    as an MoE layer's ``moe``, included), as ``torch.unbind`` views: in a
+    backward each leaf's gradient is the groups' gradients stacked once,
+    where a view per group by indexing adds a zero-filled gradient of the
+    whole leaf a group (18.7 GB of writes a llama step)."""
+    leaves = {k: _unbind(v) if isinstance(v, dict) else v.unbind(0)
+              for k, v in tree.items()}
+    n = len(next(iter(leaves.values())))
+    return [{k: v[g] for k, v in leaves.items()} for g in range(n)]
+
+
+def _groups(params, cfg: TransformerConfig) -> list:
+    """Each group's layer params in pattern order, views of the stacked
+    leaves (``_unbind``)."""
+    stacks = [_unbind(params["groups"][i])
+              for i in range(len(cfg.layer_pattern))]
+    return [[stack[g] for stack in stacks] for g in range(cfg.n_groups)]
 
 
 def _layers(params, cfg: TransformerConfig):
-    """(layer params, kind) in depth order: the groups' views, then the
+    """(layer params, kind) in depth order: the groups' layers, then the
     remainder layers."""
+    for gp in _groups(params, cfg):
+        yield from zip(gp, cfg.layer_pattern)
     period = len(cfg.layer_pattern)
-    for g in range(cfg.n_groups):
-        for i, kind in enumerate(cfg.layer_pattern):
-            yield _view(params["groups"][i], g), kind
     for i, p in enumerate(params["remainder"]):
         yield p, cfg.layer_pattern[i % period]
 
@@ -233,40 +277,56 @@ def _qkv(p, x, cfg: TransformerConfig, positions):
     return q, k, v.reshape(b, s, cfg.n_kv_heads, cfg.hd)
 
 
-def _attention_block(p, x, kind: str, cfg: TransformerConfig, positions, *,
-                     use_kernel=None):
-    """x + attention(x) @ wo, with the layer's k and v for the cache."""
-    b, s, _ = x.shape
-    q, k, v = _qkv(p, x, cfg, positions)
+def _attend(q, k, v, kind: str, cfg: TransformerConfig, use_kernel):
+    """The layer's attention of q over k, v (module docstring's route)."""
+    s = q.shape[1]
     window = cfg.window if kind == "local" else None
     kernel = q.is_cuda if use_kernel is None else use_kernel
     if kernel or window is None:
-        o = flash_attention(q, k, v, causal=True, window=window,
-                            use_kernel=use_kernel)
-    elif cfg.attn_impl == "dense" or s <= cfg.attn_chunk:
-        o = dense_attention(q, k, v, causal=True, window=window)
-    elif cfg.attn_trapezoid:
-        o = trapezoid_attention(q, k, v, window=window, chunk=cfg.attn_chunk)
-    else:
-        o = masked_chunk_attention(q, k, v, causal=True, window=window,
+        return flash_attention(q, k, v, causal=True, window=window,
+                               use_kernel=use_kernel)
+    if cfg.attn_impl == "dense" or s <= cfg.attn_chunk:
+        return dense_attention(q, k, v, causal=True, window=window)
+    if cfg.attn_trapezoid:
+        return trapezoid_attention(q, k, v, window=window,
                                    chunk=cfg.attn_chunk)
-    return x + o.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"], k, v
+    return masked_chunk_attention(q, k, v, causal=True, window=window,
+                                  chunk=cfg.attn_chunk)
+
+
+def _attn_out(p, x, o, cfg: TransformerConfig):
+    b, s, _ = x.shape
+    return x + o.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"]
+
+
+def _attention_block(p, x, kind: str, cfg: TransformerConfig, positions, *,
+                     use_kernel=None):
+    """x + attention(x) @ wo, with the layer's k and v for the cache."""
+    q, k, v = _qkv(p, x, cfg, positions)
+    o = _attend(q, k, v, kind, cfg, use_kernel)
+    return _attn_out(p, x, o, cfg), k, v
+
+
+def _ffn_hidden(p, x, cfg: TransformerConfig):
+    """swiglu(h @ w_gate, h @ w_up) of the normed x, with the activation
+    taken before the up projection exists: the same values, and a 32k
+    prefill's FFN holds one (S, d_ff) float32 temporary fewer at its
+    peak."""
+    h = rms_norm(x, p["ln_ffn"])
+    return silu_f32(h @ p["w_gate"]) * (h @ p["w_up"])
 
 
 def _ffn_block(p, x, cfg: TransformerConfig):
     """x + FFN(x) and the MoE aux loss (a float32 0 for a dense FFN).  An
     MoE layer routes the B * S tokens of the call: a prefill's in groups
     of ``group_size``, a decode step's B as one group."""
-    h = rms_norm(x, p["ln_ffn"])
     if cfg.moe is not None:
         b, s, d = x.shape
+        h = rms_norm(x, p["ln_ffn"])
         out, aux = moe_ffn(p["moe"], h.reshape(b * s, d), cfg.moe)
         return x + out.reshape(b, s, d), aux
-    # swiglu(h @ w_gate, h @ w_up) with the activation taken before the
-    # up projection exists: the same values, and a 32k prefill's FFN
-    # holds one (S, d_ff) float32 temporary fewer at its peak
-    out = (silu_f32(h @ p["w_gate"]) * (h @ p["w_up"])) @ p["w_down"]
-    return x + out, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + _ffn_hidden(p, x, cfg) @ p["w_down"], \
+        torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def _head(x, params):
@@ -274,23 +334,134 @@ def _head(x, params):
     return x @ (params["embed"].T if head is None else head)
 
 
-def forward(params, tokens, cfg: TransformerConfig):
+def forward(params, tokens, cfg: TransformerConfig, *, use_kernel=None):
     """tokens (B, S) -> (logits (B, S, vocab_pad), aux loss () float32,
-    the layers' MoE aux losses summed: 0 for a dense FFN)."""
-    x, aux = _backbone(params, tokens, cfg)
+    the layers' MoE aux losses summed: 0 for a dense FFN).
+    ``use_kernel`` goes to the flash-attention dispatcher."""
+    x, aux = _backbone(params, tokens, cfg, use_kernel=use_kernel)
     return _head(x, params), aux
 
 
-def _backbone(params, tokens, cfg: TransformerConfig):
-    """tokens (B, S) -> (final normed hidden states (B, S, d), aux)."""
+def _ckpt(fn, *args):
+    """``fn(*args)`` under non-reentrant activation checkpointing (the
+    model draws no random numbers, so no RNG state is kept)."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _layer(p, x, kind: str, cfg: TransformerConfig, positions, use_kernel):
+    x, _, _ = _attention_block(p, x, kind, cfg, positions,
+                               use_kernel=use_kernel)
+    return _ffn_block(p, x, cfg)
+
+
+def _split_layer(p, x, kind: str, cfg: TransformerConfig, positions,
+                 use_kernel, saved):
+    """One layer cut at the tensors ``saved`` names, each piece between
+    them under ``_ckpt``: the same operations as ``_layer``."""
+    q, k, v = _ckpt(lambda x: _qkv(p, x, cfg, positions), x)
+    if "attn_out" in saved:
+        o = _attend(q, k, v, kind, cfg, use_kernel)
+        x = _ckpt(lambda x, o: _attn_out(p, x, o, cfg), x, o)
+    else:
+        x = _ckpt(lambda x, q, k, v: _attn_out(
+            p, x, _attend(q, k, v, kind, cfg, use_kernel), cfg), x, q, k, v)
+    if "ffn_hidden" in saved and cfg.moe is None:
+        hidden = _ckpt(lambda x: _ffn_hidden(p, x, cfg), x)
+        x = _ckpt(lambda x, hidden: x + hidden @ p["w_down"], x, hidden)
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return _ckpt(lambda x: _ffn_block(p, x, cfg), x)
+
+
+def _group(gparams, x, cfg: TransformerConfig, positions, use_kernel):
+    """One period of the pattern: (x, the group's aux summed)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    saved = REMAT_SAVED[cfg.remat_policy] if cfg.remat else ()
+    for p, kind in zip(gparams, cfg.layer_pattern):
+        if saved:
+            x, a = _split_layer(p, x, kind, cfg, positions, use_kernel, saved)
+        else:
+            x, a = _layer(p, x, kind, cfg, positions, use_kernel)
+        aux = aux + a
+    return x, aux
+
+
+def _backbone(params, tokens, cfg: TransformerConfig, *, use_kernel=None):
+    """tokens (B, S) -> (final normed hidden states (B, S, d), aux).  The
+    groups in order (under remat, each through ``_ckpt`` or split at its
+    policy's tensors), then the remainder layers without remat, as in the
+    reference; aux summed a group, then over the groups and the
+    remainder."""
     x = F.embedding(tokens, params["embed"])
     positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p, kind in _layers(params, cfg):
-        x, _, _ = _attention_block(p, x, kind, cfg, positions)
-        x, a = _ffn_block(p, x, cfg)
+    for gp in _groups(params, cfg):
+        if cfg.remat and not REMAT_SAVED[cfg.remat_policy]:
+            # gp bound now: the backward recomputes after the loop ends
+            x, a = _ckpt(lambda x, gp=gp: _group(gp, x, cfg, positions,
+                                                 use_kernel), x)
+        else:
+            x, a = _group(gp, x, cfg, positions, use_kernel)
+        aux = aux + a
+    period = len(cfg.layer_pattern)
+    for i, p in enumerate(params["remainder"]):
+        x, a = _layer(p, x, cfg.layer_pattern[i % period], cfg, positions,
+                      use_kernel)
         aux = aux + a
     return rms_norm(x, params["ln_f"]), aux
+
+
+# ---------------------------------------------------------------------------
+# Training: the causal LM loss
+# ---------------------------------------------------------------------------
+
+def _token_nll(logits, targets, cfg: TransformerConfig):
+    """Per-token -log p(target): float32 logits, the padded vocab columns
+    at -1e30, logsumexp minus the gold logit."""
+    logits = logits.float()
+    if cfg.vocab_pad != cfg.vocab:
+        pad = torch.arange(cfg.vocab_pad, device=logits.device) >= cfg.vocab
+        logits = logits.masked_fill(pad, -1e30)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, targets.long()[..., None])[..., 0]
+    return logz - gold
+
+
+def lm_loss(params, batch, cfg: TransformerConfig, *, use_kernel=None):
+    """Causal LM loss, a float32 scalar; ``batch`` = {"tokens", "targets"},
+    each (B, S).  The mean token NLL plus the MoE aux loss; with
+    ``cfg.loss_chunk``, :func:`_lm_loss_chunked` (the same value)."""
+    if cfg.loss_chunk:
+        return _lm_loss_chunked(params, batch, cfg, use_kernel=use_kernel)
+    logits, aux = forward(params, batch["tokens"], cfg, use_kernel=use_kernel)
+    return _token_nll(logits, batch["targets"], cfg).mean() + aux
+
+
+def _lm_loss_chunked(params, batch, cfg: TransformerConfig, *,
+                     use_kernel=None):
+    """The loss with a sequence-chunked head: each chunk of ``loss_chunk``
+    positions computes its logits and NLL sum under ``_ckpt``, so the
+    (B, S, V) float32 logits never exist and each chunk's are recomputed
+    in the backward; the chunks' sums are added in order, then divided
+    by B S."""
+    x, aux = _backbone(params, batch["tokens"], cfg, use_kernel=use_kernel)
+    head = params.get("lm_head")
+    w = params["embed"].T if head is None else head          # (d, Vp)
+    b, s, _ = x.shape
+    cs = min(cfg.loss_chunk, s)
+    if s % cs:
+        raise ValueError(f"loss_chunk {cfg.loss_chunk} does not divide the "
+                         f"sequence length {s}")
+    targets = batch["targets"]
+
+    def chunk_nll(xc, tc):
+        return _token_nll(xc @ w, tc, cfg).sum()
+
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lo in range(0, s, cs):
+        total = total + _ckpt(chunk_nll, x[:, lo:lo + cs],
+                              targets[:, lo:lo + cs])
+    return total / (b * s) + aux
 
 
 # ---------------------------------------------------------------------------

@@ -6,6 +6,12 @@ for any ``loss_fn(params, batch) -> scalar``; gradients come from
 ``torch.autograd.grad`` over the parameter leaves.  Microbatching
 (gradient accumulation) runs the same loss over slices of the batch with
 gradients summed in float32, as the JAX package's ``lax.scan`` does.
+With ``donate=True`` the step takes the caller's params and state as
+the JAX launcher's ``jit(..., donate_argnums=(0, 1))`` does: it updates
+them in place (``optim.adamw.apply_updates_``, the same bits) and
+returns the same objects, so a model whose old and new AdamW state
+would not fit the card together trains there.  The caller must not use
+the old values afterwards.
 """
 from __future__ import annotations
 
@@ -14,7 +20,7 @@ from typing import Callable, Optional
 
 import torch
 
-from ..optim.adamw import AdamWConfig, apply_updates
+from ..optim.adamw import AdamWConfig, apply_updates, apply_updates_
 from ..tree import tree_leaves, tree_map, tree_unflatten
 
 __all__ = ["make_eval_step", "make_train_step"]
@@ -46,9 +52,11 @@ def _value_and_grad(loss_fn, params, batch):
 
 
 def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig,
-                    microbatch: Optional[int] = None):
+                    microbatch: Optional[int] = None, donate: bool = False):
     """``loss_fn(params, batch) -> scalar``.  ``microbatch``: number of
-    accumulation slices (must divide the batch's leading dim)."""
+    accumulation slices (must divide the batch's leading dim).
+    ``donate``: update params and state in place (module docstring)."""
+    update = apply_updates_ if donate else apply_updates
 
     def step(params, opt_state, batch):
         if microbatch is None or microbatch == 1:
@@ -65,8 +73,7 @@ def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig,
                 grads = tree_map(lambda a, x: a + x.float(), grads, g)
             loss = loss / microbatch
             grads = tree_map(lambda g: g / microbatch, grads)
-        params, opt_state, om = apply_updates(params, grads, opt_state,
-                                              opt_cfg)
+        params, opt_state, om = update(params, grads, opt_state, opt_cfg)
         return params, opt_state, {"loss": loss, **om}
 
     return step

@@ -137,7 +137,9 @@ def test_windowed_flash_plain_route_matches_jax_dense(s, window, dtype):
                                  use_kernel=use_kernel)
         assert got.shape == (2, s, H, DH) and got.dtype == q.dtype
         _close(got, want, dtype)
-    assert tf.launch_counts == {tf.FLASHATTN: 0, tf.FLASHATTN_WINDOW: 0}
+    assert tf.launch_counts == {tf.FLASHATTN: 0, tf.FLASHATTN_WINDOW: 0,
+                                tf.FLASHATTN_BWD: 0,
+                                tf.FLASHATTN_BWD_WINDOW: 0}
 
 
 @pytest.mark.parametrize("window", [1, 7, 30])

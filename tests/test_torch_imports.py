@@ -362,3 +362,30 @@ def test_guard_walks_the_gemma3_slice():
                  lambda: lm.init_cache(cfg, 1, 8)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+
+
+def test_guard_walks_the_lm_training_slice():
+    """The import guard reaches the training slice's modules (the
+    launcher, the backward's wrapper); the training example names no
+    JAX; without a card the launcher and the example raise unless the
+    CPU is asked for."""
+    assert {"repro_torch.launch.train", "repro_torch.kernels.flashattn.ops",
+            "repro_torch.optim.adamw", "repro_torch.train.step",
+            "repro_torch.data.pipeline"} <= set(_submodules())
+    example = EXAMPLES / "train_lm_torch.py"
+    for node in ast.walk(ast.parse(example.read_text())):
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else [node.module or ""])
+            assert not any(n.split(".")[0] in ("jax", "jaxlib", "repro")
+                           for n in names), (example.name, node.lineno)
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from repro_torch.launch import train
+    spec = importlib.util.spec_from_file_location("train_lm_torch", example)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    for call in (lambda: train.main(["--smoke", "--steps", "1"]),
+                 lambda: mod.main(["--steps", "1"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()

@@ -1176,7 +1176,9 @@ def test_gemma3_smoke_prefill_runs_the_kernel_once_a_layer(cuda):
     torch.cuda.synchronize()
     kinds = [kind for _, kind in lm._layers(params, cfg)]
     assert fa.launch_counts == {fa.FLASHATTN: kinds.count("global"),
-                                fa.FLASHATTN_WINDOW: kinds.count("local")}
+                                fa.FLASHATTN_WINDOW: kinds.count("local"),
+                                fa.FLASHATTN_BWD: 0,
+                                fa.FLASHATTN_BWD_WINDOW: 0}
     assert (kinds.count("global"), kinds.count("local")) == (2, 5)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(cache["v"].cpu(), want_cache["v"], rtol=1e-4,
@@ -1185,7 +1187,194 @@ def test_gemma3_smoke_prefill_runs_the_kernel_once_a_layer(cuda):
     fa.reset_launch_counts()
     lm.decode_step(gpu_params, cache, got.argmax(-1)[:, None], cfg)
     torch.cuda.synchronize()
-    assert fa.launch_counts == {fa.FLASHATTN: 0, fa.FLASHATTN_WINDOW: 0}
+    assert fa.launch_counts == {fa.FLASHATTN: 0, fa.FLASHATTN_WINDOW: 0,
+                                fa.FLASHATTN_BWD: 0,
+                                fa.FLASHATTN_BWD_WINDOW: 0}
+
+
+# ---------------------------------------------------------------------------
+# K5's backward (csrc/flashattn_bwd.cu) and the forward's logsumexp
+# ---------------------------------------------------------------------------
+
+# relative L2 distance of each of dq, dk, dv from the plain backward in
+# float32 on the same inputs (the kernel's q, k, v, its output and
+# logsumexp, dO): float32 sums in another order (~1e-7), bfloat16 the
+# gradients' one rounding (2^-9 relative) on top; a gradient that is 0
+# by construction is held by its largest entry to the same number
+FLASH_BWD_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# the forward's logsumexp against the plain one's: float32 (split TF32
+# products, 3e-5 on the output) and bfloat16 (exact float32 scores of
+# bfloat16 inputs, ex2.approx)
+FLASH_LSE_ATOL = {torch.float32: 3e-5, torch.bfloat16: 1e-4}
+
+
+def _rel_l2(got, want):
+    g, w = got.double(), want.double()
+    return float((g - w).norm() / w.norm().clamp_min(1e-30))
+
+
+def _bwd_case(cuda, dtype, dh, causal, window, s, h=6, n_kv=2, seed=0):
+    """The kernel's forward (with logsumexp) and backward on N(0, 1)
+    inputs, and the plain backward in float32 on the same inputs."""
+    q, k, v = _qkv(2, s, h, n_kv, dh, dtype, cuda, seed=seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    do = torch.randn(2, s, h, dh, generator=gen).to(device=cuda, dtype=dtype)
+    out, lse = fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                       return_lse=True)
+    got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do, causal=causal,
+                                      window=window)
+    want = fa.flash_attention_gqa_bwd_ref(
+        q.float(), k.float(), v.float(), out.float(), lse, do.float(),
+        causal=causal, window=window)
+    torch.cuda.synchronize()
+    return (q, k, v, out, lse, do), got, want
+
+
+@pytest.mark.parametrize("dtype,dh", [(torch.bfloat16, 64),
+                                      (torch.bfloat16, 128),
+                                      (torch.float32, 16),
+                                      (torch.float32, 64),
+                                      (torch.float32, 128)])
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 1), (True, 100)])
+@pytest.mark.parametrize("s", [1, 100, 257])
+def test_flash_bwd_kernel_matches_plain(cuda, dtype, dh, causal, window, s):
+    """K5 bwd against the plain backward (float32) on the kernel's own
+    output and logsumexp: each gradient within FLASH_BWD_REL in relative
+    L2, in the inputs' type and shape; one backward launch counted; the
+    forward's logsumexp within FLASH_LSE_ATOL of the plain one, and its
+    output bitwise the serving launch's (no logsumexp)."""
+    before = dict(fa.launch_counts)
+    (q, k, v, out, lse, do), got, want = _bwd_case(
+        cuda, dtype, dh, causal, window, s, seed=s + dh)
+    name = fa.FLASHATTN_BWD if window is None else fa.FLASHATTN_BWD_WINDOW
+    assert fa.launch_counts[name] == before[name] + 1
+    # one key a row (S = 1, or a window of 1) takes all the weight: dq
+    # and dk are 0 by construction, held by their largest entry
+    lone = s == 1 or window == 1
+    for i, (g, w, x) in enumerate(zip(got, want, (q, k, v))):
+        assert g.dtype == dtype and g.shape == x.shape
+        assert bool(torch.isfinite(g).all())
+        gap = float((g.float() - w).abs().max()) if lone and i < 2 \
+            else _rel_l2(g.float(), w)
+        assert gap <= FLASH_BWD_REL[dtype]
+    _, plain_lse = fa.flash_attention_gqa_ref(q, k, v, causal=causal,
+                                              window=window, return_lse=True)
+    torch.testing.assert_close(lse, plain_lse, rtol=0,
+                               atol=FLASH_LSE_ATOL[dtype])
+    serving = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(serving, out)
+
+
+@pytest.mark.parametrize("dtype,dh", [(torch.bfloat16, 128),
+                                      (torch.float32, 64)])
+def test_flash_bwd_kernel_is_deterministic_and_reads_views(cuda, dtype, dh):
+    """Two backward calls give the same bits (no atomics), and q, k, v as
+    views into wider tensors give the same gradients as contiguous
+    copies."""
+    s, h, n_kv = 300, 6, 2
+    wide = torch.randn(2, s, h, 2 * dh, device=cuda).to(dtype)
+    kv = torch.randn(2, s, n_kv, 3 * dh, device=cuda).to(dtype)
+    q, k, v = wide[..., dh // 2:dh // 2 + dh], kv[..., :dh], kv[..., 2 * dh:]
+    do = torch.randn(2, s, h, dh, device=cuda).to(dtype)
+    out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True)
+    a = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    b = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    c = fa.flash_attention_bwd_cuda(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), out, lse, do)
+    torch.cuda.synchronize()
+    for x, y, z in zip(a, b, c):
+        assert torch.equal(x, y) and torch.equal(x, z)
+
+
+def test_flash_bwd_kernel_control_fails(cuda):
+    """The check has teeth: a backward handed a logsumexp off by 0.05
+    (what a wrong D or lse would do to P) lands beyond FLASH_BWD_REL in
+    float32."""
+    (q, k, v, out, lse, do), got, want = _bwd_case(
+        cuda, torch.float32, 64, True, None, 200)
+    bad = fa.flash_attention_bwd_cuda(q, k, v, out, lse + 0.05, do)
+    torch.cuda.synchronize()
+    assert max(_rel_l2(g, w) for g, w in zip(bad, want)) \
+        > FLASH_BWD_REL[torch.float32]
+    assert max(_rel_l2(g, w) for g, w in zip(got, want)) \
+        <= FLASH_BWD_REL[torch.float32]
+
+
+def test_flash_attention_gradient_on_the_card(cuda):
+    """The dispatcher in grad mode on CUDA tensors: one forward launch
+    and one backward launch, the gradients those of the plain route
+    (``use_kernel=False``) within the float32 limits; under no_grad the
+    serving launch alone."""
+    q, k, v = [x.requires_grad_(True) for x in _qkv(
+        2, 150, 6, 2, 64, torch.float32, cuda, seed=3)]
+    do = torch.randn(2, 150, 6, 64, device=cuda)
+    fa.reset_launch_counts()
+    out = fa.flash_attention(q, k, v)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert fa.launch_counts[fa.FLASHATTN] == 1
+    assert fa.launch_counts[fa.FLASHATTN_BWD] == 1
+    fa.reset_launch_counts()
+    plain = fa.flash_attention(q, k, v, use_kernel=False)
+    want = torch.autograd.grad(plain, (q, k, v), do)
+    assert sum(fa.launch_counts.values()) == 0
+    torch.testing.assert_close(out, plain, rtol=3e-5, atol=3e-5)
+    for g, w in zip(grads, want):
+        assert _rel_l2(g, w) <= 1e-4
+    with torch.no_grad():
+        fa.flash_attention(q, k, v)
+    assert fa.launch_counts[fa.FLASHATTN] == 1
+    assert fa.launch_counts[fa.FLASHATTN_BWD] == 0
+
+
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("config", ["llama3_2_3b", "gemma3_27b"])
+def test_smoke_config_train_step_launch_counts(cuda, config, remat):
+    """One AdamW step of a smoke config (float32, head dim 16) on the
+    card: each layer's attention one K5 launch in the forward (two for a
+    group's layer under remat "full": the backward recomputes it; the
+    remainder layers run outside remat) and one K5 bwd launch, a local
+    layer's in the window modes; the loss within 1e-5 of the CPU step's
+    and each leaf's gradient (AdamW's first moment, (1 - b1) g after one
+    step) within 1e-4 of it in relative L2.  The parameters are not
+    compared: Adam's first update g / (|g| + eps) turns a 1e-9 gradient
+    gap at |g| ~ eps into ~lr."""
+    import dataclasses
+    import importlib
+    from repro_torch.data import lm_batch_fn
+    from repro_torch.models import transformer as lm
+    from repro_torch.optim import AdamWConfig, init_state
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+    mod = importlib.import_module(f"repro_torch.configs.{config}")
+    cfg = dataclasses.replace(mod.make_smoke_config(), remat=remat)
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+    batch = {k: torch.from_numpy(x) for k, x in
+             lm_batch_fn(cfg.vocab, 2, 96, seed=1)(0).items()}
+    step = make_train_step(lambda p, b: lm.lm_loss(p, b, cfg),
+                           AdamWConfig(), donate=True)
+    gpu = tree_map(lambda x: x.to(cuda), params)
+    _, want_s, want = step(params, init_state(params), batch)
+    fa.reset_launch_counts()
+    _, got_s, got = step(gpu, init_state(gpu),
+                         {k: x.to(cuda) for k, x in batch.items()})
+    torch.cuda.synchronize()
+    kinds = [kind for _, kind in lm._layers(params, cfg)]
+    grouped = cfg.n_groups * len(cfg.layer_pattern)
+    fwd = {"local": 0, "global": 0}
+    for i, kind in enumerate(kinds):
+        fwd[kind] += 2 if remat and i < grouped else 1
+    assert fa.launch_counts == {
+        fa.FLASHATTN: fwd["global"], fa.FLASHATTN_WINDOW: fwd["local"],
+        fa.FLASHATTN_BWD: kinds.count("global"),
+        fa.FLASHATTN_BWD_WINDOW: kinds.count("local")}
+    assert abs(float(got["loss"]) - float(want["loss"])) \
+        <= 1e-5 * abs(float(want["loss"]))
+    for g, w in zip(tree_leaves(got_s["m"]), tree_leaves(want_s["m"])):
+        assert _rel_l2(g.cpu(), w) <= 1e-4
 
 
 # ---------------------------------------------------------------------------

@@ -260,8 +260,7 @@ def test_local_layer_routes(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(param_sharding="fsdp"), "fsdp"),
-    (dict(loss_chunk=512), "loss_chunk")])
+    (dict(param_sharding="fsdp"), "fsdp")])
 def test_unported_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=f"{item}.*ROADMAP"):
         _narrow(tt, torch.float32, **kw)
