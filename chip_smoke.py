@@ -79,7 +79,10 @@ any failed phase.  Phases:
 11. the flash-attention kernel (K5): the ptxas lines of its kernels
    and, from ``cuobjdump -sass``, the HGMMA and UTMALDG counts of the
    bfloat16 ones (wgmma + TMA) and the HMMA counts of the float32 ones
-   (split TF32 on ``mma.sync``), which must not spill; then K5 against
+   (split TF32 on ``mma.sync``), which must not spill; K5 bwd's
+   (``flashattn_bwd``): every bfloat16 dK/dV and dQ kernel with HGMMA
+   and UTMALDG and no spill, no atomic or reduction opcode in the
+   library; then K5 against
    its plain version at the serving path's shape: q (2, 32768, 24, 128),
    k and v (2, 32768, 8, 128), bfloat16, causal, within 2e-2 (P is
    rounded to bfloat16 before P V) and per row, with a stale-ring-slot
@@ -771,11 +774,12 @@ def sass_ops(name: str, ops=("HGMMA", "UTMALDG")) -> dict:
 ATOMIC_OPS = ("RED", "REDG", "REDAS", "ATOM", "ATOMG", "ATOMS")
 
 
-def atomics_in(kernel: str) -> int:
+def atomics_in(kernel: str, library: str = "frontier") -> int:
     """SASS atomic and reduction instructions in every instantiation of
-    the frontier library's ``kernel``."""
+    the built ``library``'s ``kernel`` (every kernel of it when ``kernel``
+    is empty)."""
     return sum(sum(n.values()) for f, n in sass_ops(
-        "frontier", ATOMIC_OPS).items() if kernel in f)
+        library, ATOMIC_OPS).items() if kernel in f)
 
 
 def mid_bfs_state(graph, batch: int):
@@ -2000,6 +2004,39 @@ def flash_f32_smem(dh: int) -> int:
                 + FLASH_F32_STAGES * FLASH_F32_TILE * (ld_qk + dh + 4))
 
 
+def check_flash_bwd_build() -> None:
+    """K5 bwd's build: every bfloat16 dK/dV and dQ instantiation (dh 64
+    and 128, with and without the window mode) has HGMMA and UTMALDG in
+    its SASS and spills nothing (ptxas), and no kernel of the library has
+    an atomic or reduction opcode (its determinism)."""
+    from repro_torch.kernels import _build
+    ptxas = _build.build_report("flashattn_bwd")["ptxas"].splitlines()
+    spills = {}
+    for i, line in enumerate(ptxas):
+        if "Compiling entry" in line and "_wgmma_kernel" in line:
+            spills[line.split("'")[1]] = next(
+                (x.strip() for x in ptxas[i + 1:i + 4] if "spill" in x), "")
+    ops = sass_ops("flashattn_bwd", ("HGMMA", "UTMALDG"))
+    wgmma = {f: n for f, n in ops.items()
+             if "bwd_dkdv_wgmma_kernel" in f or "bwd_dq_wgmma_kernel" in f}
+    atomics = atomics_in("", "flashattn_bwd")
+    log(f"  flashattn_bwd.cu: {len(wgmma)} bf16 dK/dV and dQ kernels, "
+        f"HGMMA and UTMALDG counts {sorted(wgmma.values(), key=str)}; "
+        f"spills {sorted(set(spills.values()))}; atomic and reduction "
+        f"opcodes ({'/'.join(ATOMIC_OPS)}) in the library: {atomics}")
+    if len(wgmma) != 8 or not all(n["HGMMA"] and n["UTMALDG"]
+                                  for n in wgmma.values()):
+        raise AssertionError(f"K5 bwd's bf16 kernels lack HGMMA or UTMALDG: "
+                             f"{wgmma}")
+    if len(spills) != 8 or not all(
+            "0 bytes spill stores, 0 bytes spill loads" in x
+            for x in spills.values()):
+        raise AssertionError(f"K5 bwd's bf16 kernels spill: {spills}")
+    if atomics:
+        raise AssertionError(f"flashattn_bwd has {atomics} atomic or "
+                             "reduction instructions")
+
+
 def phase_flash() -> dict:
     """K5 at the serving path's shape (bfloat16, causal) and at
     granite-moe's (head dim 64), then float32 and a ragged non-causal
@@ -2039,6 +2076,7 @@ def phase_flash() -> dict:
             "0 bytes spill stores, 0 bytes spill loads" in x
             for x in spills.values()):
         raise AssertionError(f"flash_f32_kernel spills: {spills}")
+    check_flash_bwd_build()
     row = check_flash_case("serving", FLASH_SHAPE, torch.bfloat16, True,
                            SEED + 5, 5)
     torch.cuda.empty_cache()

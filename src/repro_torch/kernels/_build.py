@@ -12,9 +12,10 @@ A source that needs more (an include path such as
 its own ``extra_flags``; they follow the source, so link flags land
 after it.  The library is renamed to
 ``build/kernels/<name>-<digest>.so``, the digest taken over the command
-line and the source's bytes: a changed source or flag set gets a new
-path, so the dynamic loader, which returns the handle it already holds
-for a path it has opened, never hands back a stale library.  A library
+line, the source's bytes and those of the headers (``*.cuh``) beside it:
+a changed source, header or flag set gets a new path, so the dynamic
+loader, which returns the handle it already holds for a path it has
+opened, never hands back a stale library.  A library
 already at its digest's path (another process built it: the ranks of a
 spawned group load what their parent built) is loaded without running
 ``nvcc``; ``ptxas``'s report is kept beside it.
@@ -78,8 +79,10 @@ def load(name: str, source: Path, declare, extra_flags=()) -> ctypes.CDLL:
     if key not in _LOADED:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", "", str(source), *key[1]]
+        text = Path(source).read_bytes() + b"".join(
+            h.read_bytes() for h in sorted(Path(source).parent.glob("*.cuh")))
         digest = hashlib.sha256("\0".join(a for a in cmd if a).encode()
-                                + Path(source).read_bytes()).hexdigest()[:16]
+                                + text).hexdigest()[:16]
         path = BUILD_DIR / f"{name}-{digest}.so"
         report = path.with_suffix(".ptxas")
         seconds = 0.0

@@ -30,7 +30,8 @@ instantiation; the serving path asks for none).
 its logsumexp and the output's gradient, one C call of three launches
 (the row pass D = rowsum(dO * O), the dK/dV kernel, the dQ kernel) gives
 dq, dk and dv in the inputs' types, dk and dv already summed over each
-KV head's query heads.  Each call adds one to
+KV head's query heads.  Its bfloat16 route is wgmma + TMA like the
+forward's, so it links ``libcuda`` too.  Each call adds one to
 ``launch_counts["flash_attention_bwd"]`` (or ``..._bwd_window``).
 """
 from __future__ import annotations
@@ -94,7 +95,8 @@ def library() -> ctypes.CDLL:
 
 def bwd_library() -> ctypes.CDLL:
     """The built backward library (``flashattn_bwd.cu``)."""
-    return _build.load("flashattn_bwd", BWD_SOURCE, _declare_bwd)
+    return _build.load("flashattn_bwd", BWD_SOURCE, _declare_bwd,
+                       EXTRA_FLAGS)
 
 
 def check_inputs(q, k, v) -> None:
@@ -202,6 +204,9 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, causal: bool = True,
         _DTYPES[q.dtype], int(causal),
         0 if window is None else min(int(window), s), 1.0 / dh ** 0.5,
         stream)
+    if code < 0:
+        raise RuntimeError("flash_attention_bwd: the driver refused a TMA "
+                           f"tensor map (CUresult {-code})")
     _build.check(code, "flash_attention_bwd kernel launch")
     launch_counts[FLASHATTN_BWD if window is None
                   else FLASHATTN_BWD_WINDOW] += 1

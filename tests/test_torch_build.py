@@ -70,6 +70,46 @@ def test_extra_flags_follow_the_source(nvcc):
     assert report["ptxas"] == "ptxas info"
 
 
+def test_the_backward_links_the_driver_api_too(nvcc):
+    """K5 bwd's bfloat16 route encodes TMA tensor maps
+    (``cuTensorMapEncodeTiled``), so its library takes the forward's
+    extra flags after its source."""
+    flashattn.bwd_library()
+    (cmd,) = nvcc["commands"]
+    assert cmd[:-4] == ["/cuda/bin/nvcc", *_build.NVCC_FLAGS]
+    assert cmd[-4] == "-o"
+    assert cmd[-2:] == [str(flashattn.BWD_SOURCE), *flashattn.EXTRA_FLAGS]
+    assert _build.build_report("flashattn_bwd")["path"] == nvcc["loaded"][0]
+
+
+def test_both_flash_sources_include_the_shared_header():
+    """The forward and the backward take their PTX helpers from the one
+    header beside them, which the build's digest covers."""
+    header = flashattn.SOURCE.with_name("sm90.cuh")
+    assert header.exists()
+    for source in (flashattn.SOURCE, flashattn.BWD_SOURCE):
+        assert '#include "sm90.cuh"' in source.read_text()
+
+
+def test_a_changed_header_gets_a_new_library(nvcc, tmp_path, monkeypatch):
+    """A header (``*.cuh``) beside the source is part of the digest: an
+    edit to it alone builds and loads another library."""
+    src = tmp_path / "k.cu"
+    src.write_text('#include "h.cuh"\n')
+    header = tmp_path / "h.cuh"
+    header.write_text("// one\n")
+    _build.load("k", src, lambda lib: None)
+    header.write_text("// two\n")
+    monkeypatch.setattr(_build, "_LOADED", {})         # a new process
+    _build.load("k", src, lambda lib: None)
+    header.write_text("// one\n")
+    monkeypatch.setattr(_build, "_LOADED", {})
+    _build.load("k", src, lambda lib: None)
+    first, edited, again = nvcc["loaded"]
+    assert len(nvcc["commands"]) == 2
+    assert edited != first and again == first
+
+
 def test_a_rebuild_never_loads_a_stale_library(nvcc, tmp_path, monkeypatch):
     """Another flag set or another source text gets another library
     path (the loader hands back the library it already holds for a path

@@ -1268,7 +1268,8 @@ def test_flash_bwd_kernel_matches_plain(cuda, dtype, dh, causal, window, s):
 
 
 @pytest.mark.parametrize("dtype,dh", [(torch.bfloat16, 128),
-                                      (torch.float32, 64)])
+                                      (torch.float32, 64),
+                                      (torch.bfloat16, 64)])
 def test_flash_bwd_kernel_is_deterministic_and_reads_views(cuda, dtype, dh):
     """Two backward calls give the same bits (no atomics), and q, k, v as
     views into wider tensors give the same gradients as contiguous
@@ -1286,6 +1287,55 @@ def test_flash_bwd_kernel_is_deterministic_and_reads_views(cuda, dtype, dh):
     torch.cuda.synchronize()
     for x, y, z in zip(a, b, c):
         assert torch.equal(x, y) and torch.equal(x, z)
+
+
+def _bf16_bwd_within_limit(cuda, dh, causal, window, s, h=6, n_kv=2):
+    """The bfloat16 backward against the plain one at one shape: one
+    launch counted, each gradient finite, in q's type and shape and
+    within FLASH_BWD_REL (a window of 1 leaves dq = dk = 0: their largest
+    entry)."""
+    before = dict(fa.launch_counts)
+    (q, k, v, *_), got, want = _bwd_case(cuda, torch.bfloat16, dh, causal,
+                                         window, s, h=h, n_kv=n_kv,
+                                         seed=s + dh + h)
+    name = fa.FLASHATTN_BWD if window is None else fa.FLASHATTN_BWD_WINDOW
+    assert fa.launch_counts[name] == before[name] + 1
+    for i, (g, w, x) in enumerate(zip(got, want, (q, k, v))):
+        assert g.dtype == torch.bfloat16 and g.shape == x.shape
+        assert bool(torch.isfinite(g).all())
+        gap = float((g.float() - w).abs().max()) if window == 1 and i < 2 \
+            else _rel_l2(g.float(), w)
+        assert gap <= FLASH_BWD_REL[torch.bfloat16]
+
+
+# The bfloat16 kernels' tiles: a dK/dV block owns 128 keys (64 a
+# consumer warpgroup) and streams query tiles of 64 rows; a dQ block owns
+# 128 rows (64 a warpgroup) and streams key tiles of 128.  S and the
+# window on either side of those edges.
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [63, 64, 65, 127, 128, 129, 383])
+def test_flash_bwd_bf16_tile_edges(cuda, dh, causal, s):
+    """K5 bwd (bf16) at sequence lengths around its 64- and 128-wide
+    tiles, causal and full."""
+    _bf16_bwd_within_limit(cuda, dh, causal, None, s)
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("window", [127, 128, 129, 1024])
+def test_flash_bwd_bf16_window_edges(cuda, dh, window):
+    """K5 bwd's window mode (bf16) at windows around its tiles and at
+    gemma3's 1,024, over a sequence longer than each."""
+    _bf16_bwd_within_limit(cuda, dh, True, window, 1300, h=4)
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("group", [1, 3, 4])
+@pytest.mark.parametrize("window", [None, 100])
+def test_flash_bwd_bf16_gqa_groups(cuda, dh, group, window):
+    """K5 bwd (bf16) with 1, 3 and 4 query heads a KV head: a dK/dV
+    block's ring walks every query head of its group."""
+    _bf16_bwd_within_limit(cuda, dh, True, window, 300, h=2 * group)
 
 
 def test_flash_bwd_kernel_control_fails(cuda):
