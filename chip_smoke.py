@@ -2007,31 +2007,47 @@ def flash_f32_smem(dh: int) -> int:
 def check_flash_bwd_build() -> None:
     """K5 bwd's build: every bfloat16 dK/dV and dQ instantiation (dh 64
     and 128, with and without the window mode) has HGMMA and UTMALDG in
-    its SASS and spills nothing (ptxas), and no kernel of the library has
-    an atomic or reduction opcode (its determinism)."""
+    its SASS, every float32 one (dh 16, 64 and 128, with and without the
+    window mode) HMMA, none of them spills (ptxas), and no kernel of the
+    library has an atomic or reduction opcode (its determinism)."""
     from repro_torch.kernels import _build
     ptxas = _build.build_report("flashattn_bwd")["ptxas"].splitlines()
+    routes = {"bf16": ("bwd_dkdv_wgmma_kernel", "bwd_dq_wgmma_kernel"),
+              "f32": ("bwd_dkdv_tf32_kernel", "bwd_dq_tf32_kernel")}
     spills = {}
     for i, line in enumerate(ptxas):
-        if "Compiling entry" in line and "_wgmma_kernel" in line:
+        if "Compiling entry" in line and any(
+                k in line for names in routes.values() for k in names):
+            props = [x.strip() for x in ptxas[i + 1:i + 4]]
+            if any(k in line for k in routes["f32"]):
+                log(f"  ptxas: {line.strip()}")
+                log(f"  ptxas: {' | '.join(props)}")
             spills[line.split("'")[1]] = next(
-                (x.strip() for x in ptxas[i + 1:i + 4] if "spill" in x), "")
-    ops = sass_ops("flashattn_bwd", ("HGMMA", "UTMALDG"))
-    wgmma = {f: n for f, n in ops.items()
-             if "bwd_dkdv_wgmma_kernel" in f or "bwd_dq_wgmma_kernel" in f}
+                (x for x in props if "spill" in x), "")
+    ops = sass_ops("flashattn_bwd", ("HGMMA", "UTMALDG", "HMMA"))
+    kernels = {route: {f: n for f, n in ops.items()
+                       if any(k in f for k in names)}
+               for route, names in routes.items()}
     atomics = atomics_in("", "flashattn_bwd")
-    log(f"  flashattn_bwd.cu: {len(wgmma)} bf16 dK/dV and dQ kernels, "
-        f"HGMMA and UTMALDG counts {sorted(wgmma.values(), key=str)}; "
-        f"spills {sorted(set(spills.values()))}; atomic and reduction "
-        f"opcodes ({'/'.join(ATOMIC_OPS)}) in the library: {atomics}")
-    if len(wgmma) != 8 or not all(n["HGMMA"] and n["UTMALDG"]
-                                  for n in wgmma.values()):
+    bf16 = sorted((n["HGMMA"], n["UTMALDG"]) for n in kernels["bf16"].values())
+    log(f"  flashattn_bwd.cu: {len(kernels['bf16'])} bf16 dK/dV and dQ "
+        f"kernels, HGMMA and UTMALDG counts {bf16}; "
+        f"{len(kernels['f32'])} float32 ones, HMMA counts "
+        f"{sorted(n['HMMA'] for n in kernels['f32'].values())}; spills "
+        f"{sorted(set(spills.values()))}; atomic and reduction opcodes "
+        f"({'/'.join(ATOMIC_OPS)}) in the library: {atomics}")
+    if len(kernels["bf16"]) != 8 or not all(
+            n["HGMMA"] and n["UTMALDG"] for n in kernels["bf16"].values()):
         raise AssertionError(f"K5 bwd's bf16 kernels lack HGMMA or UTMALDG: "
-                             f"{wgmma}")
-    if len(spills) != 8 or not all(
+                             f"{kernels['bf16']}")
+    if len(kernels["f32"]) != 12 or not all(
+            n["HMMA"] for n in kernels["f32"].values()):
+        raise AssertionError(f"K5 bwd's float32 kernels lack HMMA: "
+                             f"{kernels['f32']}")
+    if len(spills) != 20 or not all(
             "0 bytes spill stores, 0 bytes spill loads" in x
             for x in spills.values()):
-        raise AssertionError(f"K5 bwd's bf16 kernels spill: {spills}")
+        raise AssertionError(f"K5 bwd's kernels spill: {spills}")
     if atomics:
         raise AssertionError(f"flashattn_bwd has {atomics} atomic or "
                              "reduction instructions")

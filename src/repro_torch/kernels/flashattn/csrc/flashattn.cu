@@ -148,8 +148,9 @@
 // flag (kLse) like kWin, so the serving path, which passes no buffer,
 // runs the kernels without it, instruction for instruction.
 //
-// The PTX helpers (mbarriers, TMA, wgmma) and the tensor maps' encoding
-// live in csrc/sm90.cuh, shared with the backward (csrc/flashattn_bwd.cu).
+// The PTX helpers (mbarriers, TMA, wgmma, the split TF32 product and
+// cp.async) and the tensor maps' encoding live in csrc/sm90.cuh, shared
+// with the backward (csrc/flashattn_bwd.cu).
 //
 // Offsets are 64-bit (B S H dh passes 2^31 at the serving shapes).  The
 // entry point launches on the caller's stream and returns
@@ -469,58 +470,6 @@ template <int D>
 constexpr int f32_smem_bytes() {
   return (kF32Rows * f32_ld_qk<D>()
           + kF32Stages * kF32Keys * (f32_ld_qk<D>() + f32_ld_v<D>())) * 4;
-}
-
-// x = hi + lo for the TF32 tensor cores.  hi is x rounded to TF32 (10
-// mantissa bits) to nearest, ties away from zero: half a unit of TF32's
-// last place added to the bits, the 13 low bits cleared (what
-// cvt.rna.tf32.f32 gives, in two integer operations where cvt takes
-// four).  lo = x - hi is exact and goes in whole: the tensor core reads
-// a TF32 operand's top 19 bits, so it takes lo truncated to TF32, within
-// 2^-10 |lo| <= 2^-21 |x|.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// d (16 x 8, float32) += a (16 x 8) b (8 x 8), TF32 operands
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d += a b as three TF32 products, the small ones first: a_lo b_hi +
-// a_hi b_lo + a_hi b_hi (a_lo b_lo, 2^-22 of a b, is dropped)
-__device__ __forceinline__ void mma3_tf32(float (&d)[4],
-                                          const uint32_t (&ah)[4],
-                                          const uint32_t (&al)[4],
-                                          const uint32_t (&bh)[2],
-                                          const uint32_t (&bl)[2]) {
-  mma_tf32(d, al, bh);
-  mma_tf32(d, ah, bl);
-  mma_tf32(d, ah, bh);
-}
-
-// 16 bytes from device to shared memory, asynchronously; zeros when not
-// `valid` (src is then not read)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// until at most N committed groups of this thread's copies are pending
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // rows r0 .. r0 + ROWS - 1 of a (seq, D) float32 slab of row stride ss

@@ -100,11 +100,50 @@
 // kernel (kWin), every window term under `if constexpr`; the ring's slot
 // and phase count from the loop's first tile.
 //
-// float32 route (bwd_dkdv_kernel, bwd_dq_kernel): scalar float32 FMAs on
-// float32 tiles in shared memory, each thread a 4 x 4 block of S and dP
-// and a 4-key (or 4-row) x dh / 16 block of the outputs, operands read
-// as float4 (within 1e-5 of the plain version: a product on the tensor
-// cores would need the forward's three TF32 passes).
+// float32 route (bwd_dkdv_tf32_kernel, bwd_dq_tf32_kernel): the
+// arithmetic of K5's float32 forward, split TF32 on mma.sync.m16n8k8
+// (split_tf32, mma3_tf32 and the cp.async copies are csrc/sm90.cuh's):
+// each of the seven products is three TF32 products, a_lo b_hi + a_hi
+// b_lo + a_hi b_hi, every sum float32, which holds dq, dk, dv within 1e-5
+// of the plain backward in relative L2 (one TF32 product lands 4-9x
+// beyond that, tests/test_torch_flash_bwd_f32_split.py).  Not wgmma: its
+// TF32 form reads B only K-major from shared memory, and dV += P^T dO,
+// dK += dS^T Q and dQ += dS K read theirs MN-major.  A block is 8 warps,
+// 4 pairs (w, w + 4):
+//
+// * dK/dV: a block owns 64 keys, a pair 16 of them.  K and V stay in
+//   shared memory; Q and dO stream through a 2-stage cp.async ring of 64
+//   query rows (32 at dh 128), their lse and D beside them, over the
+//   group's query heads and the query tiles that see the keys.  S^T = K
+//   Q^T and dP^T = V dO^T come out key-major: their accumulators (rows g,
+//   g + 8; columns 2t, 2t + 1) are the A fragments of dV += P^T dO and
+//   dK += dS^T Q as they stand, A's reduction column t taken as query row
+//   2t and t + 4 as row 2t + 1 (the forward's P V trick).  Each warp of
+//   a pair computes S^T and dP^T for half of a stage's rows and leaves
+//   P^T and dS^T in shared memory for the other (a 64-thread barrier);
+//   then each runs dV and dK over all the stage's rows for half of dh's
+//   columns.  So a thread holds 64 floats of dK and dV at dh 128, not
+//   the 128 of a warp that keeps all of dh (which spilled at 255
+//   registers whatever its unrolling), and no reduction is left for the
+//   end;
+// * dQ: a block owns 64 query rows, a pair 16.  Q, dO, lse and D stay
+//   resident; K and V stream through a 2-stage ring of 64 keys, each warp
+//   of a pair takes 32 of them: S = Q K^T, dP = dO V^T, dS in registers
+//   as the A fragment of dQ += dS K; the pair's two partial dQ are summed
+//   in a fixed order at the end.
+//
+// The tensor core truncates the sums it returns, so the long sums are
+// not left in its accumulators (the note above mma3_slice).  Warps whose
+// keys (rows) a stage cannot see skip its products.  A streamed tile is
+// read in two patterns; its stride and row order (f32_ld_b, perm8) serve
+// both without bank conflicts.  Shared memory at dh 128 / 64 / 16: dK/dV
+// 160,256 / 148,480 / 66,560 bytes, dQ 212,992 / 114,688 / 32,768; one
+// block an SM.  At (1, 2048, 24/8, 128) causal the three kernels take
+// 1.858-1.866 ms against 4.158-4.211 for the scalar float32 kernels they
+// replaced, 2.27-2.31 for SDPA's backward and a 0.391 ms bound (the five
+// products as three TF32 products each at 495 TFLOP/s); the dK/dV kernel
+// 1.08 ms, the dQ kernel 0.74 (tools/flash_bwd_ab.py, NVIDIA H100 80GB
+// HBM3, 700 W).
 //
 // Bound on the card.  At llama3.2-3b's training layer (B 1, S 4096, 24 /
 // 8 heads of 128, bf16, causal) the five products over the 2.01e8 kept
@@ -132,10 +171,7 @@
 
 namespace {
 
-constexpr int kRows = 64;       // query rows a tile
-constexpr int kKeys = 64;       // keys a tile
-constexpr int kThreads = 256;   // 16 x 16 threads, 4 x 4 of S each
-constexpr int kLdP = kKeys + 4; // row stride of the P and dS tiles
+constexpr int kThreads = 256;   // the row pass: a warp a row
 constexpr float kLog2e = 1.4426950408889634f;
 
 typedef __nv_bfloat16 bf16;
@@ -176,119 +212,11 @@ __device__ __forceinline__ float4 load4(const bf16* p) {
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
-__device__ __forceinline__ void store4(float* p, float4 x) {
-  *reinterpret_cast<float4*>(p) = x;
-}
-
-
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   acc = fmaf(a.x, b.x, acc);
   acc = fmaf(a.y, b.y, acc);
   acc = fmaf(a.z, b.z, acc);
   return fmaf(a.w, b.w, acc);
-}
-
-// 64 rows from r0 of a (seq, D) slab of row stride ss into shared memory
-// at row stride D + 4, widened to float32; rows past seq land as zeros
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          long long ss, int r0, int seq) {
-  constexpr int kLd = D + 4;
-  constexpr int kVec = D / 4;
-  for (int i = threadIdx.x; i < kRows * kVec; i += kThreads) {
-    const int r = i / kVec;
-    const int c = (i % kVec) * 4;
-    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (r0 + r < seq) x = load4(src + (r0 + r) * ss + c);
-    store4(dst + r * kLd + c, x);
-  }
-}
-
-// The dh columns a thread owns in the dh-wide products: with DC = dh / 16
-// of them, chunks of 4 (at 64-column strides across the 16 threads of a
-// group) where DC >= 4, else column tc * DC + j
-template <int D>
-__device__ __forceinline__ int out_col(int tc, int j) {
-  constexpr int DC = D / 16;
-  if constexpr (DC >= 4) return (j / 4) * 64 + tc * 4 + (j % 4);
-  return tc * DC + j;
-}
-
-// whether query row `row` sees key `key`: both inside S, causal, and with
-// a window (win) at most window - 1 back
-__device__ __forceinline__ bool kept(const BwdParams& p, int row, int key,
-                                     bool win) {
-  return row < p.seq && key < p.seq && !(p.causal && key > row)
-      && !(win && row - key >= p.window);
-}
-
-// S = Q K^T and dP = dO V^T of one tile pair, thread (tr, tc) holding rows
-// 4 tr + a and keys tc + 16 b; then P and dS (P * (dP - D)) for the rows
-// and keys the mask keeps, 0 elsewhere.  lse_s and delta_s hold the tile's
-// rows' logsumexp in log2 units and D.
-template <int D, bool kWin>
-__device__ __forceinline__ void tile_p_ds(
-    const float* qs, const float* dos, const float* ks, const float* vs,
-    const float* lse_s, const float* delta_s, int q0, int k0,
-    const BwdParams& p, float (&pr)[4][4], float (&ds)[4][4]) {
-  constexpr int kLd = D + 4;
-  const int tr = threadIdx.x / 16;
-  const int tc = threadIdx.x % 16;
-  float sc[4][4], dp[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) sc[a][b] = dp[a][b] = 0.0f;
-#pragma unroll 2
-  for (int d = 0; d < D; d += 4) {
-    float4 qa[4], oa[4], kb[4], vb[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      qa[a] = load4(qs + (tr * 4 + a) * kLd + d);
-      oa[a] = load4(dos + (tr * 4 + a) * kLd + d);
-    }
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      kb[b] = load4(ks + (tc + 16 * b) * kLd + d);
-      vb[b] = load4(vs + (tc + 16 * b) * kLd + d);
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        sc[a][b] = dot4(qa[a], kb[b], sc[a][b]);
-        dp[a][b] = dot4(oa[a], vb[b], dp[a][b]);
-      }
-  }
-  const float scale = p.sm_scale * kLog2e;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int rl = tr * 4 + a;
-    const int row = q0 + rl;
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const float pv = kept(p, row, k0 + tc + 16 * b, kWin)
-          ? exp2f(fmaf(sc[a][b], scale, -lse_s[rl])) : 0.0f;
-      pr[a][b] = pv;
-      ds[a][b] = pv * (dp[a][b] - delta_s[rl]);
-    }
-  }
-}
-
-// the tile's rows' logsumexp (log2 units) and D into shared memory
-__device__ __forceinline__ void load_rows(float* lse_s, float* delta_s,
-                                          const BwdParams& p, long long base,
-                                          int q0) {
-  for (int r = threadIdx.x; r < kRows; r += blockDim.x) {
-    const bool in = q0 + r < p.seq;
-    lse_s[r] = in ? p.lse[base + q0 + r] * kLog2e : 0.0f;
-    delta_s[r] = in ? p.delta[base + q0 + r] : 0.0f;
-  }
-}
-
-template <int D>
-constexpr int bwd_smem_bytes() {
-  return (4 * kRows * (D + 4) + 2 * kRows * kLdP + 2 * kRows) * 4;
 }
 
 // D = rowsum(dO * O), one warp a row; rows (b, h, s) in (B, H, S) order
@@ -318,246 +246,640 @@ __global__ void bwd_delta_kernel(const BwdParams p, int head_dim,
   if (lane == 0) p.delta[row] = acc;
 }
 
-// dK and dV of one (batch, KV head, key tile), summed over the group's
-// query heads and the query tiles that see the keys
-template <int D, bool kWin>
-__global__ void __launch_bounds__(kThreads, 1)
-bwd_dkdv_kernel(const BwdParams p) {
-  constexpr int kLd = D + 4;
-  constexpr int DC = D / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;
-  float* dos = qs + kRows * kLd;
-  float* ks = dos + kRows * kLd;
-  float* vs = ks + kKeys * kLd;
-  float* ps = vs + kKeys * kLd;              // P, [row][key]
-  float* dss = ps + kRows * kLdP;            // dS, [row][key]
-  float* lse_s = dss + kRows * kLdP;
-  float* delta_s = lse_s + kRows;
+// ---------------------------------------------------------------------------
+// float32 route: split TF32 on the tensor cores (mma.sync), cp.async ring
+// ---------------------------------------------------------------------------
 
-  const int j = blockIdx.x;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
-  const int k0 = j * kKeys;
-  const int n_qt = (p.seq + kRows - 1) / kRows;
-  // query tiles that see a key of this tile
-  const int i_lo = p.causal ? k0 / kRows : 0;
-  int i_hi = n_qt;
-  if constexpr (kWin)
-    i_hi = min(n_qt, (k0 + kKeys - 1 + p.window - 1) / kRows + 1);
-  const int kg = threadIdx.x / 16;           // keys 4 kg .. 4 kg + 3
-  const int tc = threadIdx.x % 16;
+constexpr int kF32Threads = 256;  // 8 warps: 4 pairs (w, w + 4)
+constexpr int kF32Tile = 64;      // keys a dK/dV block, query rows a dQ block
+constexpr int kF32Ring = 2;       // stages of each ring
+constexpr int kDqStep = 64;       // keys a stage of the dQ ring, 32 a warp
 
-  load_tile<D>(ks, static_cast<const float*>(p.k) + b * p.k_sb + kvh * p.k_sh,
-               p.k_ss, k0, p.seq);
-  load_tile<D>(vs, static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sh,
-               p.v_ss, k0, p.seq);
+// Query rows a stage of the dK/dV ring, half of them a warp's in the
+// first products.  At dh 128 a stage is 32 rows: 64 would not leave room
+// for the exchange of P^T and dS^T beside K, V and the ring.
+template <int D>
+__host__ __device__ constexpr int dkdv_step() {
+  return D == 128 ? 32 : 64;
+}
 
-  float dk[4][DC], dv[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) dk[i][c] = dv[i][c] = 0.0f;
+// Row strides (floats) in shared memory.  A resident tile read only as
+// the A operand (rows g and g + 8, float4 at column 4t: K and V in the
+// dK/dV kernel, Q and dO in the dQ kernel) takes the forward's Q/K
+// stride, 16 banks mod 32, so the two rows of a quarter warp fall on
+// disjoint halves.  A streamed tile is read two ways: as B of the first
+// products (S^T = K Q^T: row 8m + perm8(g), float4 at column 4t) and as B
+// of the last (dK += dS^T Q: rows 8m + perm8(2t) and 8m + perm8(2t + 1),
+// float2 at column 2g).  No stride serves both with the rows in order
+// (the first wants 16 banks mod 32 between rows 2q and 2q + 1, the second
+// rows 0, 2, 4, 6 8 banks apart); with the rows of each group of 8
+// taken in the order perm8, a stride of 8 banks mod 16 does (chosen by
+// that count of banks: no profiler on the card reads bank conflicts).
+template <int D>
+__host__ __device__ constexpr int f32_ld_a() {
+  return D % 32 == 16 ? D : D + 16;
+}
 
-  for (int hh = 0; hh < p.group; ++hh) {
-    const int h = kvh * p.group + hh;
-    const long long hrows = (static_cast<long long>(b) * p.n_heads + h)
-                            * p.seq;
-    const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
-    const long long o_ss = static_cast<long long>(p.n_heads) * D;
-    const float* dog = static_cast<const float*>(p.dout)
-        + static_cast<long long>(b) * p.seq * o_ss
-        + static_cast<long long>(h) * D;
-    for (int i = i_lo; i < i_hi; ++i) {
-      const int q0 = i * kRows;
-      __syncthreads();          // the previous tile's readers are done
-      load_tile<D>(qs, qg, p.q_ss, q0, p.seq);
-      load_tile<D>(dos, dog, o_ss, q0, p.seq);
-      load_rows(lse_s, delta_s, p, hrows, q0);
-      __syncthreads();
-      float pr[4][4], ds[4][4];
-      tile_p_ds<D, kWin>(qs, dos, ks, vs, lse_s, delta_s, q0, k0, p, pr,
-                         ds);
-      const int tr = threadIdx.x / 16;
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int bb = 0; bb < 4; ++bb) {
-          ps[(tr * 4 + a) * kLdP + tc + 16 * bb] = pr[a][bb];
-          dss[(tr * 4 + a) * kLdP + tc + 16 * bb] = ds[a][bb];
-        }
-      __syncthreads();
-      // dV += P^float dO and dK += dS^float Q over the tile's rows
-#pragma unroll 2
-      for (int r = 0; r < kRows; ++r) {
-        const float4 p4 = load4(ps + r * kLdP + kg * 4);
-        const float4 s4 = load4(dss + r * kLdP + kg * 4);
-        const float pk[4] = {p4.x, p4.y, p4.z, p4.w};
-        const float sk[4] = {s4.x, s4.y, s4.z, s4.w};
-        float ov[DC], qv[DC];
-        if constexpr (DC >= 4) {
-#pragma unroll
-          for (int c = 0; c < DC; c += 4) {
-            const float4 o4 = load4(dos + r * kLd + out_col<D>(tc, c));
-            const float4 q4 = load4(qs + r * kLd + out_col<D>(tc, c));
-            ov[c] = o4.x; ov[c + 1] = o4.y; ov[c + 2] = o4.z; ov[c + 3] = o4.w;
-            qv[c] = q4.x; qv[c + 1] = q4.y; qv[c + 2] = q4.z; qv[c + 3] = q4.w;
-          }
-        } else {
-#pragma unroll
-          for (int c = 0; c < DC; ++c) {
-            ov[c] = dos[r * kLd + out_col<D>(tc, c)];
-            qv[c] = qs[r * kLd + out_col<D>(tc, c)];
-          }
-        }
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-          for (int c = 0; c < DC; ++c) {
-            dv[kk][c] = fmaf(pk[kk], ov[c], dv[kk][c]);
-            dk[kk][c] = fmaf(sk[kk], qv[c], dk[kk][c]);
-          }
-      }
-    }
+template <int D>
+__host__ __device__ constexpr int f32_ld_b() {
+  return D + 8;
+}
+
+// The order of the 8 rows (keys) of an n8-block of the first products:
+// column j of the block is row perm8(j), {0, 6, 1, 7, 2, 4, 3, 5}.  A
+// quarter warp's float4 reads (j = 2q, 2q + 1) are then 2 or 6 rows
+// apart, 16 banks mod 32 at a stride of 8 mod 16, and a half warp's
+// float2 reads (rows perm8(2t), or perm8(2t + 1), t = 0 .. 3) 4 rows in
+// one of the residues 0 .. 3 mod 4, 8 banks apart.
+__device__ __forceinline__ int perm8(int j) {
+  return (j & 1) ? 4 + ((j >> 1) ^ 2) : j >> 1;
+}
+
+// rows r0 .. r0 + ROWS - 1 of a (seq, D) float32 slab of row stride ss
+// into shared memory at row stride LD, every thread of the block a
+// share, asynchronously; rows past seq land as zeros
+template <int D, int ROWS, int LD>
+__device__ __forceinline__ void copy_rows(uint32_t dst, const float* src,
+                                          long long ss, int r0, int seq) {
+  constexpr int kChunks = D / 4;                  // 16-byte chunks a row
+  for (int c = threadIdx.x; c < ROWS * kChunks; c += kF32Threads) {
+    const int r = c / kChunks;
+    const int col = (c % kChunks) * 4;
+    const bool valid = r0 + r < seq;
+    const long long row = valid ? r0 + r : 0;
+    cp_async16(dst + (r * LD + col) * 4, src + row * ss + col, valid);
   }
+}
 
-  // dk (times scale) and dv, keys past S not written
-  const int n_kv = p.n_heads / p.group;
-  float* dkg = static_cast<float*>(p.dk);
-  float* dvg = static_cast<float*>(p.dv);
+template <int N>
+__device__ __forceinline__ void zero(float (&x)[N][4]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const int key = k0 + kg * 4 + kk;
-    if (key >= p.seq) continue;
-    const long long off = ((static_cast<long long>(b) * p.seq + key) * n_kv
-                           + kvh) * D;
-    if constexpr (DC >= 4) {
+  for (int i = 0; i < N; ++i) x[i][0] = x[i][1] = x[i][2] = x[i][3] = 0.0f;
+}
+
+// The tensor core truncates the sum it returns (toward zero), so a long
+// sum kept in its accumulator drifts by about a unit in the last place a
+// product: on an H100, dK and dV at (1, 2048, 24/8, 128) came out 2.5e-5
+// from the plain backward in relative L2 that way, and dP's sum over dh
+// left dS = P (dP - D), 0 by construction under a lone key, at 1.2e-5.  So the
+// products whose error matters are summed from zero over a few k-steps
+// and then added in float32, which rounds to nearest: dP (dP^T) a slice
+// of 16 columns of dh, dK, dV and dQ two k-steps of rows (keys).  S's
+// error moves P only relatively, by its size times the scale: S is summed
+// in the accumulator.
+
+// d (NB blocks of 16 x 8) += A B over the 16 columns of a slice of dh:
+// A's rows g and g + 8 (a, b: float4 at column 4 t of the slice), B's
+// rows of block m at bp + 8 m LD (float4 at column 4 t).  k-step e takes
+// columns 4 t + 2 e (A column t) and + 1 (column t + 4), for A and B
+// alike: the reduction may run in any order.  With kSum each block's two
+// k-steps are summed from zero and added to d in float32.
+template <int NB, int LD, bool kSum>
+__device__ __forceinline__ void mma3_slice(float (&d)[NB][4], float4 a,
+                                           float4 b, const float* bp) {
+  uint32_t ah[2][4], al[2][4];
+  split_tf32(a.x, ah[0][0], al[0][0]);
+  split_tf32(b.x, ah[0][1], al[0][1]);
+  split_tf32(a.y, ah[0][2], al[0][2]);
+  split_tf32(b.y, ah[0][3], al[0][3]);
+  split_tf32(a.z, ah[1][0], al[1][0]);
+  split_tf32(b.z, ah[1][1], al[1][1]);
+  split_tf32(a.w, ah[1][2], al[1][2]);
+  split_tf32(b.w, ah[1][3], al[1][3]);
 #pragma unroll
-      for (int c = 0; c < DC; c += 4) {
-        const int col = out_col<D>(tc, c);
-        store4(dkg + off + col,
-               make_float4(dk[kk][c] * p.sm_scale, dk[kk][c + 1] * p.sm_scale,
-                           dk[kk][c + 2] * p.sm_scale,
-                           dk[kk][c + 3] * p.sm_scale));
-        store4(dvg + off + col, make_float4(dv[kk][c], dv[kk][c + 1],
-                                            dv[kk][c + 2], dv[kk][c + 3]));
-      }
+  for (int m = 0; m < NB; ++m) {
+    const float4 x = *reinterpret_cast<const float4*>(bp + 8 * m * LD);
+    uint32_t bh[2][2], bl[2][2];
+    split_tf32(x.x, bh[0][0], bl[0][0]);
+    split_tf32(x.y, bh[0][1], bl[0][1]);
+    split_tf32(x.z, bh[1][0], bl[1][0]);
+    split_tf32(x.w, bh[1][1], bl[1][1]);
+    if constexpr (kSum) {
+      float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      mma3_tf32(s, ah[0], al[0], bh[0], bl[0]);
+      mma3_tf32(s, ah[1], al[1], bh[1], bl[1]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d[m][e] += s[e];
     } else {
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        dkg[off + out_col<D>(tc, c)] = dk[kk][c] * p.sm_scale;
-        dvg[off + out_col<D>(tc, c)] = dv[kk][c];
-      }
+      mma3_tf32(d[m], ah[0], al[0], bh[0], bl[0]);
+      mma3_tf32(d[m], ah[1], al[1], bh[1], bl[1]);
     }
   }
 }
 
-// dQ of one (batch, head, query tile) over the key tiles its rows see
-template <int D, bool kWin>
-__global__ void __launch_bounds__(kThreads, 1)
-bwd_dq_kernel(const BwdParams p) {
-  constexpr int kLd = D + 4;
-  constexpr int DC = D / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;
-  float* dos = qs + kRows * kLd;
-  float* ks = dos + kRows * kLd;
-  float* vs = ks + kKeys * kLd;
-  float* dst = vs + kKeys * kLd + kRows * kLdP;   // dS^float, [key][row]
-  float* lse_s = dst + kRows * kLdP;
-  float* delta_s = lse_s + kRows;
+// d += A B over two k-steps of 8 reduction rows each, for NCOL columns
+// of dh.  A's first (second) k-step is the accumulator block c0 (c1):
+// rows g, g + 8, columns 2t, 2t + 1, as it stands: its column 2t is A's
+// column t and column 2t + 1 A's column t + 4.  B's rows for those two are at r0 and
+// r1 (+ 8 LD for the second k-step): with NCOL a multiple of 16, float2
+// at column 2g of each 16-column slice (n8-block 2 i + x holds column
+// 16 i + 2 j + x at its column j); with NCOL 8, a float at column g.
+// Each n8-block's two k-steps are summed from zero, then added to d.
+template <int NCOL, int LD>
+__device__ __forceinline__ void mma3_rows(float (&d)[NCOL / 8][4],
+                                          const float (&c0)[4],
+                                          const float (&c1)[4],
+                                          const float* r0, const float* r1) {
+  uint32_t ah[2][4], al[2][4];
+  split_tf32(c0[0], ah[0][0], al[0][0]);
+  split_tf32(c0[2], ah[0][1], al[0][1]);
+  split_tf32(c0[1], ah[0][2], al[0][2]);
+  split_tf32(c0[3], ah[0][3], al[0][3]);
+  split_tf32(c1[0], ah[1][0], al[1][0]);
+  split_tf32(c1[2], ah[1][1], al[1][1]);
+  split_tf32(c1[1], ah[1][2], al[1][2]);
+  split_tf32(c1[3], ah[1][3], al[1][3]);
+  constexpr int kW = NCOL >= 16 ? 2 : 1;          // n8-blocks a read
+#pragma unroll
+  for (int i = 0; i < NCOL / (8 * kW); ++i) {
+    float s[kW][4] = {};
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      uint32_t bh[kW][2], bl[kW][2];
+      if constexpr (kW == 2) {
+        const float2 x0 =
+            *reinterpret_cast<const float2*>(r0 + 8 * k * LD + 16 * i);
+        const float2 x1 =
+            *reinterpret_cast<const float2*>(r1 + 8 * k * LD + 16 * i);
+        split_tf32(x0.x, bh[0][0], bl[0][0]);
+        split_tf32(x1.x, bh[0][1], bl[0][1]);
+        split_tf32(x0.y, bh[1][0], bl[1][0]);
+        split_tf32(x1.y, bh[1][1], bl[1][1]);
+      } else {
+        split_tf32(r0[8 * k * LD], bh[0][0], bl[0][0]);
+        split_tf32(r1[8 * k * LD], bh[0][1], bl[0][1]);
+      }
+#pragma unroll
+      for (int x = 0; x < kW; ++x) mma3_tf32(s[x], ah[k], al[k], bh[x], bl[x]);
+    }
+#pragma unroll
+    for (int x = 0; x < kW; ++x)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d[kW * i + x][e] += s[x][e];
+  }
+}
 
-  const int n_qt = (p.seq + kRows - 1) / kRows;
-  const int n_kt = (p.seq + kKeys - 1) / kKeys;
-  const int i = n_qt - 1 - static_cast<int>(blockIdx.x);  // long first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+// row g (r = 0) or g + 8 (r = 1) of an accumulator of NCOL columns laid
+// out as mma3_rows leaves it, times scale, at dst (its first column)
+template <int NCOL>
+__device__ __forceinline__ void store_row(float* dst,
+                                          const float (&a)[NCOL / 8][4],
+                                          int r, float scale) {
+  const int t = threadIdx.x & 3;
+  if constexpr (NCOL >= 16) {
+#pragma unroll
+    for (int i = 0; i < NCOL / 16; ++i)
+      *reinterpret_cast<float4*>(dst + 16 * i + 4 * t) = make_float4(
+          a[2 * i][2 * r] * scale, a[2 * i + 1][2 * r] * scale,
+          a[2 * i][2 * r + 1] * scale, a[2 * i + 1][2 * r + 1] * scale);
+  } else {
+    *reinterpret_cast<float2*>(dst + 2 * t) =
+        make_float2(a[0][2 * r] * scale, a[0][2 * r + 1] * scale);
+  }
+}
+
+// the two warps w and w + 4 of a pair meet (named barrier 1 + w % 4)
+__device__ __forceinline__ void pair_sync() {
+  asm volatile("bar.sync %0, 64;\n" :: "r"(1 + ((threadIdx.x >> 5) & 3))
+               : "memory");
+}
+
+// shared memory of a dK/dV block: K and V, kF32Ring stages of Q, dO and
+// their rows' lse and D, and each warp's P^T and dS^T for its partner
+template <int D>
+constexpr int dkdv_tf32_smem_bytes() {
+  return (2 * kF32Tile * f32_ld_a<D>()
+          + kF32Ring * (2 * dkdv_step<D>() * f32_ld_b<D>()
+                        + 2 * dkdv_step<D>())
+          + 8 * 16 * dkdv_step<D>()) * 4;
+}
+
+// shared memory of a dQ block: Q and dO, then kF32Ring stages of K and V
+template <int D>
+constexpr int dq_tf32_smem_bytes() {
+  return (2 * kF32Tile * f32_ld_a<D>()
+          + kF32Ring * 2 * kDqStep * f32_ld_b<D>()) * 4;
+}
+
+// dK and dV of one (batch, KV head, 64-key tile).  The warps of pair w %
+// 4 own keys 16 (w % 4) .. + 15 of the tile.  The ring walks the group's
+// query heads and, for each, the query tiles (of a stage's rows) that
+// see the tile's keys.  Per stage, warp w takes the first (w < 4) or
+// second half of the rows for S^T = K Q^T and dP^T = V dO^T (keys the M,
+// query rows the N), forms P^T and dS^T in registers and leaves them in
+// shared memory for its partner; then each warp of the pair runs dV +=
+// P^T dO and dK += dS^T Q over all the stage's rows for its half of dh's
+// columns, its own rows' A operands from its registers, its partner's
+// from shared memory.  A warp holds dK and dV for 16 keys and D / 2
+// columns.
+template <int D, bool kWin>
+__global__ void __launch_bounds__(kF32Threads, 1)
+bwd_dkdv_tf32_kernel(const BwdParams p) {
+  constexpr int kStep = dkdv_step<D>();
+  constexpr int kHalf = kStep / 2;                 // a warp's rows
+  constexpr int kNB = kHalf / 8;                   // its n8-blocks
+  constexpr int kCols = D / 2;                     // its columns of dK, dV
+  constexpr int kLdA = f32_ld_a<D>();
+  constexpr int kLdB = f32_ld_b<D>();
+  constexpr int kStage = 2 * kStep * kLdB + 2 * kStep;  // floats
+  constexpr int kXch = 16 * kHalf;                 // a warp's P^T (dS^T)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* const k_tile = reinterpret_cast<float*>(smem_raw);
+  float* const v_tile = k_tile + kF32Tile * kLdA;
+  float* const ring = v_tile + kF32Tile * kLdA;    // Q, dO, lse, D
+  float* const xch = ring + kF32Ring * kStage;
+  const uint32_t k_s = smem_addr(smem_raw);
+  const uint32_t v_s = k_s + kF32Tile * kLdA * 4;
+  const uint32_t ring_s = v_s + kF32Tile * kLdA * 4;
+
+  const int kvh = blockIdx.x;
+  const int b = blockIdx.y;
+  const int k0 = blockIdx.z * kF32Tile;     // tile 0 (causal: the longest)
+  const int n_qt = (p.seq + kStep - 1) / kStep;
+  // the query tiles that see a key of the tile
+  const int i_lo = p.causal ? k0 / kStep : 0;
+  int i_hi = n_qt;
+  if constexpr (kWin)
+    i_hi = min(n_qt, (k0 + kF32Tile - 2 + p.window) / kStep + 1);
+  const int n_i = i_hi - i_lo;
+  const int n_steps = p.group * n_i;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int hf = warp >> 2;                 // which half of a stage's rows
+  const int kw = k0 + 16 * (warp & 3);      // the pair's first key
+  const int half = kHalf * hf;              // this warp's first row
+  const int col0 = kCols * hf;              // its first column of dK, dV
+  const long long o_ss = static_cast<long long>(p.n_heads) * D;
+  // P^T then dS^T, block m's fragment at [m][lane][4]
+  float* const mine = xch + warp * 2 * kXch;
+  const float* const theirs = xch + (warp ^ 4) * 2 * kXch;
+
+  // stage n's copies: the Q and dO rows of query tile i_lo + n % n_i of
+  // head kvh * group + n / n_i, and their lse and D, slot j of each 8
+  // holding row perm8(j)
+  auto load_stage = [&](int n) {
+    const int h = kvh * p.group + n / n_i;
+    const int q0 = (i_lo + n % n_i) * kStep;
+    const uint32_t dst = ring_s + (n % kF32Ring) * kStage * 4;
+    copy_rows<D, kStep, kLdB>(
+        dst, static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh,
+        p.q_ss, q0, p.seq);
+    copy_rows<D, kStep, kLdB>(
+        dst + kStep * kLdB * 4,
+        static_cast<const float*>(p.dout)
+            + static_cast<long long>(b) * p.seq * o_ss + h * D,
+        o_ss, q0, p.seq);
+    if (threadIdx.x < 2 * kStep) {
+      const int j = threadIdx.x % kStep;
+      const int row = q0 + (j & ~7) + perm8(j & 7);
+      const bool valid = row < p.seq;
+      const float* src = threadIdx.x < kStep ? p.lse : p.delta;
+      cp_async4(dst + (2 * kStep * kLdB + threadIdx.x) * 4,
+                src + (static_cast<long long>(b) * p.n_heads + h) * p.seq
+                    + (valid ? row : 0),
+                valid);
+    }
+  };
+
+  // K and V with the first stage: one group of copies
+  copy_rows<D, kF32Tile, kLdA>(
+      k_s, static_cast<const float*>(p.k) + b * p.k_sb + kvh * p.k_sh, p.k_ss,
+      k0, p.seq);
+  copy_rows<D, kF32Tile, kLdA>(
+      v_s, static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sh, p.v_ss,
+      k0, p.seq);
+  load_stage(0);                            // n_steps >= group >= 1
+  cp_async_commit();
+
+  float dk[kCols / 8][4], dv[kCols / 8][4];
+  zero(dk);
+  zero(dv);
+  const float scale = p.sm_scale * kLog2e;
+  // the pair's K and V rows g and g + 8, at column 4 t
+  const float* k_rows = k_tile + (kw - k0 + g) * kLdA + 4 * t;
+  const float* v_rows = v_tile + (kw - k0 + g) * kLdA + 4 * t;
+  const int key_a = kw + g;
+  const int key_b = key_a + 8;
+  // B's rows: of the first products, row perm8(g) of each block, float4
+  // at column 4t; of the last, rows perm8(2t) and perm8(2t + 1) of each
+  // block, at this warp's columns (mma3_rows)
+  const int b_first = (half + perm8(g)) * kLdB + 4 * t;
+  const int col_b = col0 + (kCols >= 16 ? 2 * g : g);
+  const int b_last0 = perm8(2 * t) * kLdB + col_b;
+  const int b_last1 = perm8(2 * t + 1) * kLdB + col_b;
+
+  for (int n = 0; n < n_steps; ++n) {
+    const float* qs = ring + (n % kF32Ring) * kStage;
+    const float* dos = qs + kStep * kLdB;
+    cp_async_wait<0>();        // this stage's copies have landed
+    __syncthreads();           // and every warp is done with the last one
+    if (n + 1 < n_steps) {     // into the last one's slot
+      load_stage(n + 1);
+      cp_async_commit();
+    }
+    const int rs = (i_lo + n % n_i) * kStep;       // the stage's first row
+    // whether half x of the stage's rows sees a key of the pair's 16: not
+    // if the keys or rows lie past S, (causal) every key after every row,
+    // (window) every row a window or more past every key
+    auto sees = [&](int x) {
+      const int ra = rs + kHalf * x;
+      bool any = kw < p.seq && ra < p.seq
+                 && !(p.causal && kw > ra + kHalf - 1);
+      if constexpr (kWin) any = any && ra - (kw + 15) < p.window;
+      return any;
+    };
+    const bool own = sees(hf);
+    const bool other = sees(hf ^ 1);
+    if (!own && !other) continue;            // the pair agrees
+    float st[kNB][4], dpt[kNB][4];
+    if (own) {
+      const int r0 = rs + half;                    // this warp's first row
+      const float* rows = dos + kStep * kLdB + half;   // lse, D slots
+      // S^T = K Q^T and dP^T = V dO^T over the warp's rows: block m's
+      // column c is row 8 m + perm8(c)
+      zero(st);
+      zero(dpt);
+#pragma unroll
+      for (int i = 0; i < D / 16; ++i)
+        mma3_slice<kNB, kLdB, false>(
+            st, *reinterpret_cast<const float4*>(k_rows + 16 * i),
+            *reinterpret_cast<const float4*>(k_rows + 8 * kLdA + 16 * i),
+            qs + b_first + 16 * i);
+#pragma unroll
+      for (int i = 0; i < D / 16; ++i)
+        mma3_slice<kNB, kLdB, true>(
+            dpt, *reinterpret_cast<const float4*>(v_rows + 16 * i),
+            *reinterpret_cast<const float4*>(v_rows + 8 * kLdA + 16 * i),
+            dos + b_first + 16 * i);
+
+      // P^T = exp2(S^T scale - lse log2 e), masked entries 0, and dS^T =
+      // P^T (dP^T - D); element e of block m: key key_a (key_b for e >=
+      // 2), row r0 + 8 m + perm8(2 t + (e & 1))
+      bool edge = kw + 15 >= p.seq || r0 + kHalf - 1 >= p.seq
+                  || (p.causal && kw + 15 > r0);
+      if constexpr (kWin) edge = edge || r0 + kHalf - 1 - kw >= p.window;
+#pragma unroll
+      for (int m = 0; m < kNB; ++m) {
+        const float2 l2 = *reinterpret_cast<const float2*>(rows + 8 * m
+                                                           + 2 * t);
+        const float2 d2 = *reinterpret_cast<const float2*>(
+            rows + kStep + 8 * m + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float pv = exp2f(fmaf(st[m][e], scale,
+                                -((e & 1) ? l2.y : l2.x) * kLog2e));
+          if (edge) {
+            const int row = r0 + 8 * m + perm8(2 * t + (e & 1));
+            const int key = e < 2 ? key_a : key_b;
+            bool keep = row < p.seq && key < p.seq
+                        && !(p.causal && key > row);
+            if constexpr (kWin) keep = keep && row - key < p.window;
+            if (!keep) pv = 0.0f;
+          }
+          st[m][e] = pv;
+          dpt[m][e] = pv * (dpt[m][e] - ((e & 1) ? d2.y : d2.x));
+        }
+        *reinterpret_cast<float4*>(mine + (m * 32 + lane) * 4) =
+            make_float4(st[m][0], st[m][1], st[m][2], st[m][3]);
+        *reinterpret_cast<float4*>(mine + kXch + (m * 32 + lane) * 4) =
+            make_float4(dpt[m][0], dpt[m][1], dpt[m][2], dpt[m][3]);
+      }
+    }
+    pair_sync();               // each warp's P^T and dS^T are out
+
+    // dV += P^T dO and dK += dS^T Q over the rows of half x, two k-steps
+    // (blocks) at a time
+    auto last = [&](const float (&pt)[kNB][4], const float (&dst)[kNB][4],
+                    int x) {
+#pragma unroll
+      for (int m = 0; m < kNB; m += 2) {
+        const int r = (kHalf * x + 8 * m) * kLdB;
+        mma3_rows<kCols, kLdB>(dv, pt[m], pt[m + 1], dos + r + b_last0,
+                               dos + r + b_last1);
+        mma3_rows<kCols, kLdB>(dk, dst[m], dst[m + 1], qs + r + b_last0,
+                               qs + r + b_last1);
+      }
+    };
+    if (own) last(st, dpt, hf);
+    if (other) {
+#pragma unroll
+      for (int m = 0; m < kNB; ++m) {
+        const float4 a = *reinterpret_cast<const float4*>(
+            theirs + (m * 32 + lane) * 4);
+        const float4 c = *reinterpret_cast<const float4*>(
+            theirs + kXch + (m * 32 + lane) * 4);
+        st[m][0] = a.x, st[m][1] = a.y, st[m][2] = a.z, st[m][3] = a.w;
+        dpt[m][0] = c.x, dpt[m][1] = c.y, dpt[m][2] = c.z, dpt[m][3] = c.w;
+      }
+      last(st, dpt, hf ^ 1);
+    }
+  }
+
+  const int n_kv = p.n_heads / p.group;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = r ? key_b : key_a;
+    if (key >= p.seq) continue;
+    const long long off = ((static_cast<long long>(b) * p.seq + key) * n_kv
+                           + kvh) * D + col0;
+    store_row<kCols>(static_cast<float*>(p.dk) + off, dk, r, p.sm_scale);
+    store_row<kCols>(static_cast<float*>(p.dv) + off, dv, r, 1.0f);
+  }
+}
+
+// the sum of the two warps w and w + 4 that share 16 rows: warps 4 .. 7
+// leave their partial a (D / 2 floats a thread) at `red`, warps 0 .. 3
+// add it to theirs, in that order (the same bits every run).  The block
+// has finished with the shared memory at `red`.
+template <int D>
+__device__ __forceinline__ void add_partner(float (&a)[D / 8][4],
+                                            float* red) {
+  const int warp = threadIdx.x >> 5;
+  float* slot = red + (warp & 3) * (D / 2) * 32 + (threadIdx.x & 31);
+  __syncthreads();
+  if (warp >= 4) {
+#pragma unroll
+    for (int x = 0; x < D / 8; ++x)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) slot[(4 * x + e) * 32] = a[x][e];
+  }
+  __syncthreads();
+  if (warp < 4) {
+#pragma unroll
+    for (int x = 0; x < D / 8; ++x)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[x][e] += slot[(4 * x + e) * 32];
+  }
+}
+
+// dQ of one (batch, head, 64-row query tile).  Warp w owns rows
+// 16 (w % 4) .. + 15 of the tile and the first (w < 4) or second half of
+// each stage's keys.  The ring walks the key tiles (of a stage's keys)
+// the rows see; per stage S = Q K^T and dP = dO V^T, dS in registers as
+// the A operand of dQ += dS K.
+template <int D, bool kWin>
+__global__ void __launch_bounds__(kF32Threads, 1)
+bwd_dq_tf32_kernel(const BwdParams p) {
+  constexpr int kStep = kDqStep;
+  constexpr int kHalf = kStep / 2;                 // a warp's keys
+  constexpr int kNB = kHalf / 8;                   // its n8-blocks
+  constexpr int kLdA = f32_ld_a<D>();
+  constexpr int kLdB = f32_ld_b<D>();
+  constexpr int kStage = 2 * kStep * kLdB;         // floats
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* const q_tile = reinterpret_cast<float*>(smem_raw);
+  float* const do_tile = q_tile + kF32Tile * kLdA;
+  float* const ring = do_tile + kF32Tile * kLdA;   // K, V
+  const uint32_t q_s = smem_addr(smem_raw);
+  const uint32_t do_s = q_s + kF32Tile * kLdA * 4;
+  const uint32_t ring_s = do_s + kF32Tile * kLdA * 4;
+
+  const int n_qt = (p.seq + kF32Tile - 1) / kF32Tile;
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.z);  // long first
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
   const int kvh = h / p.group;
-  const int q0 = i * kRows;
-  const int j_hi = p.causal ? min(n_kt, (q0 + kRows - 1) / kKeys + 1)
+  const int q0 = qt * kF32Tile;
+  const int n_kt = (p.seq + kStep - 1) / kStep;
+  const int j_hi = p.causal ? min(n_kt, (q0 + kF32Tile - 1) / kStep + 1)
                             : n_kt;
   int j_lo = 0;
-  if constexpr (kWin) j_lo = max(0, q0 - p.window + 1) / kKeys;
-  const int rg = threadIdx.x / 16;           // rows 4 rg .. 4 rg + 3
-  const int tc = threadIdx.x % 16;
+  if constexpr (kWin) j_lo = max(0, q0 - p.window + 1) / kStep;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int rw = q0 + 16 * (warp & 3);      // this warp's first row
+  const int half = kHalf * (warp >> 2);     // its first key of a stage
+  const int row_a = rw + g;
+  const int row_b = row_a + 8;
   const long long o_ss = static_cast<long long>(p.n_heads) * D;
-
-  load_tile<D>(qs, static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh,
-               p.q_ss, q0, p.seq);
-  load_tile<D>(dos, static_cast<const float*>(p.dout)
-                        + static_cast<long long>(b) * p.seq * o_ss
-                        + static_cast<long long>(h) * D,
-               o_ss, q0, p.seq);
-  load_rows(lse_s, delta_s, p,
-            (static_cast<long long>(b) * p.n_heads + h) * p.seq, q0);
   const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + kvh * p.k_sh;
   const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sh;
 
-  float dq[4][DC];
+  // key tile j's K and V into its slot
+  auto load_stage = [&](int j) {
+    const uint32_t dst = ring_s + ((j - j_lo) % kF32Ring) * kStage * 4;
+    copy_rows<D, kStep, kLdB>(dst, kg, p.k_ss, j * kStep, p.seq);
+    copy_rows<D, kStep, kLdB>(dst + kStep * kLdB * 4, vg, p.v_ss, j * kStep,
+                              p.seq);
+  };
+
+  // Q and dO with the first stage: one group of copies
+  copy_rows<D, kF32Tile, kLdA>(
+      q_s, static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh, p.q_ss,
+      q0, p.seq);
+  copy_rows<D, kF32Tile, kLdA>(
+      do_s,
+      static_cast<const float*>(p.dout)
+          + static_cast<long long>(b) * p.seq * o_ss + h * D,
+      o_ss, q0, p.seq);
+  load_stage(j_lo);
+  cp_async_commit();
+
+  // the rows' logsumexp (log2 units) and D
+  const long long hrows = (static_cast<long long>(b) * p.n_heads + h) * p.seq;
+  float lse2[2], dl[2];
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) dq[a][c] = 0.0f;
+  for (int r = 0; r < 2; ++r) {
+    const int row = r ? row_b : row_a;
+    lse2[r] = row < p.seq ? p.lse[hrows + row] * kLog2e : 0.0f;
+    dl[r] = row < p.seq ? p.delta[hrows + row] : 0.0f;
+  }
+  float dq[D / 8][4];
+  zero(dq);
+  const float scale = p.sm_scale * kLog2e;
+  // this warp's Q and dO rows g and g + 8, at column 4 t
+  const float* q_rows = q_tile + (rw - q0 + g) * kLdA + 4 * t;
+  const float* do_rows = do_tile + (rw - q0 + g) * kLdA + 4 * t;
+  // B's rows (keys), as in the dK/dV kernel
+  const int b_first = (half + perm8(g)) * kLdB + 4 * t;
+  const int b_last0 = (half + perm8(2 * t)) * kLdB + 2 * g;
+  const int b_last1 = (half + perm8(2 * t + 1)) * kLdB + 2 * g;
 
   for (int j = j_lo; j < j_hi; ++j) {
-    const int k0 = j * kKeys;
-    __syncthreads();            // the previous tile's readers are done
-    load_tile<D>(ks, kg, p.k_ss, k0, p.seq);
-    load_tile<D>(vs, vg, p.v_ss, k0, p.seq);
-    __syncthreads();
-    float pr[4][4], ds[4][4];
-    tile_p_ds<D, kWin>(qs, dos, ks, vs, lse_s, delta_s, q0, k0, p, pr, ds);
-    const int tr = threadIdx.x / 16;
-#pragma unroll
-    for (int bb = 0; bb < 4; ++bb)
-      store4(dst + (tc + 16 * bb) * kLdP + tr * 4,
-             make_float4(ds[0][bb], ds[1][bb], ds[2][bb], ds[3][bb]));
-    __syncthreads();
-    // dQ += dS K over the tile's keys
+    const float* ks = ring + ((j - j_lo) % kF32Ring) * kStage;
+    const float* vs = ks + kStep * kLdB;
+    cp_async_wait<0>();        // this stage's copies have landed
+    __syncthreads();           // and every warp is done with the last one
+    if (j + 1 < j_hi) {        // into the last one's slot
+      load_stage(j + 1);
+      cp_async_commit();
+    }
+    const int kk = j * kStep + half;         // this warp's first key
+    // no row of this warp sees a key of its half: as in the dK/dV kernel
+    bool none = kk >= p.seq || rw >= p.seq || (p.causal && kk > rw + 15);
+    if constexpr (kWin) none = none || rw - (kk + kHalf - 1) >= p.window;
+    if (!none) {
+      // S = Q K^T and dP = dO V^T over the warp's keys: block n's column
+      // c is key 8 n + perm8(c)
+      float sc[kNB][4], dp[kNB][4];
+      zero(sc);
+      zero(dp);
+      // unrolled by 2: unrolled fully, the dh 128 kernel spills
 #pragma unroll 2
-    for (int c = 0; c < kKeys; ++c) {
-      const float4 s4 = load4(dst + c * kLdP + rg * 4);
-      const float sr[4] = {s4.x, s4.y, s4.z, s4.w};
-      float kv[DC];
-      if constexpr (DC >= 4) {
+      for (int i = 0; i < D / 16; ++i)
+        mma3_slice<kNB, kLdB, false>(
+            sc, *reinterpret_cast<const float4*>(q_rows + 16 * i),
+            *reinterpret_cast<const float4*>(q_rows + 8 * kLdA + 16 * i),
+            ks + b_first + 16 * i);
+#pragma unroll 2
+      for (int i = 0; i < D / 16; ++i)
+        mma3_slice<kNB, kLdB, true>(
+            dp, *reinterpret_cast<const float4*>(do_rows + 16 * i),
+            *reinterpret_cast<const float4*>(do_rows + 8 * kLdA + 16 * i),
+            vs + b_first + 16 * i);
+
+      // P = exp2(S scale - lse log2 e), masked entries 0, and dS = P (dP
+      // - D); element e of block n: row row_a (row_b for e >= 2), key
+      // kk + 8 n + perm8(2 t + (e & 1))
+      bool edge = kk + kHalf - 1 >= p.seq || rw + 15 >= p.seq
+                  || (p.causal && kk + kHalf - 1 > rw);
+      if constexpr (kWin) edge = edge || rw + 15 - kk >= p.window;
 #pragma unroll
-        for (int x = 0; x < DC; x += 4) {
-          const float4 k4 = load4(ks + c * kLd + out_col<D>(tc, x));
-          kv[x] = k4.x; kv[x + 1] = k4.y; kv[x + 2] = k4.z; kv[x + 3] = k4.w;
+      for (int n = 0; n < kNB; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          float pv = exp2f(fmaf(sc[n][e], scale, -lse2[r]));
+          if (edge) {
+            const int row = r ? row_b : row_a;
+            const int key = kk + 8 * n + perm8(2 * t + (e & 1));
+            bool keep = row < p.seq && key < p.seq
+                        && !(p.causal && key > row);
+            if constexpr (kWin) keep = keep && row - key < p.window;
+            if (!keep) pv = 0.0f;
+          }
+          dp[n][e] = pv * (dp[n][e] - dl[r]);
         }
-      } else {
-#pragma unroll
-        for (int x = 0; x < DC; ++x) kv[x] = ks[c * kLd + out_col<D>(tc, x)];
       }
+
+      // dQ += dS K, two k-steps (blocks) at a time
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int x = 0; x < DC; ++x) dq[a][x] = fmaf(sr[a], kv[x], dq[a][x]);
+      for (int n = 0; n < kNB; n += 2)
+        mma3_rows<D, kLdB>(dq, dp[n], dp[n + 1], ks + b_last0 + 8 * n * kLdB,
+                           ks + b_last1 + 8 * n * kLdB);
     }
   }
 
-  float* dqg = static_cast<float*>(p.dq);
+  // warps w and w + 4 hold two halves of the same rows' sums
+  static_assert(4 * 32 * D / 2 <= kF32Ring * kStage,
+                "partials fit the ring");
+  add_partner<D>(dq, ring);
+  if (warp < 4) {
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int row = q0 + rg * 4 + a;
-    if (row >= p.seq) continue;
-    const long long off = ((static_cast<long long>(b) * p.seq + row)
-                           * p.n_heads + h) * D;
-    if constexpr (DC >= 4) {
-#pragma unroll
-      for (int x = 0; x < DC; x += 4)
-        store4(dqg + off + out_col<D>(tc, x),
-               make_float4(dq[a][x] * p.sm_scale, dq[a][x + 1] * p.sm_scale,
-                           dq[a][x + 2] * p.sm_scale,
-                           dq[a][x + 3] * p.sm_scale));
-    } else {
-#pragma unroll
-      for (int x = 0; x < DC; ++x)
-        dqg[off + out_col<D>(tc, x)] = dq[a][x] * p.sm_scale;
+    for (int r = 0; r < 2; ++r) {
+      const int row = r ? row_b : row_a;
+      if (row >= p.seq) continue;
+      store_row<D>(static_cast<float*>(p.dq)
+                       + ((static_cast<long long>(b) * p.seq + row)
+                          * p.n_heads + h) * D,
+                   dq, r, p.sm_scale);
     }
   }
 }
-
 
 // ---------------------------------------------------------------------------
 // bfloat16 route: wgmma + TMA, warp-specialised
@@ -1048,20 +1370,25 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
 // the float32 route's dK/dV and dQ kernels: their shared memory, and a
 // launch
-template <int smem>
-int launch_pair(void (*dkdv)(BwdParams), void (*dq)(BwdParams), int threads,
-                const BwdParams& p, int batch, int n_kv_heads,
+template <int D, bool kWin>
+int launch_tf32(const BwdParams& p, int batch, int n_kv_heads,
                 cudaStream_t stream) {
+  constexpr int smem_kv = dkdv_tf32_smem_bytes<D>();
+  constexpr int smem_q = dq_tf32_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      bwd_dkdv_tf32_kernel<D, kWin>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(dq, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
+    err = cudaFuncSetAttribute(bwd_dq_tf32_kernel<D, kWin>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem_q);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_kt = (p.seq + kKeys - 1) / kKeys;
-  const int n_qt = (p.seq + kRows - 1) / kRows;
-  dkdv<<<dim3(n_kt, n_kv_heads, batch), threads, smem, stream>>>(p);
-  dq<<<dim3(n_qt, p.n_heads, batch), threads, smem, stream>>>(p);
+  const int n_t = (p.seq + kF32Tile - 1) / kF32Tile;   // key, query tiles
+  if (n_t > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  bwd_dkdv_tf32_kernel<D, kWin>
+      <<<dim3(n_kv_heads, batch, n_t), kF32Threads, smem_kv, stream>>>(p);
+  bwd_dq_tf32_kernel<D, kWin>
+      <<<dim3(p.n_heads, batch, n_t), kF32Threads, smem_q, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1115,7 +1442,7 @@ int launch_wgmma(const BwdParams& p, int batch, int n_kv_heads,
 }
 
 // the row pass, then the dK/dV and dQ kernels: wgmma for bfloat16,
-// scalar FMAs for float32
+// split TF32 on mma.sync for float32
 template <int D, bool kWin, typename T>
 int launch_bwd(const BwdParams& p, int batch, int n_kv_heads,
                cudaStream_t stream) {
@@ -1128,9 +1455,7 @@ int launch_bwd(const BwdParams& p, int batch, int n_kv_heads,
   if constexpr (std::is_same<T, bf16>::value)
     return launch_wgmma<D, kWin>(p, batch, n_kv_heads, stream);
   else
-    return launch_pair<bwd_smem_bytes<D>()>(
-        bwd_dkdv_kernel<D, kWin>, bwd_dq_kernel<D, kWin>, kThreads, p,
-        batch, n_kv_heads, stream);
+    return launch_tf32<D, kWin>(p, batch, n_kv_heads, stream);
 }
 
 template <bool kWin>

@@ -1,9 +1,14 @@
 // Hopper (sm_90a) building blocks shared by K5's forward (flashattn.cu)
-// and its backward (flashattn_bwd.cu): mbarriers, TMA tile loads through
-// tensor maps with the 128-byte swizzle, the shared-memory matrix
-// descriptor, the wgmma products both files issue (bf16 operands,
-// float32 sums), the rounding of an accumulator into a register A
-// operand, and the warp-specialised blocks' register split.
+// and its backward (flashattn_bwd.cu).  For the bfloat16 routes:
+// mbarriers, TMA tile loads through tensor maps with the 128-byte
+// swizzle, the shared-memory matrix descriptor, the wgmma products both
+// files issue (bf16 operands, float32 sums), the rounding of an
+// accumulator into a register A operand, and the warp-specialised
+// blocks' register split.  For the float32 routes: the split of a float32
+// operand into two TF32 halves, the mma.sync.m16n8k8 TF32 product and
+// the three-product sum that keeps float32 accuracy on the tensor cores,
+// and the cp.async copies (16 and 4 bytes, zero-filled past the end)
+// that fill their rings.
 //
 // Tiles are bf16 rows of a (dh, S, heads, B) view, in boxes of 64
 // columns (one 128-byte row) x `box_rows` rows; a 128-wide head is two
@@ -273,6 +278,66 @@ __device__ __forceinline__ float fast_exp2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// x = hi + lo for the TF32 tensor cores.  hi is x rounded to TF32 (10
+// mantissa bits) to nearest, ties away from zero: half a unit of TF32's
+// last place added to the bits, the 13 low bits cleared (what
+// cvt.rna.tf32.f32 gives, in two integer operations where cvt takes
+// four).  lo = x - hi is exact and goes in whole: the tensor core reads
+// a TF32 operand's top 19 bits, so it takes lo truncated to TF32, within
+// 2^-10 |lo| <= 2^-21 |x|.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d (16 x 8, float32) += a (16 x 8) b (8 x 8), TF32 operands
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b as three TF32 products, the small ones first: a_lo b_hi +
+// a_hi b_lo + a_hi b_hi (a_lo b_lo, 2^-22 of a b, is dropped)
+__device__ __forceinline__ void mma3_tf32(float (&d)[4],
+                                          const uint32_t (&ah)[4],
+                                          const uint32_t (&al)[4],
+                                          const uint32_t (&bh)[2],
+                                          const uint32_t (&bl)[2]) {
+  mma_tf32(d, al, bh);
+  mma_tf32(d, ah, bl);
+  mma_tf32(d, ah, bh);
+}
+
+// 16 bytes from device to shared memory, asynchronously; zeros when not
+// `valid` (src is then not read)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+// 4 bytes from device to shared memory, asynchronously (.ca: the .cg
+// form takes 16 bytes only); zeros when not `valid`
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// until at most N committed groups of this thread's copies are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // A (dh, S, heads, B) bf16 view with element strides (ss, sh, sb), in

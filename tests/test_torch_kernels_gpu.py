@@ -1289,23 +1289,22 @@ def test_flash_bwd_kernel_is_deterministic_and_reads_views(cuda, dtype, dh):
         assert torch.equal(x, y) and torch.equal(x, z)
 
 
-def _bf16_bwd_within_limit(cuda, dh, causal, window, s, h=6, n_kv=2):
-    """The bfloat16 backward against the plain one at one shape: one
-    launch counted, each gradient finite, in q's type and shape and
-    within FLASH_BWD_REL (a window of 1 leaves dq = dk = 0: their largest
+def _bwd_within_limit(cuda, dtype, dh, causal, window, s, h=6, n_kv=2):
+    """K5 bwd against the plain backward at one shape: one launch
+    counted, each gradient finite, in q's type and shape and within
+    FLASH_BWD_REL (a window of 1 leaves dq = dk = 0: their largest
     entry)."""
     before = dict(fa.launch_counts)
-    (q, k, v, *_), got, want = _bwd_case(cuda, torch.bfloat16, dh, causal,
-                                         window, s, h=h, n_kv=n_kv,
-                                         seed=s + dh + h)
+    (q, k, v, *_), got, want = _bwd_case(cuda, dtype, dh, causal, window, s,
+                                         h=h, n_kv=n_kv, seed=s + dh + h)
     name = fa.FLASHATTN_BWD if window is None else fa.FLASHATTN_BWD_WINDOW
     assert fa.launch_counts[name] == before[name] + 1
     for i, (g, w, x) in enumerate(zip(got, want, (q, k, v))):
-        assert g.dtype == torch.bfloat16 and g.shape == x.shape
+        assert g.dtype == dtype and g.shape == x.shape
         assert bool(torch.isfinite(g).all())
         gap = float((g.float() - w).abs().max()) if window == 1 and i < 2 \
             else _rel_l2(g.float(), w)
-        assert gap <= FLASH_BWD_REL[torch.bfloat16]
+        assert gap <= FLASH_BWD_REL[dtype]
 
 
 # The bfloat16 kernels' tiles: a dK/dV block owns 128 keys (64 a
@@ -1318,7 +1317,7 @@ def _bf16_bwd_within_limit(cuda, dh, causal, window, s, h=6, n_kv=2):
 def test_flash_bwd_bf16_tile_edges(cuda, dh, causal, s):
     """K5 bwd (bf16) at sequence lengths around its 64- and 128-wide
     tiles, causal and full."""
-    _bf16_bwd_within_limit(cuda, dh, causal, None, s)
+    _bwd_within_limit(cuda, torch.bfloat16, dh, causal, None, s)
 
 
 @pytest.mark.parametrize("dh", [64, 128])
@@ -1326,7 +1325,8 @@ def test_flash_bwd_bf16_tile_edges(cuda, dh, causal, s):
 def test_flash_bwd_bf16_window_edges(cuda, dh, window):
     """K5 bwd's window mode (bf16) at windows around its tiles and at
     gemma3's 1,024, over a sequence longer than each."""
-    _bf16_bwd_within_limit(cuda, dh, True, window, 1300, h=4)
+    _bwd_within_limit(cuda, torch.bfloat16, dh, True, window, 1300,
+                      h=4)
 
 
 @pytest.mark.parametrize("dh", [64, 128])
@@ -1335,7 +1335,40 @@ def test_flash_bwd_bf16_window_edges(cuda, dh, window):
 def test_flash_bwd_bf16_gqa_groups(cuda, dh, group, window):
     """K5 bwd (bf16) with 1, 3 and 4 query heads a KV head: a dK/dV
     block's ring walks every query head of its group."""
-    _bf16_bwd_within_limit(cuda, dh, True, window, 300, h=2 * group)
+    _bwd_within_limit(cuda, torch.bfloat16, dh, True, window, 300,
+                      h=2 * group)
+
+
+# The float32 kernels' tiles: a dK/dV block owns 64 keys (16 a pair of
+# warps) and streams query tiles of 64 rows (32 at dh 128), each warp of
+# a pair half of them in S^T and dP^T; a dQ block owns 64 rows and
+# streams key tiles of 64 (32 a warp).  S and the window on either side
+# of those edges.
+@pytest.mark.parametrize("dh", [16, 64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [31, 32, 33, 63, 64, 65, 127, 128, 129, 383])
+def test_flash_bwd_f32_tile_edges(cuda, dh, causal, s):
+    """K5 bwd (float32) at sequence lengths around its 32- and 64-wide
+    tiles, causal and full."""
+    _bwd_within_limit(cuda, torch.float32, dh, causal, None, s)
+
+
+@pytest.mark.parametrize("dh", [16, 64, 128])
+@pytest.mark.parametrize("window", [31, 32, 33, 63, 64, 65, 1024])
+def test_flash_bwd_f32_window_edges(cuda, dh, window):
+    """K5 bwd's window mode (float32) at windows around its tiles and at
+    gemma3's 1,024, over a sequence longer than each."""
+    _bwd_within_limit(cuda, torch.float32, dh, True, window, 1300, h=4)
+
+
+@pytest.mark.parametrize("dh", [16, 64, 128])
+@pytest.mark.parametrize("group", [1, 3, 4])
+@pytest.mark.parametrize("window", [None, 100])
+def test_flash_bwd_f32_gqa_groups(cuda, dh, group, window):
+    """K5 bwd (float32) with 1, 3 and 4 query heads a KV head: a dK/dV
+    block's ring walks every query head of its group."""
+    _bwd_within_limit(cuda, torch.float32, dh, True, window, 300,
+                      h=2 * group)
 
 
 def test_flash_bwd_kernel_control_fails(cuda):
